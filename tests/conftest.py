@@ -20,6 +20,13 @@ SRC = os.path.join(REPO, "src")
 TEST_TIMEOUT_S = int(os.environ.get("REPRO_TEST_TIMEOUT", "600"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU; the test skips itself when none is present",
+    )
+
+
 @pytest.hookimpl(hookwrapper=True)
 def pytest_runtest_call(item):
     # hookwrapper (not wrapper=True) style for pytest>=7.4 compatibility

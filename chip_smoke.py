@@ -8,19 +8,34 @@ drives the port's main path — ``repro_torch.plan(M, PlanConfig(...))``
 ``.spmv(v)`` / ``.spmm(X)`` — on the Table-3 matrix ``crankseg_2`` at its
 published size (63,838 x 63,838, 14,148,858 nonzeros; the repository's
 structure-matched surrogate, seed 0) with ``l=256, c_blk=8``, both
-layouts (padded, ragged) and both value types (float32, int8), resident
-gather and single-buffered kernels.
+layouts (padded, ragged) and both value types (float32, int8):
+
+  * the resident single-buffered plans (``gather="resident",
+    pipeline="single"``, load-balanced schedule): kernels
+    ``gust_spmv`` and ``gust_spmv_ragged``;
+  * the default plans (``gather`` and ``pipeline`` left at ``"auto"``)
+    over the load-balanced schedule, where the gather resolves resident
+    (kernels ``gust_spmv_db``, ``gust_spmv_ragged_db``), and over the
+    unbalanced one (``load_balance=False``), where it resolves
+    segment-local (``gust_spmv_local_db``, ``gust_spmv_ragged_local_db``).
 
 Checks, each fatal:
   * every kernel against its plain PyTorch version on the card, at the
     main path's shapes (B = 1 and 8): per element
     ``|kernel - plain| <= 1e-5 * (|M|·|x|)`` (sums are reordered: the
-    plain version's ``index_add_`` uses atomics on the card);
-  * the main path went through both kernels (launch counts, zeroed just
-    before it, are > 0);
+    plain version's ``index_add_`` uses atomics on the card); at B=1
+    bitwise against the plain version run on the CPU (the kernel's own
+    order); each double-buffered or segment-local kernel bitwise against
+    the single-buffered resident kernel of its layout on the same
+    artifact;
+  * the default plans resolve the gather named above;
+  * the main path went through all six kernels (launch counts, zeroed
+    just before it, are > 0);
   * its results against scipy in float64, per row
     ``|y - M·x| <= 1e-4 * (|M|·|x|)`` (int8: against the dequantized
-    matrix), finite and of the expected shape; padded == ragged bitwise.
+    matrix), finite and of the expected shape; padded == ragged bitwise
+    for each schedule; the default plans == the resident single plans
+    bitwise on the load-balanced schedule.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (times from CUDA events, bounds from this run's bytes), and as its last
@@ -43,11 +58,32 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 FULL_POWER_W = 700.0
 L, C_BLK, BATCH = 256, 8, 8
 TOL_KERNEL, TOL_MAIN = 1e-5, 1e-4
-REPLACES = {
-    "gust_spmv": "src/repro/kernels/gust_spmv.py:238",
-    "gust_spmv_ragged": "src/repro/kernels/gust_spmv_ragged.py:113",
+SOURCES = {
+    "gust_spmv.cu": "repro_torch/kernels/csrc/gust_spmv.cu",
+    "gust_spmv_db.cu": "repro_torch/kernels/csrc/gust_spmv_db.cu",
 }
-SOURCE = "repro_torch/kernels/csrc/gust_spmv.cu"
+#: name -> (layout, gather, source, TPU kernel it replaces)
+KERNELS = {
+    "gust_spmv": ("padded", "resident", "gust_spmv.cu",
+                  "src/repro/kernels/gust_spmv.py:238"),
+    "gust_spmv_ragged": ("ragged", "resident", "gust_spmv.cu",
+                         "src/repro/kernels/gust_spmv_ragged.py:113"),
+    "gust_spmv_db": ("padded", "resident", "gust_spmv_db.cu",
+                     "src/repro/kernels/gust_spmv.py:504"),
+    "gust_spmv_local_db": ("padded", "local", "gust_spmv_db.cu",
+                           "src/repro/kernels/gust_spmv.py:620"),
+    "gust_spmv_ragged_db": ("ragged", "resident", "gust_spmv_db.cu",
+                            "src/repro/kernels/gust_spmv_ragged.py:324"),
+    "gust_spmv_ragged_local_db": ("ragged", "local", "gust_spmv_db.cu",
+                                  "src/repro/kernels/gust_spmv_ragged.py:430"),
+}
+#: The single-buffered resident kernel of each layout: the bitwise
+#: yardstick of the double-buffered and segment-local ones.
+YARDSTICK = {"padded": "gust_spmv", "ragged": "gust_spmv_ragged"}
+#: Which schedules each kernel's phase runs on (load_balance values): the
+#: resident kernels on both, so that local and resident stand side by side
+#: on the unbalanced artifact; the local ones where the default picks them.
+PHASE_SCHEDULES = {"resident": (True, False), "local": (False,)}
 
 
 def log(msg):
@@ -70,27 +106,87 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def stream_args(art):
-    """Positional and keyword arguments of a kernel wrapper (minus x)."""
-    args = (art.m_blk, art.col_blk, art.row_blk)
-    if hasattr(art, "block_starts"):
-        args += (art.block_window, art.block_starts)
+def wrappers():
+    """name -> (wrapper, plain version)."""
+    import repro_torch.kernels.gust_spmv as k_pad
+    import repro_torch.kernels.gust_spmv_ragged as k_rag
+    import repro_torch.kernels.ref as plain
+
+    return {
+        "gust_spmv": (k_pad.gust_spmv, plain.gust_spmv_ref),
+        "gust_spmv_ragged": (k_rag.gust_spmv_ragged, plain.gust_spmv_ragged_ref),
+        "gust_spmv_db": (k_pad.gust_spmv_db, plain.gust_spmv_ref),
+        "gust_spmv_local_db": (k_pad.gust_spmv_local_db, plain.gust_spmv_local_ref),
+        "gust_spmv_ragged_db": (k_rag.gust_spmv_ragged_db, plain.gust_spmv_ragged_ref),
+        "gust_spmv_ragged_local_db": (k_rag.gust_spmv_ragged_local_db,
+                                      plain.gust_spmv_ragged_local_ref),
+    }
+
+
+def counters():
+    """name -> (module, attribute) of each kernel's launch count."""
+    import repro_torch.kernels.gust_spmv as k_pad
+    import repro_torch.kernels.gust_spmv_ragged as k_rag
+
+    return {
+        "gust_spmv": (k_pad, "launches"),
+        "gust_spmv_ragged": (k_rag, "launches"),
+        "gust_spmv_db": (k_pad, "db_launches"),
+        "gust_spmv_local_db": (k_pad, "local_db_launches"),
+        "gust_spmv_ragged_db": (k_rag, "db_launches"),
+        "gust_spmv_ragged_local_db": (k_rag, "local_db_launches"),
+    }
+
+
+def kernel_args(name, art):
+    """Positional arguments (minus x) of kernel ``name``'s wrapper and of
+    its plain version, and their keywords.  The plain ragged versions
+    steer blocks by ``block_window``, the kernels by ``block_starts``."""
+    local = KERNELS[name][1] == "local"
+    args = [art.m_blk, art.col_loc if local else art.col_blk, art.row_blk]
+    if local:
+        args.append(art.seg_blk)
+    pargs = list(args)
+    if KERNELS[name][0] == "ragged":
+        args += [art.block_window, art.block_starts]
+        pargs.append(art.block_window)
     kw = dict(num_windows=art.num_windows, l=art.l, c_blk=art.c_blk,
               scale_blk=art.scale_blk)
-    return args, kw
+    return args, pargs, kw
 
 
-def bytes_and_ops(art, xp, b, nnz):
+def referenced_tiles(art):
+    """Sum over blocks of the x tiles each block references: the strictly
+    increasing prefix of its ``seg_blk`` row."""
+    seg = art.seg_blk.cpu().numpy()
+    return int(seg.shape[0] + (seg[:, 1:] > seg[:, :-1]).sum())
+
+
+def bytes_and_ops(name, art, xp, b, nnz):
     """What one kernel call must move and compute: each input it reads
-    once (the stream, the scales, ``block_starts``, x), the (W, l, B)
-    output written once; a multiply and an add per nonzero and vector
-    column, plus the int8 dequant multiply per nonzero."""
-    read = [art.m_blk, art.col_blk, art.row_blk, art.scale_blk,
-            getattr(art, "block_starts", None), xp]  # block_window: unread
+    once (the stream, the scales, ``block_starts``, x; the segment-local
+    kernels read ``col_loc`` in place of ``col_blk`` and the referenced
+    prefix of each ``seg_blk`` row), the (W, l, B) output written once; a
+    multiply and an add per nonzero and vector column, plus the int8
+    dequant multiply per nonzero."""
+    local = KERNELS[name][1] == "local"
+    read = [art.m_blk, art.col_loc if local else art.col_blk, art.row_blk,
+            art.scale_blk, getattr(art, "block_starts", None), xp]  # block_window: unread
     moved = sum(t.numel() * t.element_size() for t in read if t is not None)
+    if local:
+        moved += referenced_tiles(art) * art.seg_blk.element_size()
     moved += art.num_windows * art.l * b * 4
     ops = nnz * b * 2 + (nnz if art.scale_blk is not None else 0)
     return moved, ops
+
+
+def x_tile_bytes(name, art, b):
+    """The x-tile copies a segment-local kernel makes (every referenced
+    tile of every block, from L2 in the main): a diagnostic beside the
+    bound, not part of it; None for the resident kernels."""
+    if KERNELS[name][1] != "local":
+        return None
+    return referenced_tiles(art) * art.l * b * 4
 
 
 def main() -> int:
@@ -104,9 +200,6 @@ def main() -> int:
     import scipy.sparse as sp
 
     import repro_torch
-    import repro_torch.kernels.gust_spmv as k_pad
-    import repro_torch.kernels.gust_spmv_ragged as k_rag
-    import repro_torch.kernels.ref as plain
     from repro_torch.core.packing import ScheduleCache
     from repro_torch.core.scheduler import sched_counters
     from repro_torch.data.matrices import REAL_WORLD_SUITE, make_real_world_surrogate
@@ -123,17 +216,27 @@ def main() -> int:
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     report = {"device": kind, "nvidia_smi": smi, "torch": torch.__version__}
+    kernel_fns = wrappers()
+    launch_counts = counters()
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
     _build.build()
     report["build_s"] = time.perf_counter() - t0
-    ptxas = [ln.strip() for info in _build.build_log.values()
-             for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
-    report["ptxas"] = ptxas
-    log(f"build: {report['build_s']:.1f} s, {len(ptxas)} ptxas lines")
+    report["ptxas"] = {}
+    for lib, info in _build.build_log.items():
+        lines = info["log"].splitlines()
+        regs = [int(r) for ln in lines for r in re.findall(r"Used (\d+) registers", ln)]
+        spills = [ln.strip() for ln in lines
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        report["ptxas"][lib] = {"seconds": info["seconds"], "kernels": len(regs),
+                                "max_registers": max(regs, default=None),
+                                "spilling": spills}
+        log(f"build {lib}: {info['seconds']:.1f} s, {len(regs)} kernels, "
+            f"max {max(regs, default=0)} registers, {len(spills)} with spills")
+    log(f"build: {report['build_s']:.1f} s")
 
-    # -- matrix, schedule, packs ---------------------------------------------
+    # -- matrix, schedules, packs ----------------------------------------------
     spec = REAL_WORLD_SUITE[0]
     t0 = time.perf_counter()
     coo = make_real_world_surrogate(spec, scale=1.0, seed=0)
@@ -142,12 +245,14 @@ def main() -> int:
     if (m, n, coo.nnz) != (spec.dim, spec.dim, spec.nnz):
         raise AssertionError(f"{spec.name}: got {m}x{n}, {coo.nnz} nnz")
     cache = ScheduleCache()
-    t0 = time.perf_counter()
-    cache.schedule(coo, L)  # before any tensor touches the card
-    report["schedule_s"] = time.perf_counter() - t0
+    report["schedule_s"] = {}
+    for lb in (True, False):  # before any tensor touches the card
+        t0 = time.perf_counter()
+        cache.schedule(coo, L, load_balance=lb)
+        report["schedule_s"][str(lb)] = time.perf_counter() - t0
     report["sched_counters"] = dict(sched_counters)
     log(f"{spec.name}: {m}x{n}, {coo.nnz} nnz; generate {report['generate_s']:.1f} s, "
-        f"schedule {report['schedule_s']:.1f} s")
+        f"schedule {json.dumps(report['schedule_s'])} s (load_balance True/False)")
 
     plans, t0 = {}, time.perf_counter()
     for layout in ("padded", "ragged"):
@@ -155,109 +260,148 @@ def main() -> int:
             cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout=layout,
                                          gather="resident", pipeline="single",
                                          value_dtype=vdt)
-            p = repro_torch.plan(coo, cfg, cache=cache, device="cuda")
-            p.artifact  # pack now, outside the timed main path
-            plans[layout, vdt] = p
+            plans["single", True, layout, vdt] = repro_torch.plan(
+                coo, cfg, cache=cache, device="cuda")
+            for lb in (True, False):
+                cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout=layout,
+                                             load_balance=lb, value_dtype=vdt)
+                plans["default", lb, layout, vdt] = repro_torch.plan(
+                    coo, cfg, cache=cache, device="cuda")
+    for p in plans.values():
+        p.artifact  # pack now, outside the timed main path
     torch.cuda.synchronize()
     report["pack_s"] = time.perf_counter() - t0
-    report["streams"] = {
-        f"{k[0]}/{k[1]}": {"slots": p.artifact.streamed_slots,
-                           "bytes": p.artifact.stream_bytes}
-        for k, p in plans.items()
-    }
-    log(f"packs: {report['pack_s']:.1f} s; {json.dumps(report['streams'])}")
+    report["streams"] = {}
+    for (mode, lb, layout, vdt), p in plans.items():
+        a = p.artifact
+        want = "resident" if lb else "local"
+        row = {"slots": a.streamed_slots, "bytes": a.stream_bytes, "s_blk": a.s_blk,
+               "seg_count": a.seg_count, "gather": p.gather_mode,
+               "referenced_tiles": referenced_tiles(a)}
+        report["streams"][f"{mode}/lb={lb}/{layout}/{vdt}"] = row
+        log(f"plan {mode} load_balance={lb} {layout} {vdt}: S_blk {a.s_blk} / "
+            f"seg_count {a.seg_count}, gather {p.gather_mode}, {a.streamed_slots} slots, "
+            f"{a.stream_bytes} bytes")
+        if mode == "default" and p.gather_mode != want:
+            raise AssertionError(
+                f"load_balance={lb} {layout} {vdt}: gather='auto' resolved "
+                f"{p.gather_mode!r}, not {want!r}: the run would not drive the "
+                "kernels it claims")
+    log(f"packs: {report['pack_s']:.1f} s")
 
     rng = np.random.default_rng(0)
     v = rng.standard_normal(n).astype(np.float32)
     X = rng.standard_normal((n, BATCH)).astype(np.float32)
-    wrappers = {"padded": ("gust_spmv", k_pad.gust_spmv, plain.gust_spmv_ref),
-                "ragged": ("gust_spmv_ragged", k_rag.gust_spmv_ragged,
-                           plain.gust_spmv_ragged_ref)}
+    xps = {b: _prep_x(torch.from_numpy(x).cuda(), n, L)
+           for b, x in ((1, v[:, None]), (BATCH, X))}
 
-    # -- kernel phase: each kernel against its plain version -------------------
-    variants, timed = [], []
-    for (layout, vdt), p in plans.items():
-        name, kernel, ref = wrappers[layout]
-        art = p.artifact
-        args, kw = stream_args(art)
-        # the plain ragged version steers blocks by block_window, the kernel
-        # by block_starts
-        pargs = args if layout == "padded" else args[:4]
-        abs_args = (art.m_blk.abs(),) + pargs[1:]
-        for b, x in ((1, v[:, None]), (BATCH, X)):
-            xp = _prep_x(torch.from_numpy(x).cuda(), n, L)
-            y_k = kernel(*args, xp, **kw)
-            y_p = ref(*pargs, xp, **kw)
-            mag = ref(*abs_args, xp.abs(), **kw)
-            torch.cuda.synchronize()
-            err = (y_k - y_p).abs()
-            if not bool(torch.isfinite(y_k).all()) or bool(
-                (err > TOL_KERNEL * mag).any()
-            ):
-                raise AssertionError(
-                    f"{name} {vdt} B={b}: kernel disagrees with its plain version "
-                    f"(max abs err {float(err.max()):.3e})"
-                )
-            row = {"kernel": name, "value_dtype": vdt, "B": b,
-                   "max_abs_err": float(err.max())}
-            if b == 1:  # on the CPU the plain version sums in the kernel's order
-                cpu_kw = dict(kw, scale_blk=None if art.scale_blk is None
-                              else art.scale_blk.cpu())
-                row["bitwise_vs_cpu_plain"] = bool(torch.equal(
-                    y_k.cpu(), ref(*[a.cpu() for a in pargs], xp.cpu(), **cpu_kw)))
-            variants.append(row)
-            timed.append((
-                row,
-                functools.partial(kernel, *args, xp, **kw),
-                functools.partial(ref, *pargs, xp, **kw),
-                xp[:n].contiguous(),
-                bytes_and_ops(art, xp, b, coo.nnz),
-            ))
-            log(f"kernel {name} {vdt} B={b}: max |kernel - plain| = "
-                f"{row['max_abs_err']:.3e}"
-                + (f", bitwise vs CPU plain: {row['bitwise_vs_cpu_plain']}"
-                   if b == 1 else ""))
+    # -- kernel phase: each kernel against its plain version ---------------------
+    variants, timed, cpu_plain = [], [], {}
+    for name, (layout, gather, _, _) in KERNELS.items():
+        kernel, ref = kernel_fns[name]
+        for lb in PHASE_SCHEDULES[gather]:
+            for vdt in ("float32", "int8"):
+                art = plans["default", lb, layout, vdt].artifact
+                args, pargs, kw = kernel_args(name, art)
+                abs_args = [art.m_blk.abs()] + pargs[1:]
+                for b, xp in xps.items():
+                    y_k = kernel(*args, xp, **kw)
+                    y_p = ref(*pargs, xp, **kw)
+                    mag = ref(*abs_args, xp.abs(), **kw)
+                    torch.cuda.synchronize()
+                    err = (y_k - y_p).abs()
+                    tag = f"{name} load_balance={lb} {vdt} B={b}"
+                    if not bool(torch.isfinite(y_k).all()) or bool(
+                        (err > TOL_KERNEL * mag).any()
+                    ):
+                        raise AssertionError(
+                            f"{tag}: kernel disagrees with its plain version "
+                            f"(max abs err {float(err.max()):.3e})")
+                    row = {"kernel": name, "load_balance": lb, "value_dtype": vdt,
+                           "B": b, "max_abs_err": float(err.max())}
+                    if name != YARDSTICK[layout]:
+                        yard, _ = kernel_fns[YARDSTICK[layout]]
+                        y_1 = yard(*kernel_args(YARDSTICK[layout], art)[0], xp, **kw)
+                        if not torch.equal(y_k, y_1):
+                            raise AssertionError(
+                                f"{tag}: differs bitwise from {YARDSTICK[layout]} "
+                                "on the same artifact")
+                        row["bitwise_vs_" + YARDSTICK[layout]] = True
+                    if b == 1:  # on the CPU the plain version sums in the kernel's order
+                        key = (lb, layout, vdt, gather)
+                        if key not in cpu_plain:
+                            cpu_kw = dict(kw, scale_blk=None if art.scale_blk is None
+                                          else art.scale_blk.cpu())
+                            cpu_plain[key] = ref(*[a.cpu() for a in pargs], xp.cpu(),
+                                                 **cpu_kw)
+                        if not torch.equal(y_k.cpu(), cpu_plain[key]):
+                            raise AssertionError(
+                                f"{tag}: differs bitwise from its plain version on the CPU")
+                        row["bitwise_vs_cpu_plain"] = True
+                    variants.append(row)
+                    timed.append((
+                        row,
+                        functools.partial(kernel, *args, xp, **kw),
+                        functools.partial(ref, *pargs, xp, **kw),
+                        xp[:n].contiguous(),
+                        bytes_and_ops(name, art, xp, b, coo.nnz),
+                    ))
+                    row["x_tile_bytes"] = x_tile_bytes(name, art, b)
+                    log(f"kernel {tag}: max |kernel - plain| = {row['max_abs_err']:.3e}; "
+                        + ", ".join(k for k, val in row.items()
+                                    if k.startswith("bitwise") and val))
+    del cpu_plain
 
     # -- main path ---------------------------------------------------------------
-    k_pad.launches = 0
-    k_rag.launches = 0
+    for mod, attr in launch_counts.values():
+        setattr(mod, attr, 0)
     outs = {}
     t0 = time.perf_counter()
     for key, p in plans.items():
         outs[key] = (p.spmv(v), p.spmm(X))
     torch.cuda.synchronize()
     report["main_path_s"] = time.perf_counter() - t0
-    launches = {"gust_spmv": k_pad.launches, "gust_spmv_ragged": k_rag.launches}
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in launch_counts.items()}
     log(f"main path: {report['main_path_s']:.3f} s, launches {launches}")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"the main path never launched {name}")
 
     csr = sp.csr_matrix((coo.vals.astype(np.float64), (coo.rows, coo.cols)), shape=(m, n))
-    dequant = {"float32": csr, "int8": dequantized_csr(plans["padded", "int8"].artifact)}
+    mats = {("float32", lb): csr for lb in (True, False)}
+    for lb in (True, False):
+        mats["int8", lb] = dequantized_csr(plans["default", lb, "padded", "int8"].artifact)
     checks = {}
-    for (layout, vdt), (y, Y) in outs.items():
-        mat = dequant[vdt]
+    for (mode, lb, layout, vdt), (y, Y) in outs.items():
+        mat = mats[vdt, lb]
         for tag, got, x in (("spmv", y, v), ("spmm", Y, X)):
             got = got.cpu().numpy().astype(np.float64)
             want_shape = (m,) if tag == "spmv" else (m, BATCH)
+            name = f"{mode}/lb={lb}/{layout}/{vdt}/{tag}"
             if got.shape != want_shape or not np.isfinite(got).all():
-                raise AssertionError(f"{layout}/{vdt} {tag}: shape {got.shape} or non-finite")
+                raise AssertionError(f"{name}: shape {got.shape} or non-finite")
             x64 = x.astype(np.float64)
             want = mat @ x64
             bound = TOL_MAIN * (abs(mat) @ np.abs(x64))
             worst = float(np.max(np.abs(got - want) - bound))
             if worst > 0:
-                raise AssertionError(f"{layout}/{vdt} {tag}: off scipy by {worst:.3e} "
-                                     "beyond the per-row bound")
-            checks[f"{layout}/{vdt}/{tag}"] = float(np.max(np.abs(got - want)))
-    for vdt in ("float32", "int8"):
-        for i, tag in enumerate(("spmv", "spmm")):
-            if not torch.equal(outs["padded", vdt][i], outs["ragged", vdt][i]):
-                raise AssertionError(f"{vdt} {tag}: padded and ragged differ")
+                raise AssertionError(f"{name}: off scipy by {worst:.3e} beyond the "
+                                     "per-row bound")
+            checks[name] = float(np.max(np.abs(got - want)))
+    for mode, lb in (("single", True), ("default", True), ("default", False)):
+        for vdt in ("float32", "int8"):
+            for i, tag in enumerate(("spmv", "spmm")):
+                pad, rag = outs[mode, lb, "padded", vdt][i], outs[mode, lb, "ragged", vdt][i]
+                if not torch.equal(pad, rag):
+                    raise AssertionError(f"{mode} lb={lb} {vdt} {tag}: padded and "
+                                         "ragged differ")
+                if mode == "default" and lb and not torch.equal(
+                        pad, outs["single", True, "padded", vdt][i]):
+                    raise AssertionError(f"{vdt} {tag}: the default plan differs from "
+                                         "the resident single-buffered plan")
     report["max_abs_err_vs_scipy"] = checks
     log(f"main path agrees with scipy (max abs err {max(checks.values()):.3e}); "
-        "padded == ragged bitwise")
+        "padded == ragged bitwise; default == single bitwise (load-balanced)")
 
     # -- timing ------------------------------------------------------------------------
     crow = torch.from_numpy(csr.indptr).cuda()
@@ -274,23 +418,25 @@ def main() -> int:
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         if power_w is not None and power_w < FULL_POWER_W:
             row["bound_ms_at_power_limit"] = row["bound_ms"] * FULL_POWER_W / power_w
-        log(f"time {row['kernel']} {row['value_dtype']} B={row['B']}: kernel "
-            f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms")
+        log(f"time {row['kernel']} load_balance={row['load_balance']} "
+            f"{row['value_dtype']} B={row['B']}: kernel {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+            f"library {row['library_ms']:.4f} ms")
     report["variants"] = variants
 
     kernels = []
-    for name in ("gust_spmv", "gust_spmv_ragged"):
-        head = next(r for r in variants if r["kernel"] == name
+    for name, (layout, gather, source, replaces) in KERNELS.items():
+        lb = PHASE_SCHEDULES[gather][0]
+        head = next(r for r in variants if r["kernel"] == name and r["load_balance"] == lb
                     and r["value_dtype"] == "float32" and r["B"] == 1)
         entry = {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[source],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in variants if r["kernel"] == name),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "variant": "float32 values, B=1",
+            "variant": f"float32 values, B=1, load_balance={lb}",
         }
         if "bound_ms_at_power_limit" in head:
             entry["bound_ms_at_power_limit"] = head["bound_ms_at_power_limit"]

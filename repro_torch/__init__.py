@@ -6,8 +6,7 @@ its hot path through CUDA kernels written for Hopper (``kernels/csrc``).
 Public API, exported lazily so that ``import repro_torch`` stays cheap:
 
     >>> import repro_torch
-    >>> p = repro_torch.plan(matrix, repro_torch.PlanConfig(
-    ...     gather="resident", pipeline="single"))          # device="cuda"
+    >>> p = repro_torch.plan(matrix, repro_torch.PlanConfig(l=256))  # device="cuda"
     >>> y = p.spmv(v)
 """
 

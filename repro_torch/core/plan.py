@@ -5,8 +5,7 @@ lazily on the plan's device, and execute it against any number of
 vectors.
 
     >>> import repro_torch
-    >>> p = repro_torch.plan(matrix, repro_torch.PlanConfig(
-    ...     l=256, gather="resident", pipeline="single"))
+    >>> p = repro_torch.plan(matrix, repro_torch.PlanConfig(l=256))
     >>> y = p.spmv(v)     # on the card, through the CUDA kernels
     >>> Y = p.spmm(X)
 
@@ -62,8 +61,10 @@ class PlanConfig:
     left at ``"auto"`` and ``None``.  ``mesh_axis`` is kept for
     :meth:`GustPlan.shard`, which comes with a later slice.  With
     ``gather="auto"`` and ``pipeline="auto"`` the reference's decision
-    points run unchanged; the modes they resolve to that are not ported
-    yet raise at execution (see :func:`repro_torch.kernels.ops.execute_spmm`).
+    points run unchanged, and every mode they resolve to runs on the
+    card.  The one mode not ported yet, ``pipeline="single"`` with a
+    resolved local gather, raises at execution on the card (see
+    :func:`repro_torch.kernels.ops.execute_spmm`).
     """
 
     l: int = 256
@@ -244,6 +245,11 @@ class GustPlan:
         a = self.artifact
         return resolve_gather(a.s_blk, a.seg_count)
 
+    def _pipeline(self) -> str:
+        """Resolved streaming mode: ``auto`` means double-buffered, as on
+        the reference's kernel path (the plain versions ignore it)."""
+        return "double" if self.config.pipeline == "auto" else self.config.pipeline
+
     def _pack(self):
         c = self.config
         ragged = self.layout == "ragged"
@@ -269,7 +275,7 @@ class GustPlan:
             c_blk=self.config.c_blk,
             transpose_io=transpose_io,
             gather=self.config.gather,
-            pipeline=self.config.pipeline,
+            pipeline=self._pipeline(),
         )
 
     def spmv(self, v) -> torch.Tensor:

@@ -5,8 +5,8 @@ interface, loaded with ``ctypes``: a build takes seconds, where a source
 that includes PyTorch's headers (``torch.utils.cpp_extension.load``)
 takes minutes.  Libraries land in ``build/kernels/`` at the repository
 root (listed in ``.gitignore``) under a name that carries a hash of the
-source and the flags, so an edited source is rebuilt and never loaded
-stale.  Nothing is built or imported when this module is imported.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and never loaded stale.  Nothing is built or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: Library name -> source in ``csrc/``.
-SOURCES = {"gust_spmv": "gust_spmv.cu"}
+SOURCES = {"gust_spmv": "gust_spmv.cu", "gust_spmv_db": "gust_spmv_db.cu"}
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -50,6 +50,20 @@ SIGNATURES = {
         # stream
         "gust_spmv_ragged": [_P] * 7 + [_I] * 6 + [_P],
     },
+    "gust_spmv_db": {
+        # m, col, row, scale, x, y, vdt, idt, W, blocks_per_window, l,
+        # c_blk, b, stream
+        "gust_spmv_db_padded": [_P] * 6 + [_I] * 7 + [_P],
+        # m, col, row, scale, x, y, block_starts, vdt, idt, W, l, c_blk, b,
+        # stream
+        "gust_spmv_db_ragged": [_P] * 7 + [_I] * 6 + [_P],
+        # m, col_loc, row, seg_blk, scale, x, y, vdt, idt, W,
+        # blocks_per_window, l, c_blk, s_blk, b, stream
+        "gust_spmv_local_db_padded": [_P] * 7 + [_I] * 8 + [_P],
+        # m, col_loc, row, seg_blk, scale, x, y, block_starts, vdt, idt, W,
+        # l, c_blk, s_blk, b, stream
+        "gust_spmv_local_db_ragged": [_P] * 8 + [_I] * 7 + [_P],
+    },
 }
 
 #: Library name -> {"seconds", "log"} of the builds this process ran
@@ -61,6 +75,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -1,0 +1,57 @@
+// Pieces that every GUST SpMV source shares: the value load (with the int8
+// dequant) and the mapping from the wrappers' dtype codes to kernel types.
+// The bitwise contracts between the sources (single == double, resident ==
+// local) rest on both being the same everywhere, so they live only here.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace gust {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
+
+// A stream value as f32; int8 is dequantized as float(q) * scale of its
+// pack-time block, rounded once.
+template <bool QUANT, typename V>
+__device__ __forceinline__ float load_value(V v, float scale) {
+  const float f = to_f32(v);
+  return QUANT ? __fmul_rn(f, scale) : f;
+}
+
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// Call f(Type<V>, Type<I>, std::bool_constant<QUANT>) for the wrappers'
+// codes — vdt: 0 float32, 1 bfloat16, 2 int8 (quantized, scale required);
+// idt: 0 int32, 1 int16 — and return its result; cudaErrorInvalidValue
+// for an unknown code.
+template <typename F>
+cudaError_t dispatch_dtypes(int vdt, int idt, F&& f) {
+  using Q = std::true_type;
+  using NQ = std::false_type;
+  if (idt == 0) {
+    if (vdt == 0) return f(Type<float>{}, Type<int32_t>{}, NQ{});
+    if (vdt == 1) return f(Type<__nv_bfloat16>{}, Type<int32_t>{}, NQ{});
+    if (vdt == 2) return f(Type<int8_t>{}, Type<int32_t>{}, Q{});
+  } else if (idt == 1) {
+    if (vdt == 0) return f(Type<float>{}, Type<int16_t>{}, NQ{});
+    if (vdt == 1) return f(Type<__nv_bfloat16>{}, Type<int16_t>{}, NQ{});
+    if (vdt == 2) return f(Type<int8_t>{}, Type<int16_t>{}, Q{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace gust

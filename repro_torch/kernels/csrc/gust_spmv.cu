@@ -39,21 +39,13 @@
 // per-cycle barrier and the scattered shared-memory adds keep this simple
 // first version well short of the memory bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gust_common.cuh"
 
 namespace {
 
-constexpr int kStage = 8;  // cycles whose (m, col, row) are loaded ahead
+using gust::load_value;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return static_cast<float>(v);
-}
+constexpr int kStage = 8;  // cycles whose (m, col, row) are loaded ahead
 
 template <typename V, typename I, bool QUANT, bool RAGGED, int BT>
 __global__ void __launch_bounds__(1024)
@@ -96,9 +88,7 @@ __global__ void __launch_bounds__(1024)
       for (int i = 0; i < kStage; ++i) {
         if (i < nc) {
           const size_t slot = base + (size_t)(c0 + i) * l;
-          float vi = to_f32(m[slot]);
-          if (QUANT) vi = __fmul_rn(vi, s);
-          v[i] = vi;
+          v[i] = load_value<QUANT>(m[slot], s);
           cc[i] = static_cast<int>(col[slot]);
           rr[i] = static_cast<int>(row[slot]);
         }
@@ -162,8 +152,7 @@ cudaError_t launch_typed(const void* m, const void* col, const void* row,
   return cudaGetLastError();
 }
 
-// vdt: 0 float32, 1 bfloat16, 2 int8 (then scale is required);
-// idt: 0 int32, 1 int16.
+// vdt and idt: the dtype codes of gust::dispatch_dtypes.
 template <bool RAGGED>
 cudaError_t dispatch(const void* m, const void* col, const void* row,
                      const float* scale, const float* x, float* y,
@@ -174,21 +163,12 @@ cudaError_t dispatch(const void* m, const void* col, const void* row,
       (vdt == 2) != (scale != nullptr)) {
     return cudaErrorInvalidValue;
   }
-#define GUST_LAUNCH(V, I, Q)                                                \
-  return launch_typed<V, I, Q, RAGGED>(m, col, row, scale, x, y,            \
-                                       block_starts, num_windows,           \
-                                       blocks_per_window, l, c_blk, b, stream)
-  if (idt == 0) {
-    if (vdt == 0) GUST_LAUNCH(float, int32_t, false);
-    if (vdt == 1) GUST_LAUNCH(__nv_bfloat16, int32_t, false);
-    if (vdt == 2) GUST_LAUNCH(int8_t, int32_t, true);
-  } else if (idt == 1) {
-    if (vdt == 0) GUST_LAUNCH(float, int16_t, false);
-    if (vdt == 1) GUST_LAUNCH(__nv_bfloat16, int16_t, false);
-    if (vdt == 2) GUST_LAUNCH(int8_t, int16_t, true);
-  }
-#undef GUST_LAUNCH
-  return cudaErrorInvalidValue;
+  return gust::dispatch_dtypes(vdt, idt, [&](auto v, auto i, auto q) {
+    return launch_typed<typename decltype(v)::type, typename decltype(i)::type,
+                        decltype(q)::value, RAGGED>(
+        m, col, row, scale, x, y, block_starts, num_windows,
+        blocks_per_window, l, c_blk, b, stream);
+  });
 }
 
 }  // namespace

@@ -1,39 +1,54 @@
-"""Padded GUST SpMV: wrapper of the CUDA kernel in ``csrc/gust_spmv.cu``.
+"""Padded GUST SpMV: wrappers of the CUDA kernels in ``csrc/``.
 
-Replaces the TPU kernel ``repro.kernels.gust_spmv.make_gust_spmv`` (and
-its int8 body ``_kernel_q``): per ``(c_blk, l)`` block of the padded
-stream, gather ``x[col]``, multiply by the value, and add into the
-window's ``(l, B)`` tile.  It is bound by memory: each stream slot is
-read once (value + 2 index bytes), plus the scales, x and y, at the
-card's 3.35 TB/s.  The kernel's design is described in its source.
+* :func:`gust_spmv` (``csrc/gust_spmv.cu``) replaces the TPU kernel
+  ``repro.kernels.gust_spmv.make_gust_spmv`` (and its int8 body
+  ``_kernel_q``): per ``(c_blk, l)`` block of the padded stream, gather
+  ``x[col]``, multiply by the value, and add into the window's ``(l, B)``
+  tile.
+* :func:`gust_spmv_db` (``csrc/gust_spmv_db.cu``) replaces
+  ``make_gust_spmv_db``: the same product with the stream copied into
+  shared memory ahead of use (double-buffered).
+* :func:`gust_spmv_local_db` (``csrc/gust_spmv_db.cu``) replaces
+  ``make_gust_spmv_local_db``: x read through the pack-time segment
+  table, its tiles streamed into shared memory ahead of use.
 
-On a CPU tensor the wrapper runs the plain version
-(:func:`repro_torch.kernels.ref.gust_spmv_ref`); on a CUDA tensor it
-launches the kernel or raises.  ``launches`` counts kernel launches.
+All are bound by memory: each stream slot is read once (value + 2 index
+bytes), plus the scales, x once (local: also the referenced prefix of
+the segment table) and y, at the card's 3.35 TB/s.  The kernels' design
+is described in their sources.
+
+On a CPU tensor a wrapper runs the plain version
+(:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel
+or raises.  ``launches``, ``db_launches`` and ``local_db_launches`` count
+the launches of each kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
-from .ref import gust_spmv_ref
+from .ref import gust_spmv_local_ref, gust_spmv_ref
 
-__all__ = ["gust_spmv"]
+__all__ = ["gust_spmv", "gust_spmv_db", "gust_spmv_local_db"]
 
 #: Kernel launches made by :func:`gust_spmv` in this process.
 launches = 0
+#: ... by :func:`gust_spmv_db`.
+db_launches = 0
+#: ... by :func:`gust_spmv_local_db`.
+local_db_launches = 0
 
 _VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _INDEX_CODES = {torch.int32: 0, torch.int16: 1}
 
 
-def check_stream_args(
+def _check_stream_args(
     m_blocks, col_blocks, row_blocks, x_padded, scale_blk, *, l, c_blk
 ):
-    """Validate what the CUDA kernels take, shared by the padded and
-    ragged wrappers; returns ``(value_code, index_code)``."""
+    """Validate the stream, x and scales a CUDA kernel takes; returns
+    ``(value_code, index_code)``."""
     dev = m_blocks.device
     if m_blocks.dtype not in _VALUE_CODES:
         raise TypeError(f"unsupported value dtype {m_blocks.dtype}")
@@ -77,10 +92,100 @@ def check_stream_args(
     return _VALUE_CODES[m_blocks.dtype], _INDEX_CODES[col_blocks.dtype]
 
 
-def raise_on_launch_error(lib, err: int, name: str) -> None:
+def _check_seg_blk(seg_blk, rows, c_blk, device) -> int:
+    """Validate a segment table for ``rows`` stream rows of ``c_blk``-row
+    blocks; returns ``S_blk``."""
+    t_blk = rows // c_blk
+    if (
+        seg_blk.dtype != torch.int32
+        or seg_blk.dim() != 2
+        or seg_blk.shape[0] != t_blk
+        or seg_blk.shape[1] < 1
+        or seg_blk.device != device
+        or not seg_blk.is_contiguous()
+    ):
+        raise ValueError(
+            f"seg_blk must be a contiguous int32 ({t_blk}, S_blk) tensor on "
+            f"{device}, got {seg_blk.dtype} {tuple(seg_blk.shape)} on "
+            f"{seg_blk.device}"
+        )
+    return seg_blk.shape[1]
+
+
+def _check_block_starts(block_starts, num_windows, device) -> None:
+    """Validate a ragged stream's per-window block prefix."""
+    if (
+        block_starts.dtype != torch.int32
+        or tuple(block_starts.shape) != (num_windows + 1,)
+        or block_starts.device != device
+        or not block_starts.is_contiguous()
+    ):
+        raise ValueError(
+            f"block_starts must be a contiguous int32 ({num_windows + 1},) "
+            f"tensor on {device}, got {block_starts.dtype} "
+            f"{tuple(block_starts.shape)} on {block_starts.device}"
+        )
+
+
+def _blocks_per_window(rows: int, num_windows: int, c_blk: int) -> int:
+    """Blocks per window of a padded stream; raises if it does not split."""
+    if num_windows < 1 or rows % (num_windows * c_blk):
+        raise ValueError(
+            f"{rows} stream rows do not split into {num_windows} windows of "
+            f"c_blk={c_blk} blocks (c_pad must be a multiple of c_blk)"
+        )
+    return rows // (num_windows * c_blk)
+
+
+def run_kernel(
+    lib_name: str,
+    entry: str,
+    m_blocks: torch.Tensor,
+    cols: torch.Tensor,  # col_blocks, or col_loc for the local kernels
+    row_blocks: torch.Tensor,
+    x_padded: torch.Tensor,
+    *,
+    num_windows: int,
+    l: int,
+    c_blk: int,
+    scale_blk: Optional[torch.Tensor],
+    blocks: Union[int, torch.Tensor],  # padded: blocks per window; ragged: block_starts
+    seg_blk: Optional[torch.Tensor] = None,  # the local kernels' segment table
+) -> torch.Tensor:
+    """Check the arguments of C entry point ``entry`` of library
+    ``lib_name`` (built at first use), allocate the (W, l, B) f32 output
+    and launch the kernel on the current stream of the stream's device.
+    Raises on a tensor the kernel does not take and on a failed launch.
+
+    The entry points take, in order: m, cols, row, [seg_blk], scale, x,
+    y, [block_starts], value code, index code, W, [blocks per window],
+    l, c_blk, [S_blk], B, stream."""
+    if m_blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {m_blocks.device}")
+    vdt, idt = _check_stream_args(
+        m_blocks, cols, row_blocks, x_padded, scale_blk, l=l, c_blk=c_blk
+    )
+    device, b = m_blocks.device, x_padded.shape[1]
+    ragged, local = isinstance(blocks, torch.Tensor), seg_blk is not None
+    if ragged:
+        _check_block_starts(blocks, num_windows, device)
+    if local:
+        s_blk = _check_seg_blk(seg_blk, m_blocks.shape[0], c_blk, device)
+    y = torch.empty(num_windows, l, b, dtype=torch.float32, device=device)
+    args = [m_blocks, cols, row_blocks] + ([seg_blk] if local else [])
+    args += [scale_blk, x_padded, y] + ([blocks] if ragged else [])
+    args += [vdt, idt, num_windows] + ([] if ragged else [blocks])
+    args += [l, c_blk] + ([s_blk] if local else []) + [b]
+    from ._build import load
+
+    lib = load(lib_name)
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.gust_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
+        raise RuntimeError(f"{entry} kernel launch failed: {msg} (cudaError {err})")
+    return y
 
 
 def gust_spmv(
@@ -96,35 +201,76 @@ def gust_spmv(
 ) -> torch.Tensor:
     """Padded-stream SpMM: returns the (W, l, B) f32 window tiles."""
     global launches
-    rows = m_blocks.shape[0]
-    if num_windows < 1 or rows % (num_windows * c_blk):
-        raise ValueError(
-            f"{rows} stream rows do not split into {num_windows} windows of "
-            f"c_blk={c_blk} blocks (c_pad must be a multiple of c_blk)"
-        )
+    bpw = _blocks_per_window(m_blocks.shape[0], num_windows, c_blk)
     if m_blocks.device.type == "cpu":
         return gust_spmv_ref(
             m_blocks, col_blocks, row_blocks, x_padded,
             num_windows=num_windows, l=l, scale_blk=scale_blk, c_blk=c_blk,
         )
-    if m_blocks.device.type != "cuda":
-        raise ValueError(f"unsupported device {m_blocks.device}")
-    vdt, idt = check_stream_args(
-        m_blocks, col_blocks, row_blocks, x_padded, scale_blk, l=l, c_blk=c_blk
+    y = run_kernel(
+        "gust_spmv", "gust_spmv_padded", m_blocks, col_blocks, row_blocks,
+        x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
+        scale_blk=scale_blk, blocks=bpw,
     )
-    from ._build import load
-
-    lib = load("gust_spmv")
-    b = x_padded.shape[1]
-    y = torch.empty(num_windows, l, b, dtype=torch.float32, device=m_blocks.device)
-    with torch.cuda.device(m_blocks.device):
-        err = lib.gust_spmv_padded(
-            m_blocks.data_ptr(), col_blocks.data_ptr(), row_blocks.data_ptr(),
-            scale_blk.data_ptr() if scale_blk is not None else None,
-            x_padded.data_ptr(), y.data_ptr(), vdt, idt, num_windows,
-            rows // (num_windows * c_blk), l, c_blk, b,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on_launch_error(lib, err, "gust_spmv")
     launches += 1
+    return y
+
+
+def gust_spmv_db(
+    m_blocks: torch.Tensor,  # (W*C_pad, l) values (0 in padding)
+    col_blocks: torch.Tensor,  # (W*C_pad, l) int32/int16
+    row_blocks: torch.Tensor,  # (W*C_pad, l) int32/int16 adder index
+    x_padded: torch.Tensor,  # (S*l, B) float32
+    *,
+    num_windows: int,
+    l: int,
+    c_blk: int = 8,
+    scale_blk: Optional[torch.Tensor] = None,  # (T_blk,) f32 for int8
+) -> torch.Tensor:
+    """Double-buffered padded-stream SpMM, the same result as
+    :func:`gust_spmv`: returns the (W, l, B) f32 window tiles."""
+    global db_launches
+    bpw = _blocks_per_window(m_blocks.shape[0], num_windows, c_blk)
+    if m_blocks.device.type == "cpu":
+        return gust_spmv_ref(
+            m_blocks, col_blocks, row_blocks, x_padded,
+            num_windows=num_windows, l=l, scale_blk=scale_blk, c_blk=c_blk,
+        )
+    y = run_kernel(
+        "gust_spmv_db", "gust_spmv_db_padded", m_blocks, col_blocks,
+        row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
+        scale_blk=scale_blk, blocks=bpw,
+    )
+    db_launches += 1
+    return y
+
+
+def gust_spmv_local_db(
+    m_blocks: torch.Tensor,  # (W*C_pad, l) values (0 in padding)
+    col_loc: torch.Tensor,  # (W*C_pad, l) int32/int16 block-local columns
+    row_blocks: torch.Tensor,  # (W*C_pad, l) int32/int16 adder index
+    seg_blk: torch.Tensor,  # (T_blk, S_blk) int32 segment table
+    x_padded: torch.Tensor,  # (S*l, B) float32
+    *,
+    num_windows: int,
+    l: int,
+    c_blk: int,
+    scale_blk: Optional[torch.Tensor] = None,  # (T_blk,) f32 for int8
+) -> torch.Tensor:
+    """Segment-local, double-buffered padded-stream SpMM: returns the
+    (W, l, B) f32 window tiles.  ``c_blk`` is the pack-time block height
+    the segment table was built at."""
+    global local_db_launches
+    bpw = _blocks_per_window(m_blocks.shape[0], num_windows, c_blk)
+    if m_blocks.device.type == "cpu":
+        return gust_spmv_local_ref(
+            m_blocks, col_loc, row_blocks, seg_blk, x_padded,
+            num_windows=num_windows, l=l, c_blk=c_blk, scale_blk=scale_blk,
+        )
+    y = run_kernel(
+        "gust_spmv_db", "gust_spmv_local_db_padded", m_blocks, col_loc,
+        row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
+        scale_blk=scale_blk, blocks=bpw, seg_blk=seg_blk,
+    )
+    local_db_launches += 1
     return y

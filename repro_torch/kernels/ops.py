@@ -3,8 +3,9 @@ layout (padded :class:`PackedSchedule` or ragged :class:`RaggedSchedule`).
 
 Counterpart of ``repro.kernels.ops.execute_spmm``.  The device of the
 artifact decides the path: on a CUDA artifact the hand-written kernels
-run (``gust_spmv`` / ``gust_spmv_ragged``), on a CPU artifact their
-plain PyTorch versions.  There is no fallback from one to the other.
+run, chosen by layout, gather and pipeline as the reference chooses its
+Pallas kernels; on a CPU artifact their plain PyTorch versions.  There
+is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -15,8 +16,12 @@ import torch
 
 from ..core.packing import PackedSchedule, RaggedSchedule, resolve_gather
 
-from .gust_spmv import gust_spmv
-from .gust_spmv_ragged import gust_spmv_ragged
+from .gust_spmv import gust_spmv, gust_spmv_db, gust_spmv_local_db
+from .gust_spmv_ragged import (
+    gust_spmv_ragged,
+    gust_spmv_ragged_db,
+    gust_spmv_ragged_local_db,
+)
 
 __all__ = ["execute_spmm", "normalize_choice", "EXECUTE_CHOICES"]
 
@@ -28,11 +33,8 @@ EXECUTE_CHOICES = {
     "pipeline": ("single", "double", "auto"),
 }
 
-#: Where the port's missing execution modes are queued.
-_ROADMAP = {
-    "local": "ROADMAP §2 items 3-4 (segment-local gather kernels)",
-    "double": "ROADMAP §2 items 5-8 (double-buffered kernels)",
-}
+#: Where the port's one missing execution mode is queued.
+_ROADMAP = "ROADMAP §2 items 3-4 (single-buffered segment-local kernels)"
 
 
 def normalize_choice(name: str, value: str, allowed: Tuple[str, ...] = None):
@@ -81,10 +83,13 @@ def execute_spmm(
     padded stream raises).  ``transpose_io=True`` takes and returns
     batch-major arrays: x (B, n) -> y (B, m).
 
-    ``gather`` and ``pipeline`` are the reference's knobs.  This slice
-    runs the resident gather with the single-buffered kernels; a resolved
-    ``gather="local"``, or ``pipeline="double"`` on the card (``"auto"``
-    means double there, as in the reference), raises
+    ``gather`` and ``pipeline`` are the reference's knobs, routed as the
+    reference routes its kernels: on the card, ``pipeline="double"`` (and
+    ``"auto"``, which means double-buffered there) runs the double-buffered
+    kernel of the layout and the resolved gather; ``pipeline="single"``
+    runs the single-buffered resident kernel.  The single-buffered
+    segment-local kernels are not ported yet: a resolved
+    ``gather="local"`` with ``pipeline="single"`` on the card raises
     ``NotImplementedError`` naming the ROADMAP item.  The plain path has
     no tile pipeline and ignores ``pipeline``, as the reference's jnp
     path does.  ``layout`` is an assertion: naming the wrong one raises.
@@ -132,31 +137,36 @@ def execute_spmm(
                 f"pack-time c_blk={packed.c_blk} blocks (re-pack at the "
                 f"desired block height)"
             )
-    if gather == "local":
+    local = gather == "local"
+    double = pipeline != "single"
+    if packed.device.type == "cuda" and local and not double:
         raise NotImplementedError(
-            f"gather='local' is not ported yet: {_ROADMAP['local']}; "
-            "use gather='resident'"
-        )
-    if packed.device.type == "cuda" and pipeline != "single":
-        raise NotImplementedError(
-            f"pipeline={pipeline!r} resolves to the double-buffered kernels, "
-            f"which are not ported yet: {_ROADMAP['double']}; use "
-            "pipeline='single'"
+            f"gather='local' with pipeline='single' is not ported yet: "
+            f"{_ROADMAP}; use pipeline='double' or gather='resident'"
         )
 
     xp = _prep_x(x, n, l)
+    # the execute-time c_blk applies only to the padded resident unquantized
+    # stream; a padded local one equals the pack-time c_blk (checked above)
+    kw = dict(num_windows=W, l=l, scale_blk=packed.scale_blk,
+              c_blk=packed.c_blk if ragged or quant else c_blk)
     if ragged:
-        y_win = gust_spmv_ragged(
-            packed.m_blk, packed.col_blk, packed.row_blk,
-            packed.block_window, packed.block_starts, xp,
-            num_windows=W, l=l, c_blk=packed.c_blk, scale_blk=packed.scale_blk,
+        blocks = (packed.block_window, packed.block_starts)
+        if local:
+            y_win = gust_spmv_ragged_local_db(
+                packed.m_blk, packed.col_loc, packed.row_blk, packed.seg_blk,
+                *blocks, xp, **kw,
+            )
+        else:
+            fn = gust_spmv_ragged_db if double else gust_spmv_ragged
+            y_win = fn(packed.m_blk, packed.col_blk, packed.row_blk, *blocks, xp, **kw)
+    elif local:
+        y_win = gust_spmv_local_db(
+            packed.m_blk, packed.col_loc, packed.row_blk, packed.seg_blk, xp, **kw
         )
     else:
-        y_win = gust_spmv(
-            packed.m_blk, packed.col_blk, packed.row_blk, xp,
-            num_windows=W, l=l, c_blk=packed.c_blk if quant else c_blk,
-            scale_blk=packed.scale_blk,
-        )
+        fn = gust_spmv_db if double else gust_spmv
+        y_win = fn(packed.m_blk, packed.col_blk, packed.row_blk, xp, **kw)
     b = xp.shape[1]
     y_sorted = y_win.reshape(W * l, b)
     if packed.identity_perm:

@@ -15,6 +15,13 @@ is the kernels' exact order; on the card ``index_add_`` uses atomics, so
 there the comparison is by tolerance.  Against the reference's oracles,
 which scatter every product straight into the window, sums are
 reordered: equal on exact-arithmetic inputs, close otherwise.
+
+The segment-local twins (``*_local_*``) read each slot's x value through
+the pack-time segment table — ``x[seg_blk[t, col_loc // l] * l + col_loc
+% l]`` — which maps every slot back to its original column, so they give
+the resident versions' bits.  They compute that column and gather x
+directly instead of building the reference's ``(T, S_blk*l, B)`` tile
+array (gigabytes at a real matrix's size); the values are the same.
 """
 
 from __future__ import annotations
@@ -24,8 +31,11 @@ import torch
 __all__ = [
     "dequant_ref",
     "gather_fill_ref",
+    "gather_fill_local_ref",
     "gust_spmv_ref",
+    "gust_spmv_local_ref",
     "gust_spmv_ragged_ref",
+    "gust_spmv_ragged_local_ref",
 ]
 
 
@@ -49,6 +59,36 @@ def gather_fill_ref(
     idx = col_blocks.reshape(-1).long()
     g = x_padded.float().index_select(0, idx)
     return g.reshape(*col_blocks.shape, x_padded.shape[1])
+
+
+def _local_columns(
+    col_loc: torch.Tensor,  # (T*c_blk, l) block-local columns
+    seg_blk: torch.Tensor,  # (T, S_blk) int32 per-block segment table
+    *,
+    l: int,
+    c_blk: int,
+) -> torch.Tensor:
+    """The original column of every slot of a segment-local stream:
+    ``seg_blk[t, col_loc // l] * l + col_loc % l`` (int64)."""
+    loc = col_loc.long()
+    blk = torch.arange(loc.shape[0], device=loc.device)[:, None] // c_blk
+    return seg_blk.long()[blk, loc // l] * l + loc % l
+
+
+def gather_fill_local_ref(
+    col_loc: torch.Tensor,  # (T*c_blk, l) block-local column indices
+    seg_blk: torch.Tensor,  # (T, S_blk) int32 per-block segment table
+    x_padded: torch.Tensor,  # (S*l, B) zero-padded vector
+    *,
+    l: int,
+    c_blk: int,
+) -> torch.Tensor:
+    """The segment-local Buffer Filler,
+    ``x[seg_blk[t, col_loc // l] * l + col_loc % l]``, (T, l, B) f32 —
+    the same values as :func:`gather_fill_ref` on the resident stream."""
+    return gather_fill_ref(
+        _local_columns(col_loc, seg_blk, l=l, c_blk=c_blk), x_padded
+    )
 
 
 def _block_window_accumulate(
@@ -101,6 +141,27 @@ def gust_spmv_ref(
     )
 
 
+def gust_spmv_local_ref(
+    m_blocks: torch.Tensor,  # (W*C_pad, l) values (0 in padding)
+    col_loc: torch.Tensor,  # (W*C_pad, l) block-local columns
+    row_blocks: torch.Tensor,  # (W*C_pad, l) int32/int16 adder index
+    seg_blk: torch.Tensor,  # (T_blk, S_blk) int32 segment table
+    x_padded: torch.Tensor,  # (S*l, B)
+    *,
+    num_windows: int,
+    l: int,
+    c_blk: int,
+    scale_blk: torch.Tensor = None,  # (T_blk,) f32 when the stream is int8
+) -> torch.Tensor:
+    """Padded layout, segment-local gather through the pack-time table;
+    the same accumulate as :func:`gust_spmv_ref`.  Returns (W, l, B) f32."""
+    cols = _local_columns(col_loc, seg_blk, l=l, c_blk=c_blk)
+    return gust_spmv_ref(
+        m_blocks, cols, row_blocks, x_padded, num_windows=num_windows, l=l,
+        scale_blk=scale_blk, c_blk=c_blk,
+    )
+
+
 def gust_spmv_ragged_ref(
     m_blocks: torch.Tensor,  # (T_blk*c_blk, l) values (0 in padding)
     col_blocks: torch.Tensor,  # (T_blk*c_blk, l) int32/int16
@@ -117,5 +178,28 @@ def gust_spmv_ragged_ref(
     block read from ``block_window``.  Returns (W, l, B) f32."""
     return _block_window_accumulate(
         m_blocks, col_blocks, row_blocks, block_window, x_padded,
+        num_windows=num_windows, l=l, c_blk=c_blk, scale_blk=scale_blk,
+    )
+
+
+def gust_spmv_ragged_local_ref(
+    m_blocks: torch.Tensor,  # (T_blk*c_blk, l) values (0 in padding)
+    col_loc: torch.Tensor,  # (T_blk*c_blk, l) block-local columns
+    row_blocks: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 adder index
+    seg_blk: torch.Tensor,  # (T_blk, S_blk) int32 segment table
+    block_window: torch.Tensor,  # (T_blk,) int32 window id of each block
+    x_padded: torch.Tensor,  # (S*l, B)
+    *,
+    num_windows: int,
+    l: int,
+    c_blk: int,
+    scale_blk: torch.Tensor = None,  # (T_blk,) f32 when the stream is int8
+) -> torch.Tensor:
+    """Ragged stream, segment-local gather: as
+    :func:`gust_spmv_ragged_ref` with each slot's column read through the
+    segment table.  Returns (W, l, B) f32."""
+    cols = _local_columns(col_loc, seg_blk, l=l, c_blk=c_blk)
+    return gust_spmv_ragged_ref(
+        m_blocks, cols, row_blocks, block_window, x_padded,
         num_windows=num_windows, l=l, c_blk=c_blk, scale_blk=scale_blk,
     )

@@ -9,8 +9,12 @@ it runs on a machine that has only the port's requirements:
 Against the plain version run on the card (``index_add_`` with atomics,
 so its order varies) the tolerance is ``rtol=1e-5, atol=1e-5``; against
 the plain version run on the CPU (the kernel's own order) the results
-must be bitwise equal.
+must be bitwise equal.  The double-buffered and segment-local kernels
+must also equal the single-buffered resident kernel of their layout
+bitwise on the same artifact (``torch.equal``, which takes +0 == -0).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -74,11 +78,47 @@ def _plain(art, xp):
     )
 
 
+def _run_db(art, xp, local):
+    """Kernel 5/7 (resident) or 6/8 (segment-local) on one artifact."""
+    kw = dict(num_windows=art.num_windows, l=art.l, c_blk=art.c_blk,
+              scale_blk=art.scale_blk)
+    if hasattr(art, "block_starts"):
+        blocks = (art.block_window, art.block_starts)
+        if local:
+            return k_rag.gust_spmv_ragged_local_db(
+                art.m_blk, art.col_loc, art.row_blk, art.seg_blk, *blocks, xp, **kw)
+        return k_rag.gust_spmv_ragged_db(
+            art.m_blk, art.col_blk, art.row_blk, *blocks, xp, **kw)
+    if local:
+        return k_pad.gust_spmv_local_db(
+            art.m_blk, art.col_loc, art.row_blk, art.seg_blk, xp, **kw)
+    return k_pad.gust_spmv_db(art.m_blk, art.col_blk, art.row_blk, xp, **kw)
+
+
+def shuffle_segment_table(art, seed):
+    """``art`` with each block's segment-table row in a random order and
+    ``col_loc`` remapped to match: the same matrix, through rows that are
+    not strictly increasing, which the packer never writes."""
+    seg = art.seg_blk.cpu().numpy()
+    perm = np.argsort(np.random.default_rng(seed).random(seg.shape), axis=1)
+    inv = np.argsort(perm, axis=1)  # old position -> new position
+    cl = art.col_loc.cpu().numpy().astype(np.int64)
+    t = np.arange(cl.shape[0])[:, None] // art.c_blk
+    new_cl = inv[t, cl // art.l] * art.l + cl % art.l
+    dev = art.seg_blk.device
+    return dataclasses.replace(
+        art,
+        seg_blk=torch.from_numpy(np.take_along_axis(seg, perm, axis=1)).to(dev),
+        col_loc=torch.from_numpy(new_cl).to(art.col_loc.dtype).to(dev),
+    )
+
+
 CASES = [  # (m, n, l, c_blk, b)
     (200, 300, 32, 8, 1),
     (130, 90, 12, 3, 9),  # l not a power of two, B across two column tiles
     (64, 20, 64, 16, 8),  # n < l, c_blk above the kernel's load stage
     (700, 700, 256, 8, 3),
+    (50, 40, 7, 1, 2),  # 7-byte int8 blocks: no 4-byte-aligned copy
 ]
 
 
@@ -105,16 +145,73 @@ def test_kernel_matches_plain(cuda, layout, vdt, idt, case):
     assert torch.equal(y.cpu(), plain_cpu)
 
 
+@pytest.mark.parametrize("local", [False, True], ids=["db", "local_db"])
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt,idt", [("float32", "int32"), ("bfloat16", "int16"),
+                                     ("int8", "int32"), ("int8", "int16")])
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_db_kernel_matches_plain_and_single(cuda, local, layout, vdt, idt, case):
+    """Kernels 5-8: against the plain version (card: tolerance; CPU:
+    bitwise) and bitwise against kernel 1/2 on the same artifact.  CASES
+    hold an l of 12 (rows of 12 int8/int16 values are not 16-byte
+    aligned), c_blk above the 8-cycle chunk, and B across two column
+    tiles."""
+    m, n, l, c_blk, b = CASES[case]
+    sched = schedule(_coo(_dense(case, m, n, 0.05)), l)
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    art_gpu = pack(sched, c_blk, vdt, idt, device=cuda)
+    art_cpu = pack(sched, c_blk, vdt, idt, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((n, b)).astype(np.float32))
+    xp_cpu = _prep_x(x, n, l)
+    xp = xp_cpu.to(cuda)
+    counter = k_rag if layout == "ragged" else k_pad
+    name = "local_db_launches" if local else "db_launches"
+    before = getattr(counter, name)
+    y = _run_db(art_gpu, xp, local)
+    torch.cuda.synchronize()
+    assert getattr(counter, name) == before + 1
+    torch.testing.assert_close(y, _plain(art_gpu, xp), rtol=1e-5, atol=1e-5)
+    assert torch.equal(y.cpu(), _run_db(art_cpu, xp_cpu, local))
+    assert torch.equal(y, _run(art_gpu, xp))
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt", ["float32", "int8"])
+@pytest.mark.parametrize("case", [0, 1, 3, 4])  # case 2: one segment, nothing to shuffle
+def test_local_kernel_takes_unordered_segment_tables(cuda, layout, vdt, case):
+    """Kernels 6/8 stream only the strictly increasing prefix of a table
+    row; a slot past it must still get its x value (read directly), so a
+    shuffled table gives the same bits as kernel 1/2 and as the plain
+    version on the CPU."""
+    m, n, l, c_blk, b = CASES[case]
+    sched = schedule(_coo(_dense(case, m, n, 0.05)), l)
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    art_gpu = pack(sched, c_blk, vdt, "int32", device=cuda)
+    shuffled = shuffle_segment_table(art_gpu, seed=case)
+    assert not torch.equal(shuffled.seg_blk, art_gpu.seg_blk)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((n, b)).astype(np.float32))
+    xp_cpu = _prep_x(x, n, l)
+    xp = xp_cpu.to(cuda)
+    y = _run_db(shuffled, xp, local=True)
+    assert torch.equal(y, _run(art_gpu, xp))
+    shuffled_cpu = dataclasses.replace(shuffled, **{
+        f.name: getattr(shuffled, f.name).cpu() for f in dataclasses.fields(shuffled)
+        if isinstance(getattr(shuffled, f.name), torch.Tensor)})
+    assert torch.equal(y.cpu(), _run_db(shuffled_cpu, xp_cpu, local=True))
+
+
 def test_row0_padding_collision(cuda):
     dense = np.zeros((8, 8), np.float32)
     dense[0, 1] = 3.0  # window 0: one real slot, on row 0
     dense[4:8, :] = np.arange(1, 33, dtype=np.float32).reshape(4, 8)
     x = np.arange(1, 9, dtype=np.float32)[:, None] - 4.0
     for layout in ("padded", "ragged"):
-        p = plan(dense, PlanConfig(l=4, c_blk=4, load_balance=False, layout=layout,
-                                   gather="resident", pipeline="single"), device=cuda)
-        y = p.spmm(x)
-        assert np.array_equal(y.cpu().numpy(), dense @ x)
+        for gather, pipeline in (("resident", "single"), ("resident", "double"),
+                                 ("local", "double")):
+            p = plan(dense, PlanConfig(l=4, c_blk=4, load_balance=False, layout=layout,
+                                       gather=gather, pipeline=pipeline), device=cuda)
+            y = p.spmm(x)
+            assert np.array_equal(y.cpu().numpy(), dense @ x), (layout, gather, pipeline)
 
 
 def test_plan_on_card_and_launch_errors(cuda):
@@ -127,8 +224,13 @@ def test_plan_on_card_and_launch_errors(cuda):
     assert (k_pad.launches, k_rag.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(y_pad, y_rag)
     np.testing.assert_allclose(y_pad.cpu().numpy(), dense @ v, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan(dense, PlanConfig(l=32, gather="resident"), device=cuda).spmv(v)
+    # the default config runs on the card, through a double-buffered kernel
+    p = plan(dense, PlanConfig(l=32), device=cuda)
+    counter = k_rag if p.layout == "ragged" else k_pad
+    name = "local_db_launches" if p.gather_mode == "local" else "db_launches"
+    before = getattr(counter, name)
+    assert torch.equal(p.spmv(v), y_pad)
+    assert getattr(counter, name) == before + 1
     art = plan(dense, cfg, layout="padded", device=cuda).artifact
     xp = torch.zeros(2, 288, device=cuda).T  # (S*l, 2), not contiguous
     with pytest.raises(ValueError, match="contiguous"):
@@ -137,3 +239,32 @@ def test_plan_on_card_and_launch_errors(cuda):
     with pytest.raises(ValueError, match="tensors on"):
         k_pad.gust_spmv(art.m_blk, art.col_blk, art.row_blk, xp.cpu(),
                         num_windows=art.num_windows, l=32, c_blk=art.c_blk)
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_local_single_is_not_ported(cuda, layout):
+    dense = _dense(2, 200, 300, 0.05)
+    p = plan(dense, PlanConfig(l=16, layout=layout, gather="local", pipeline="single"),
+             device=cuda)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §2 items 3-4"):
+        p.spmv(np.ones(300, np.float32))
+
+
+@pytest.mark.parametrize("vdt", ["float32", "int8"])
+@pytest.mark.parametrize("load_balance", [True, False])
+def test_default_plans_agree_across_layouts_gathers_pipelines(cuda, vdt, load_balance):
+    """Every (layout, gather, pipeline) the card runs gives the same bits
+    on one matrix: padded == ragged, resident == local, single == double."""
+    dense = _dense(4, 300, 900, 0.02)
+    X = np.random.default_rng(5).standard_normal((900, 3)).astype(np.float32)
+    ys = []
+    for layout in ("padded", "ragged"):
+        for gather, pipeline in (("resident", "single"), ("resident", "double"),
+                                 ("local", "double"), ("auto", "auto")):
+            cfg = PlanConfig(l=16, layout=layout, gather=gather, pipeline=pipeline,
+                             load_balance=load_balance, value_dtype=vdt)
+            ys.append(plan(dense, cfg, device=cuda).spmm(X))
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+    if vdt == "float32":
+        np.testing.assert_allclose(ys[0].cpu().numpy(), dense @ X, rtol=1e-4, atol=1e-4)

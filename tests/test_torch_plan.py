@@ -142,14 +142,61 @@ def test_import_loads_neither_jax_nor_repro():
 
 
 def test_unported_modes_raise_naming_the_roadmap():
-    _, _, port = _plans("padded", "float32")
-    x = torch.zeros(port.shape[1], 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.execute_spmm(port.artifact, x, gather="local")
-    # the plain path has no tile pipeline: "double" changes nothing there,
-    # as on the reference's jnp path
-    y = tops.execute_spmm(port.artifact, x, gather="resident", pipeline="double")
-    assert torch.equal(y, torch.zeros(port.shape[0], 1))
+    """The modes this test once saw raise now run on the CPU: a resolved
+    ``gather="local"`` runs the segment-local plain versions and matches
+    the reference's plain path, and the plain path ignores ``pipeline``.
+    The one mode still unported (``pipeline="single"`` with a local
+    gather) raises only on a CUDA artifact; ``tests/test_torch_gpu.py``
+    checks that it names the ROADMAP item."""
+    for layout in ("padded", "ragged"):
+        _, ref, port = _plans(layout, "float32")
+        x = np.random.default_rng(4).standard_normal((port.shape[1], 2)).astype(np.float32)
+        y = tops.execute_spmm(port.artifact, torch.from_numpy(x), gather="local",
+                              pipeline="single")
+        want = rops.execute_spmm(ref.artifact, jnp.asarray(x), use_kernel=False,
+                                 gather="local")
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+        assert torch.equal(y, tops.execute_spmm(port.artifact, torch.from_numpy(x),
+                                                gather="resident", pipeline="double"))
+    assert "ROADMAP §2 items 3-4" in tops._ROADMAP
+
+
+def _local_matrix(seed, m=256, n=1024, per_row=6):
+    """Rows whose columns sit in a narrow band around their diagonal
+    position: at l=8 (128 column segments) each block references few
+    segments, so ``gather="auto"`` resolves local."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m), per_row)
+    centre = rows * (n // m)
+    cols = np.clip(centre + rng.integers(-12, 12, rows.size), 0, n - 1)
+    dense = np.zeros((m, n), np.float32)
+    dense[rows, cols] = rng.standard_normal(rows.size).astype(np.float32)
+    r, c = np.nonzero(dense)
+    return dense, ((m, n), r.astype(np.int64), c.astype(np.int64), dense[r, c])
+
+
+@pytest.mark.parametrize("load_balance", [True, False])
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_default_config_matches_reference(load_balance, layout):
+    """``plan`` with ``gather`` and ``pipeline`` left at ``"auto"``, on a
+    matrix where ``gather="auto"`` resolves local, against ``repro.plan``
+    with the same config: the same resolved gather, results within
+    ``rtol=1e-5, atol=1e-6``, and the port's resident and local gathers
+    bitwise equal."""
+    dense, args = _local_matrix(7)
+    kw = dict(l=8, c_blk=8, layout=layout, load_balance=load_balance)
+    ref = repro.plan(RefCOO(*args), repro.PlanConfig(**kw), cache=None)
+    port = port_plan(PortCOO(*args), PortConfig(**kw), cache=None, device="cpu")
+    assert port.gather_mode == ref.gather_mode == "local"
+    assert port._pipeline() == "double"
+    x = np.random.default_rng(8).standard_normal((dense.shape[1], 3)).astype(np.float32)
+    y = port.spmm(x)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref.spmm(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(y.numpy(), dense @ x, rtol=1e-4, atol=1e-4)
+    resident = port_plan(PortCOO(*args), PortConfig(gather="resident", **kw),
+                         cache=None, device="cpu")
+    assert torch.equal(y, resident.spmm(x))
 
 
 def test_knob_rejections_match_reference_messages():

@@ -13,8 +13,10 @@
   padded and ragged streams agree bitwise; padding slots that share row
   0 with a real slot in one cycle add nothing.
 
-The CUDA kernels themselves are held against these plain versions by
-``tests/test_torch_gpu.py`` and ``chip_smoke.py`` on the card.
+The segment-local and double-buffered paths are in
+``tests/test_torch_local.py``.  The CUDA kernels themselves are held
+against these plain versions by ``tests/test_torch_gpu.py`` and
+``chip_smoke.py`` on the card.
 """
 
 import numpy as np
@@ -187,19 +189,39 @@ def test_padded_equals_ragged_bitwise(vdt):
     assert torch.equal(ys[0], ys[1])
 
 
+def _launch_counts():
+    return tuple(getattr(mod, name) for mod in (k_pad, k_rag)
+                 for name in ("launches", "db_launches", "local_db_launches"))
+
+
 def test_wrappers_take_the_plain_path_on_cpu():
     rng = np.random.default_rng(5)
     dense = _dense(rng, 40, 40, 0.1)
     xp = torch.from_numpy(_xp(rng, 40, 8, 2))
     _, pad = _artifacts(dense, 8, 4, "padded")
     _, rag = _artifacts(dense, 8, 4, "ragged")
-    before = (k_pad.launches, k_rag.launches)
+    before = _launch_counts()
     y1 = k_pad.gust_spmv(pad.m_blk, pad.col_blk, pad.row_blk, xp,
                          num_windows=pad.num_windows, l=8, c_blk=4)
     y2 = k_rag.gust_spmv_ragged(rag.m_blk, rag.col_blk, rag.row_blk,
                                 rag.block_window, rag.block_starts, xp,
                                 num_windows=rag.num_windows, l=8, c_blk=4)
-    assert (k_pad.launches, k_rag.launches) == before
+    ys = [
+        k_pad.gust_spmv_db(pad.m_blk, pad.col_blk, pad.row_blk, xp,
+                           num_windows=pad.num_windows, l=8, c_blk=4),
+        k_pad.gust_spmv_local_db(pad.m_blk, pad.col_loc, pad.row_blk, pad.seg_blk,
+                                 xp, num_windows=pad.num_windows, l=8, c_blk=4),
+        k_rag.gust_spmv_ragged_db(rag.m_blk, rag.col_blk, rag.row_blk,
+                                  rag.block_window, rag.block_starts, xp,
+                                  num_windows=rag.num_windows, l=8, c_blk=4),
+        k_rag.gust_spmv_ragged_local_db(rag.m_blk, rag.col_loc, rag.row_blk,
+                                        rag.seg_blk, rag.block_window,
+                                        rag.block_starts, xp,
+                                        num_windows=rag.num_windows, l=8, c_blk=4),
+    ]
+    assert _launch_counts() == before
+    for y in ys:
+        assert torch.equal(y, y1)
     assert torch.equal(y1, tref.gust_spmv_ref(
         pad.m_blk, pad.col_blk, pad.row_blk, xp, num_windows=pad.num_windows,
         l=8, c_blk=4))

@@ -3,43 +3,73 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``repro_torch/kernels/csrc``, then
-drives the port's main path — ``repro_torch.plan(M, PlanConfig(...))``
-``.spmv(v)`` / ``.spmm(X)`` — on the Table-3 matrix ``crankseg_2`` at its
-published size (63,838 x 63,838, 14,148,858 nonzeros; the repository's
-structure-matched surrogate, seed 0) with ``l=256, c_blk=8``, both
-layouts (padded, ragged) and both value types (float32, int8):
+Builds the port's CUDA kernels from ``repro_torch/kernels/csrc`` (one
+``nvcc`` per source, in parallel), then drives three paths of the port,
+each with the launch counts zeroed just before it and read just after:
 
-  * the resident single-buffered plans (``gather="resident",
-    pipeline="single"``, load-balanced schedule): kernels
-    ``gust_spmv`` and ``gust_spmv_ragged``;
-  * the default plans (``gather`` and ``pipeline`` left at ``"auto"``)
-    over the load-balanced schedule, where the gather resolves resident
-    (kernels ``gust_spmv_db``, ``gust_spmv_ragged_db``), and over the
-    unbalanced one (``load_balance=False``), where it resolves
-    segment-local (``gust_spmv_local_db``, ``gust_spmv_ragged_local_db``).
+1. **SpMV** — ``repro_torch.plan(M, PlanConfig(...)).spmv(v)`` /
+   ``.spmm(X)`` on the Table-3 matrix ``crankseg_2`` at its published
+   size (63,838 x 63,838, 14,148,858 nonzeros; the repository's
+   structure-matched surrogate, seed 0) with ``l=256, c_blk=8``, both
+   layouts and both value types (float32, int8):
+
+   * the resident single-buffered plans (``gather="resident",
+     pipeline="single"``, load-balanced schedule): kernels ``gust_spmv``
+     and ``gust_spmv_ragged``;
+   * the segment-local single-buffered plans (``gather="local",
+     pipeline="single"``, ``load_balance=False``): ``gust_spmv_local``,
+     ``gust_spmv_ragged_local``;
+   * the default plans (``gather`` and ``pipeline`` left at ``"auto"``)
+     over the load-balanced schedule, where the gather resolves resident
+     (``gust_spmv_db``, ``gust_spmv_ragged_db``), and over the unbalanced
+     one, where it resolves segment-local (``gust_spmv_local_db``,
+     ``gust_spmv_ragged_local_db``).
+
+2. **The Buffer Filler** — ``gather_fill(col, x)``, its own entry point,
+   on the balanced padded stream at B = 1 and 8.
+
+3. **SpGEMM and graph analytics** on G, the symmetric 0/1 pattern of
+   ``synth_power_law(16384, 1e-3, seed=0)`` without self-loops (377,508
+   edges, hub degree 7,010): ``triangle_count(G)`` with the default
+   ``PlanConfig(l=256)``, ``plan(G, layout=...).spgemm(G)`` on both
+   layouts, ``pagerank(G)`` and ``feature_propagation(G, F=64)``: kernel
+   ``gust_spgemm`` (and the SpMV kernels the default plans pick).
 
 Checks, each fatal:
-  * every kernel against its plain PyTorch version on the card, at the
-    main path's shapes (B = 1 and 8): per element
+  * every SpMV kernel against its plain PyTorch version on the card, at
+    the main path's shapes (B = 1 and 8): per element
     ``|kernel - plain| <= 1e-5 * (|M|·|x|)`` (sums are reordered: the
     plain version's ``index_add_`` uses atomics on the card); at B=1
     bitwise against the plain version run on the CPU (the kernel's own
     order); each double-buffered or segment-local kernel bitwise against
     the single-buffered resident kernel of its layout on the same
-    artifact;
+    artifact, and each single-buffered local kernel also against the
+    double-buffered local one;
+  * ``gather_fill`` bitwise against its plain version and ``x[col]``;
+  * ``gust_spgemm`` on G bitwise against its plain version on the card
+    (0/1 values: exact arithmetic), and on a float-valued copy of G
+    (standard normal values, seed 0) within ``1e-5 * (|A|·|B|)`` per
+    element;
   * the default plans resolve the gather named above;
-  * the main path went through all six kernels (launch counts, zeroed
-    just before it, are > 0);
-  * its results against scipy in float64, per row
+  * each path launched each of its kernels (counts > 0);
+  * the SpMV results against scipy in float64, per row
     ``|y - M·x| <= 1e-4 * (|M|·|x|)`` (int8: against the dequantized
     matrix), finite and of the expected shape; padded == ragged bitwise
     for each schedule; the default plans == the resident single plans
-    bitwise on the load-balanced schedule.
+    bitwise on the load-balanced schedule, and == the local single plans
+    on the unbalanced one;
+  * ``triangle_count(G)`` == 583,750 == scipy's ``(G·G ⊙ G).sum() / 6``
+    in the same run; ``spgemm`` canonical and bitwise equal to the dense
+    ``G·G`` (``torch.matmul``, TF32 off) on both layouts, padded ==
+    ragged; ``pagerank(G)`` converged and within 2e-5 in L1 of scipy's
+    float64 iteration run to its fixed point; ``feature_propagation``
+    within ``1e-4 * (|Â|·|Â|·|H|)`` per element of scipy in float64.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(times from CUDA events, bounds from this run's bytes), and as its last
-line ``{"ok": true, "device": {...}}``.  Details go to
+for all ten kernels (times from CUDA events, bounds from this run's
+bytes), SpGEMM's wall time split (condensing B, kernel, reorder,
+compaction on the card, host copy), and as its last line
+``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 """
 
@@ -60,7 +90,10 @@ L, C_BLK, BATCH = 256, 8, 8
 TOL_KERNEL, TOL_MAIN = 1e-5, 1e-4
 SOURCES = {
     "gust_spmv.cu": "repro_torch/kernels/csrc/gust_spmv.cu",
+    "gust_spmv_local.cu": "repro_torch/kernels/csrc/gust_spmv_local.cu",
     "gust_spmv_db.cu": "repro_torch/kernels/csrc/gust_spmv_db.cu",
+    "gust_spgemm.cu": "repro_torch/kernels/csrc/gust_spgemm.cu",
+    "gather_fill.cu": "repro_torch/kernels/csrc/gather_fill.cu",
 }
 #: name -> (layout, gather, source, TPU kernel it replaces)
 KERNELS = {
@@ -68,6 +101,10 @@ KERNELS = {
                   "src/repro/kernels/gust_spmv.py:238"),
     "gust_spmv_ragged": ("ragged", "resident", "gust_spmv.cu",
                          "src/repro/kernels/gust_spmv_ragged.py:113"),
+    "gust_spmv_local": ("padded", "local", "gust_spmv_local.cu",
+                        "src/repro/kernels/gust_spmv.py:354"),
+    "gust_spmv_ragged_local": ("ragged", "local", "gust_spmv_local.cu",
+                               "src/repro/kernels/gust_spmv_ragged.py:199"),
     "gust_spmv_db": ("padded", "resident", "gust_spmv_db.cu",
                      "src/repro/kernels/gust_spmv.py:504"),
     "gust_spmv_local_db": ("padded", "local", "gust_spmv_db.cu",
@@ -80,6 +117,20 @@ KERNELS = {
 #: The single-buffered resident kernel of each layout: the bitwise
 #: yardstick of the double-buffered and segment-local ones.
 YARDSTICK = {"padded": "gust_spmv", "ragged": "gust_spmv_ragged"}
+#: The single-buffered local kernels are also held bitwise to the
+#: double-buffered local kernel of their layout.
+LOCAL_TWIN = {"gust_spmv_local": "gust_spmv_local_db",
+              "gust_spmv_ragged_local": "gust_spmv_ragged_local_db"}
+#: The kernels off the SpMV path: name -> (source, TPU kernel it replaces).
+OTHER_KERNELS = {
+    "gather_fill": ("gather_fill.cu", "src/repro/kernels/gather_fill.py:57"),
+    "gust_spgemm": ("gust_spgemm.cu", "src/repro/kernels/gust_spgemm.py:114"),
+}
+#: The SpGEMM graph G: the symmetric 0/1 pattern, without self-loops, of
+#: synth_power_law(N, density, seed=0) (the paper's synthetic size).
+G_N, G_DENSITY, G_EDGES, G_TRIANGLES = 16384, 1e-3, 377_508, 583_750
+G_FEATURES = 64
+TOL_SPGEMM = 1e-5
 #: Which schedules each kernel's phase runs on (load_balance values): the
 #: resident kernels on both, so that local and resident stand side by side
 #: on the unbalanced artifact; the local ones where the default picks them.
@@ -115,6 +166,9 @@ def wrappers():
     return {
         "gust_spmv": (k_pad.gust_spmv, plain.gust_spmv_ref),
         "gust_spmv_ragged": (k_rag.gust_spmv_ragged, plain.gust_spmv_ragged_ref),
+        "gust_spmv_local": (k_pad.gust_spmv_local, plain.gust_spmv_local_ref),
+        "gust_spmv_ragged_local": (k_rag.gust_spmv_ragged_local,
+                                   plain.gust_spmv_ragged_local_ref),
         "gust_spmv_db": (k_pad.gust_spmv_db, plain.gust_spmv_ref),
         "gust_spmv_local_db": (k_pad.gust_spmv_local_db, plain.gust_spmv_local_ref),
         "gust_spmv_ragged_db": (k_rag.gust_spmv_ragged_db, plain.gust_spmv_ragged_ref),
@@ -125,12 +179,18 @@ def wrappers():
 
 def counters():
     """name -> (module, attribute) of each kernel's launch count."""
+    import repro_torch.kernels.gather_fill as k_fill
+    import repro_torch.kernels.gust_spgemm as k_gemm
     import repro_torch.kernels.gust_spmv as k_pad
     import repro_torch.kernels.gust_spmv_ragged as k_rag
 
     return {
         "gust_spmv": (k_pad, "launches"),
         "gust_spmv_ragged": (k_rag, "launches"),
+        "gust_spmv_local": (k_pad, "local_launches"),
+        "gust_spmv_ragged_local": (k_rag, "local_launches"),
+        "gather_fill": (k_fill, "launches"),
+        "gust_spgemm": (k_gemm, "launches"),
         "gust_spmv_db": (k_pad, "db_launches"),
         "gust_spmv_local_db": (k_pad, "local_db_launches"),
         "gust_spmv_ragged_db": (k_rag, "db_launches"),
@@ -203,7 +263,9 @@ def main() -> int:
     from repro_torch.core.packing import ScheduleCache
     from repro_torch.core.scheduler import sched_counters
     from repro_torch.data.matrices import REAL_WORLD_SUITE, make_real_world_surrogate
+    import repro_torch.kernels.ref as plain
     from repro_torch.kernels import _build
+    from repro_torch.kernels.gather_fill import gather_fill
     from repro_torch.kernels.ops import _prep_x
 
     smi = subprocess.run(
@@ -262,6 +324,11 @@ def main() -> int:
                                          value_dtype=vdt)
             plans["single", True, layout, vdt] = repro_torch.plan(
                 coo, cfg, cache=cache, device="cuda")
+            cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout=layout,
+                                         load_balance=False, gather="local",
+                                         pipeline="single", value_dtype=vdt)
+            plans["single-local", False, layout, vdt] = repro_torch.plan(
+                coo, cfg, cache=cache, device="cuda")
             for lb in (True, False):
                 cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout=layout,
                                              load_balance=lb, value_dtype=vdt)
@@ -294,6 +361,12 @@ def main() -> int:
     X = rng.standard_normal((n, BATCH)).astype(np.float32)
     xps = {b: _prep_x(torch.from_numpy(x).cuda(), n, L)
            for b, x in ((1, v[:, None]), (BATCH, X))}
+    csr = sp.csr_matrix((coo.vals.astype(np.float64), (coo.rows, coo.cols)), shape=(m, n))
+    lib_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr).cuda(),
+        torch.from_numpy(csr.indices.astype(np.int64)).cuda(),
+        torch.from_numpy(csr.data.astype(np.float32)).cuda(), (m, n),
+        check_invariants=False)
 
     # -- kernel phase: each kernel against its plain version ---------------------
     variants, timed, cpu_plain = [], [], {}
@@ -327,6 +400,14 @@ def main() -> int:
                                 f"{tag}: differs bitwise from {YARDSTICK[layout]} "
                                 "on the same artifact")
                         row["bitwise_vs_" + YARDSTICK[layout]] = True
+                    if name in LOCAL_TWIN:
+                        twin, _ = kernel_fns[LOCAL_TWIN[name]]
+                        y_2 = twin(*kernel_args(LOCAL_TWIN[name], art)[0], xp, **kw)
+                        if not torch.equal(y_k, y_2):
+                            raise AssertionError(
+                                f"{tag}: differs bitwise from {LOCAL_TWIN[name]} "
+                                "on the same artifact")
+                        row["bitwise_vs_" + LOCAL_TWIN[name]] = True
                     if b == 1:  # on the CPU the plain version sums in the kernel's order
                         key = (lb, layout, vdt, gather)
                         if key not in cpu_plain:
@@ -343,7 +424,7 @@ def main() -> int:
                         row,
                         functools.partial(kernel, *args, xp, **kw),
                         functools.partial(ref, *pargs, xp, **kw),
-                        xp[:n].contiguous(),
+                        functools.partial(torch.matmul, lib_csr, xp[:n].contiguous()),
                         bytes_and_ops(name, art, xp, b, coo.nnz),
                     ))
                     row["x_tile_bytes"] = x_tile_bytes(name, art, b)
@@ -352,7 +433,30 @@ def main() -> int:
                                     if k.startswith("bitwise") and val))
     del cpu_plain
 
-    # -- main path ---------------------------------------------------------------
+    # -- kernel phase: gather_fill (kernel 10) on the balanced padded stream ------
+    fill_col = plans["default", True, "padded", "float32"].artifact.col_blk
+    for b, xp in xps.items():
+        g = gather_fill(fill_col, xp)
+        torch.cuda.synchronize()
+        if not (torch.equal(g, plain.gather_fill_ref(fill_col, xp))
+                and torch.equal(g, xp[fill_col.long()])):
+            raise AssertionError(f"gather_fill B={b}: differs from its plain version "
+                                 "or from x[col]")
+        del g
+        row = {"kernel": "gather_fill", "load_balance": True, "value_dtype": "float32",
+               "B": b, "max_abs_err": 0.0, "bitwise_vs_plain": True,
+               "bitwise_vs_x_col": True, "head": b == 1,
+               "variant": f"balanced padded stream, B={b}"}
+        variants.append(row)
+        moved = (fill_col.numel() * fill_col.element_size() + xp.numel() * 4
+                 + fill_col.numel() * b * 4)
+        timed.append((row, functools.partial(gather_fill, fill_col, xp),
+                      functools.partial(plain.gather_fill_ref, fill_col, xp),
+                      functools.partial(xp.index_select, 0, fill_col.view(-1)),
+                      (moved, 0)))
+        log(f"kernel gather_fill B={b}: bitwise equal to its plain version and x[col]")
+
+    # -- path 1: the SpMV plans ---------------------------------------------------
     for mod, attr in launch_counts.values():
         setattr(mod, attr, 0)
     outs = {}
@@ -361,13 +465,12 @@ def main() -> int:
         outs[key] = (p.spmv(v), p.spmm(X))
     torch.cuda.synchronize()
     report["main_path_s"] = time.perf_counter() - t0
-    launches = {name: getattr(mod, attr) for name, (mod, attr) in launch_counts.items()}
+    launches = {name: getattr(*launch_counts[name]) for name in KERNELS}
     log(f"main path: {report['main_path_s']:.3f} s, launches {launches}")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"the main path never launched {name}")
 
-    csr = sp.csr_matrix((coo.vals.astype(np.float64), (coo.rows, coo.cols)), shape=(m, n))
     mats = {("float32", lb): csr for lb in (True, False)}
     for lb in (True, False):
         mats["int8", lb] = dequantized_csr(plans["default", lb, "padded", "int8"].artifact)
@@ -388,7 +491,8 @@ def main() -> int:
                 raise AssertionError(f"{name}: off scipy by {worst:.3e} beyond the "
                                      "per-row bound")
             checks[name] = float(np.max(np.abs(got - want)))
-    for mode, lb in (("single", True), ("default", True), ("default", False)):
+    for mode, lb in (("single", True), ("default", True), ("default", False),
+                     ("single-local", False)):
         for vdt in ("float32", "int8"):
             for i, tag in enumerate(("spmv", "spmm")):
                 pad, rag = outs[mode, lb, "padded", vdt][i], outs[mode, lb, "ragged", vdt][i]
@@ -399,36 +503,60 @@ def main() -> int:
                         pad, outs["single", True, "padded", vdt][i]):
                     raise AssertionError(f"{vdt} {tag}: the default plan differs from "
                                          "the resident single-buffered plan")
+                if mode == "single-local" and not torch.equal(
+                        pad, outs["default", False, "padded", vdt][i]):
+                    raise AssertionError(f"{vdt} {tag}: the single-buffered local plan "
+                                         "differs from the default (double-buffered "
+                                         "local) plan")
     report["max_abs_err_vs_scipy"] = checks
     log(f"main path agrees with scipy (max abs err {max(checks.values()):.3e}); "
-        "padded == ragged bitwise; default == single bitwise (load-balanced)")
+        "padded == ragged bitwise; default == single bitwise (load-balanced); "
+        "single-local == default bitwise (unbalanced)")
+    del outs
+
+    # -- path 2: gather_fill, its own entry point ---------------------------------
+    for mod, attr in launch_counts.values():
+        setattr(mod, attr, 0)
+    for xp in xps.values():  # outputs checked in the kernel phase above
+        gather_fill(fill_col, xp)
+    torch.cuda.synchronize()
+    launches["gather_fill"] = getattr(*launch_counts["gather_fill"])
+    if launches["gather_fill"] <= 0:
+        raise AssertionError("the gather_fill path never launched gather_fill")
+
+    # -- path 3: SpGEMM and graph analytics on G ----------------------------------
+    gemm_rows = spgemm_path(report, launch_counts, launches, variants, timed)
 
     # -- timing ------------------------------------------------------------------------
-    crow = torch.from_numpy(csr.indptr).cuda()
-    ccol = torch.from_numpy(csr.indices.astype(np.int64)).cuda()
-    cval = torch.from_numpy(csr.data.astype(np.float32)).cuda()
-    lib_csr = torch.sparse_csr_tensor(crow, ccol, cval, (m, n), check_invariants=False)
-    for row, run_kernel, run_plain, xd, (moved, ops) in timed:
-        row["ms"] = cuda_ms(run_kernel, iters=20)
-        row["plain_ms"] = cuda_ms(run_plain, iters=5, warmup=1)
-        row["library_ms"] = cuda_ms(lambda: lib_csr @ xd, iters=20)
+    for row, run_kernel, run_plain, run_library, (moved, ops) in timed:
+        heavy = row["kernel"] == "gust_spgemm"
+        row["ms"] = cuda_ms(run_kernel, iters=5 if heavy else 20)
+        row["plain_ms"] = cuda_ms(run_plain, iters=2 if heavy else 5, warmup=1)
+        row["library_ms"] = library_ms(run_library, heavy, row)
         t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
         row["bytes"], row["ops"] = moved, ops
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         if power_w is not None and power_w < FULL_POWER_W:
             row["bound_ms_at_power_limit"] = row["bound_ms"] * FULL_POWER_W / power_w
+        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         log(f"time {row['kernel']} load_balance={row['load_balance']} "
             f"{row['value_dtype']} B={row['B']}: kernel {row['ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-            f"library {row['library_ms']:.4f} ms")
+            f"library {lib}"
+            + "".join(f", {k} {row[k]}" for k in ("x_tile_bytes", "b_plane_bytes")
+                      if row.get(k) is not None))
     report["variants"] = variants
+    spgemm_wall_split(report, gemm_rows)
 
     kernels = []
-    for name, (layout, gather, source, replaces) in KERNELS.items():
-        lb = PHASE_SCHEDULES[gather][0]
-        head = next(r for r in variants if r["kernel"] == name and r["load_balance"] == lb
-                    and r["value_dtype"] == "float32" and r["B"] == 1)
+    heads = {name: (KERNELS[name][2], KERNELS[name][3], PHASE_SCHEDULES[KERNELS[name][1]][0])
+             for name in KERNELS}
+    heads.update({name: (src, rep, True) for name, (src, rep) in OTHER_KERNELS.items()})
+    for name, (source, replaces, lb) in heads.items():
+        head = next(r for r in variants if r["kernel"] == name and (
+            r.get("head") if name in OTHER_KERNELS else
+            r["load_balance"] == lb and r["value_dtype"] == "float32" and r["B"] == 1))
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[source],
             "replaces": replaces, "launches": launches[name],
@@ -436,7 +564,7 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "variant": f"float32 values, B=1, load_balance={lb}",
+            "variant": head.get("variant", f"float32 values, B=1, load_balance={lb}"),
         }
         if "bound_ms_at_power_limit" in head:
             entry["bound_ms_at_power_limit"] = head["bound_ms_at_power_limit"]
@@ -451,6 +579,308 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def library_ms(run_library, heavy, row):
+    """Time of the PyTorch call that computes the kernel's function, or
+    None (with the reason in ``row``) where the installed PyTorch cannot
+    run it on the card."""
+    try:
+        return cuda_ms(run_library, iters=2 if heavy else 20, warmup=1 if heavy else 2)
+    except (RuntimeError, NotImplementedError) as err:
+        row["library_error"] = f"{type(err).__name__}: {err}"[:300]
+        return None
+
+
+def g_graph():
+    """G: the symmetric 0/1 pattern of synth_power_law(G_N, G_DENSITY,
+    seed=0) without self-loops."""
+    from repro_torch.data.matrices import synth_power_law
+    from repro_torch.graph.analytics import _pattern
+
+    return _pattern(synth_power_law(G_N, G_DENSITY, seed=0), symmetrize=True,
+                    drop_diagonal=True)
+
+
+def spgemm_path(report, launch_counts, launches, variants, timed):
+    """Kernel 9 against its plain version on G, then the SpGEMM path
+    (triangle_count, GustPlan.spgemm on both layouts, pagerank,
+    feature_propagation) with the launch counts zeroed just before it, and
+    its results against the dense product and scipy in float64.  Appends
+    kernel 9's timing rows to ``timed``; returns what the wall-time split
+    needs."""
+    import scipy.sparse as sp
+    import torch
+
+    import repro_torch
+    import repro_torch.kernels.ref as plain
+    from repro_torch.core.formats import COOMatrix
+    from repro_torch.core.spgemm import _stream_view, condense_rows, row_windows
+    from repro_torch.graph import feature_propagation, pagerank, triangle_count
+    from repro_torch.kernels.gust_spgemm import gust_spgemm
+
+    t0 = time.perf_counter()
+    G = g_graph()
+    n = G.shape[0]
+    if G.nnz != G_EDGES:
+        raise AssertionError(f"G has {G.nnz} edges, not {G_EDGES}")
+    gplans = {layout: repro_torch.plan(G, repro_torch.PlanConfig(l=L, layout=layout),
+                                       device="cuda") for layout in ("padded", "ragged")}
+    default_layout = repro_torch.plan(G, repro_torch.PlanConfig(l=L), device="cuda").layout
+    for p in gplans.values():
+        p.artifact
+    cond = condense_rows(G, L, device="cuda")
+    torch.cuda.synchronize()
+    sched = gplans["ragged"].sched
+    cost = gplans[default_layout].spgemm_cost(G)
+    info = {
+        "nodes": n, "edges": G.nnz, "k_max": cond.k_max, "windows": sched.num_windows,
+        "c_max": int(sched.colors_per_window.max()), "products": cost.products,
+        "slots": {k: p.artifact.streamed_slots for k, p in gplans.items()},
+        "condensed_b_bytes": cond.condensed_bytes, "default_layout": default_layout,
+        "setup_s": time.perf_counter() - t0,
+    }
+    report["G"] = info
+    log(f"G: {n} nodes, {G.nnz} edges, k_max {cond.k_max}, {sched.num_windows} windows, "
+        f"C_max {info['c_max']}, {cost.products} partial products, slots "
+        f"{info['slots']}, condensed B {cond.condensed_bytes} bytes; default "
+        f"PlanConfig(l={L}) resolves layout {default_layout!r}; set-up "
+        f"{info['setup_s']:.1f} s")
+
+    # -- kernel phase: kernel 9 against its plain version -------------------------
+    gcsr = torch.sparse_csr_tensor(
+        torch.from_numpy(np.concatenate([[0], np.cumsum(G.row_nnz())])).cuda(),
+        torch.from_numpy(G.cols).cuda(), torch.from_numpy(G.vals).cuda(), G.shape,
+        check_invariants=False)
+    rng = np.random.default_rng(0)
+    gfloat = COOMatrix(G.shape, G.rows, G.cols, rng.standard_normal(G.nnz).astype(np.float32))
+    cond_f = condense_rows(gfloat, L, device="cuda")
+    fcsr = torch.sparse_csr_tensor(gcsr.crow_indices(), gcsr.col_indices(),
+                                   torch.from_numpy(gfloat.vals).cuda(), G.shape,
+                                   check_invariants=False)
+    for layout, p in gplans.items():
+        art = p.artifact
+        _, _, bs = _stream_view(art)
+        window = row_windows(bs, art.c_blk)
+        kw = dict(num_windows=art.num_windows, l=L, n_out=n)
+        cases = [("0/1", art.m_blk, cond, gcsr)]
+        if layout == default_layout:
+            cases.append(("normal", revalue(art, window, G, gfloat.vals), cond_f, fcsr))
+        for values, m_blk, cb, lib_csr in cases:
+            args = (bs, m_blk, art.col_blk, art.row_blk, cb.vals, cb.cols)
+            pargs = (m_blk, art.col_blk, art.row_blk, window, cb.vals, cb.cols)
+            y_k = gust_spgemm(*args, **kw, c_blk=art.c_blk)
+            y_p = plain.gust_spgemm_ref(*pargs, **kw)
+            torch.cuda.synchronize()
+            tag = f"gust_spgemm {layout} {values}"
+            if not bool(torch.isfinite(y_k).all()):
+                raise AssertionError(f"{tag}: non-finite output")
+            err = float((y_k - y_p).abs().max())
+            if values == "0/1":
+                if not torch.equal(y_k, y_p):
+                    raise AssertionError(f"{tag}: differs bitwise from its plain version "
+                                         f"(max abs err {err:.3e})")
+            else:
+                mag = plain.gust_spgemm_ref(m_blk.abs(), art.col_blk, art.row_blk, window,
+                                            cb.vals.abs(), cb.cols, **kw)
+                if bool(((y_k - y_p).abs() > TOL_SPGEMM * mag).any()):
+                    raise AssertionError(f"{tag}: off its plain version beyond "
+                                         f"{TOL_SPGEMM} * (|A|·|B|) (max abs err {err:.3e})")
+                del mag
+            del y_k, y_p
+            row = {"kernel": "gust_spgemm", "load_balance": True, "value_dtype": "float32",
+                   "B": 1, "layout": layout, "values": values, "max_abs_err": err,
+                   "variant": f"G, {layout} stream, {values} values",
+                   "head": (layout, values) == (default_layout, "0/1")}
+            if values == "0/1":
+                row["bitwise_vs_plain"] = True
+            variants.append(row)
+            moved = spgemm_bytes(art, m_blk, bs, cb, n)
+            row["b_plane_bytes"] = cb.condensed_bytes
+            timed.append((row, functools.partial(gust_spgemm, *args, **kw, c_blk=art.c_blk),
+                          functools.partial(plain.gust_spgemm_ref, *pargs, **kw),
+                          functools.partial(torch.sparse.mm, lib_csr, lib_csr),
+                          (moved, 2 * cost.products)))
+            log(f"kernel {tag}: max |kernel - plain| = {err:.3e}"
+                + ("; bitwise" if values == "0/1" else f" (within {TOL_SPGEMM} * |A|·|B|)"))
+    # -- the path -----------------------------------------------------------------
+    for mod, attr in launch_counts.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    tc = triangle_count(G)
+    t_tc = time.perf_counter() - t0
+    coos = {layout: p.spgemm(G) for layout, p in gplans.items()}
+    feats = np.random.default_rng(1).standard_normal((n, G_FEATURES)).astype(np.float32)
+    t0 = time.perf_counter()
+    pr = pagerank(G)
+    t_pr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    H = feature_propagation(G, feats, num_layers=2)
+    t_fp = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    path_launches = {name: getattr(mod, attr) for name, (mod, attr) in launch_counts.items()}
+    launches["gust_spgemm"] = path_launches["gust_spgemm"]
+    info.update(triangle_count_s=t_tc, pagerank_s=t_pr, feature_propagation_s=t_fp,
+                path_launches=path_launches)
+    log(f"SpGEMM path: triangle_count {t_tc:.2f} s, pagerank {t_pr:.2f} s "
+        f"({pr.iterations} iterations), feature_propagation {t_fp:.2f} s; launches "
+        f"{path_launches}")
+    if path_launches["gust_spgemm"] <= 0:
+        raise AssertionError("the SpGEMM path never launched gust_spgemm")
+
+    # -- checks -------------------------------------------------------------------
+    s01 = sp.csr_matrix((np.ones(G.nnz), (G.rows, G.cols)), shape=G.shape)
+    t0 = time.perf_counter()
+    want_tri = int(round(float(s01.multiply(s01 @ s01).sum()) / 6))
+    info["scipy_triangles_s"] = time.perf_counter() - t0
+    info["triangles"], info["spgemm_nnz"] = tc.triangles, tc.spgemm_nnz
+    if tc.triangles != want_tri or tc.triangles != G_TRIANGLES:
+        raise AssertionError(f"triangle_count(G) = {tc.triangles}; scipy {want_tri}, "
+                             f"expected {G_TRIANGLES}")
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gd = torch.zeros(G.shape, dtype=torch.float32, device=cond.vals.device)
+    gd[torch.from_numpy(G.rows).cuda(), torch.from_numpy(G.cols).cuda()] = 1.0
+    gg = gd @ gd
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    del gd
+    for layout, c in coos.items():
+        keys = c.rows * np.int64(n) + c.cols
+        if not (np.all(np.diff(keys) > 0) and np.all(c.vals != 0)):
+            raise AssertionError(f"spgemm {layout}: result is not canonical")
+        cd = torch.zeros_like(gg)
+        cd[torch.from_numpy(c.rows).cuda(), torch.from_numpy(c.cols).cuda()] = (
+            torch.from_numpy(c.vals).cuda())
+        if not torch.equal(cd, gg):
+            raise AssertionError(f"plan(G, layout={layout!r}).spgemm(G) differs from the "
+                                 "dense G·G")
+        del cd
+    pad, rag = coos["padded"], coos["ragged"]
+    if not (np.array_equal(pad.rows, rag.rows) and np.array_equal(pad.cols, rag.cols)
+            and np.array_equal(pad.vals, rag.vals)):
+        raise AssertionError("spgemm: padded and ragged results differ")
+    if pad.nnz != tc.spgemm_nnz:
+        raise AssertionError("spgemm nnz differs from triangle_count's product")
+    del gg, coos, pad, rag
+    pr_want = pagerank_f64(s01)
+    pr_l1 = float(np.abs(pr.scores.astype(np.float64) - pr_want).sum())
+    if not pr.converged or pr_l1 > 2e-5:
+        raise AssertionError(f"pagerank(G): converged={pr.converged}, L1 distance to "
+                             f"scipy float64 {pr_l1:.3e} (bound 2e-5)")
+    a_hat = normalized_adjacency(s01)
+    f64 = feats.astype(np.float64)
+    h_want = a_hat @ (a_hat @ f64)
+    h_mag = abs(a_hat) @ (abs(a_hat) @ np.abs(f64))
+    h_err = np.abs(H.astype(np.float64) - h_want)
+    if H.shape != feats.shape or not np.isfinite(H).all() or bool(
+            (h_err > TOL_MAIN * h_mag).any()):
+        raise AssertionError(f"feature_propagation(G): off scipy float64 beyond "
+                             f"{TOL_MAIN} * (|Â|·|Â|·|H|) (max abs err {h_err.max():.3e})")
+    info.update(pagerank_l1_vs_scipy=pr_l1, pagerank_iterations=pr.iterations,
+                feature_propagation_max_abs_err=float(h_err.max()))
+    log(f"SpGEMM path agrees: {tc.triangles} triangles (scipy {want_tri}); "
+        f"spgemm == dense G·G bitwise on both layouts, padded == ragged; pagerank L1 "
+        f"{pr_l1:.3e} to scipy; feature_propagation max abs err {h_err.max():.3e}")
+    return {"G": G, "plan": gplans[default_layout], "cond": cond, "info": info}
+
+
+def spgemm_bytes(art, m_blk, block_starts, cond, n_out):
+    """What one SpGEMM must move: A's stream and ``block_starts`` read
+    once, B's real entries read once (value and column, 8 bytes each) plus
+    one 32-byte sector per condensed row to find its end, the (W, l, n_out)
+    output written once.  The rows' padding to ``k_max`` is a cost of the
+    format, printed apart as ``b_plane_bytes``, not part of the bound."""
+    stream = sum(t.numel() * t.element_size()
+                 for t in (m_blk, art.col_blk, art.row_blk, block_starts))
+    b_real = int((cond.vals != 0).sum()) * 8 + cond.r_rows * 32
+    return stream + b_real + art.num_windows * art.l * n_out * 4
+
+
+def revalue(art, window, G, vals):
+    """A's stream with the values ``vals`` of ``G``'s entries (G's own
+    order) on its real slots: the stream of the matrix ``(G's pattern,
+    vals)``, found through each slot's original (row, column)."""
+    import torch
+
+    n = G.shape[1]
+    real = art.m_blk != 0
+    rows = art.row_perm.long()[window.long()[:, None] * art.l + art.row_blk.long()]
+    keys = (rows * n + art.col_blk.long())[real]
+    g_keys = torch.from_numpy(G.rows * np.int64(n) + G.cols).cuda()
+    at = torch.searchsorted(g_keys, keys)
+    if not torch.equal(g_keys[at], keys):
+        raise AssertionError("a real slot of the stream is not an entry of G")
+    out = torch.zeros(art.m_blk.shape, dtype=torch.float32, device=art.m_blk.device)
+    out[real] = torch.from_numpy(vals).cuda()[at]
+    return out
+
+
+def spgemm_wall_split(report, gemm):
+    """SpGEMM's wall time on G split into the port's own steps: condensing
+    B (host + copy), the kernel (with the memset and row-length pre-pass),
+    the reorder into original rows, the compaction on the card and the
+    copy to the host."""
+    import torch
+
+    from repro_torch.core.spgemm import (compact, condense_rows, float_artifact,
+                                         to_host, to_original_rows, window_product)
+
+    G, p = gemm["G"], gemm["plan"]
+    art = float_artifact(p)
+    split = {}
+
+    def mark(key, t0):
+        torch.cuda.synchronize()
+        split[key] = (time.perf_counter() - t0) * 1e3
+        return time.perf_counter()
+
+    torch.cuda.synchronize()
+    start = t0 = time.perf_counter()
+    cond = condense_rows(G, art.l, device=art.device)
+    t0 = mark("condense_ms", t0)
+    y = window_product(art, cond, G.shape[1])
+    t0 = mark("kernel_ms", t0)
+    dense = to_original_rows(art, y, G.shape[0])
+    t0 = mark("reorder_ms", t0)
+    rows, cols, vals = compact(dense)
+    t0 = mark("compaction_ms", t0)
+    c = to_host(dense.shape, rows, cols, vals)
+    mark("host_copy_ms", t0)
+    split["total_ms"] = (time.perf_counter() - start) * 1e3
+    split["nnz"] = c.nnz
+    split["layout"] = p.layout
+    report["spgemm_wall_ms"] = split
+    log("spgemm wall time on G (" + p.layout + "): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items() if k.endswith("_ms")))
+
+
+def pagerank_f64(adj):
+    """PageRank of the 0/1 pattern ``adj`` (scipy CSR) in float64, the
+    port's iteration run to its fixed point."""
+    n = adj.shape[0]
+    deg = np.asarray(adj.sum(axis=1)).ravel()
+    dangling = deg == 0
+    inv = np.where(dangling, 0.0, 1.0 / np.where(dangling, 1.0, deg))
+    P = (adj.multiply(inv[:, None])).T.tocsr()
+    r = np.full(n, 1.0 / n)
+    for _ in range(1000):
+        r_new = 0.85 * (P @ r + r[dangling].sum() / n) + 0.15 / n
+        r_new /= r_new.sum()
+        done = np.abs(r_new - r).sum() < 1e-14
+        r = r_new
+        if done:
+            break
+    return r
+
+
+def normalized_adjacency(adj):
+    """``D^{-1/2} (A + I) D^{-1/2}`` of the 0/1 pattern ``adj`` in float64."""
+    import scipy.sparse as sp
+
+    s = (adj + sp.identity(adj.shape[0], format="csr")).tocsr()
+    d = np.asarray(s.sum(axis=1)).ravel()
+    scale = sp.diags(1.0 / np.sqrt(d))
+    return (scale @ s @ scale).tocsr()
 
 
 def dequantized_csr(art):

@@ -1,1 +1,1 @@
-"""Host side of the port: formats, scheduler, packing, plan."""
+"""Host side of the port: formats, scheduler, packing, plan, SpGEMM."""

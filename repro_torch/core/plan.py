@@ -8,6 +8,7 @@ vectors.
     >>> p = repro_torch.plan(matrix, repro_torch.PlanConfig(l=256))
     >>> y = p.spmv(v)     # on the card, through the CUDA kernels
     >>> Y = p.spmm(X)
+    >>> C = p.spgemm(B)   # sparse x sparse, a COOMatrix
 
 The device decides the execution path: ``device="cuda"`` (the default;
 it raises when no card is present) runs the hand-written kernels,
@@ -18,7 +19,7 @@ retried on another path when it fails.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,6 +43,9 @@ from .packing import (
 from .scheduler import schedule
 from ..kernels.ops import execute_spmm
 
+if TYPE_CHECKING:  # pragma: no cover
+    from .spgemm import SpgemmCost
+
 __all__ = ["PlanConfig", "PlanCost", "GustPlan", "plan"]
 
 _LAYOUTS = ("padded", "ragged", "auto")
@@ -61,10 +65,8 @@ class PlanConfig:
     left at ``"auto"`` and ``None``.  ``mesh_axis`` is kept for
     :meth:`GustPlan.shard`, which comes with a later slice.  With
     ``gather="auto"`` and ``pipeline="auto"`` the reference's decision
-    points run unchanged, and every mode they resolve to runs on the
-    card.  The one mode not ported yet, ``pipeline="single"`` with a
-    resolved local gather, raises at execution on the card (see
-    :func:`repro_torch.kernels.ops.execute_spmm`).
+    points run unchanged; every combination of ``layout``, ``gather`` and
+    ``pipeline`` runs on the card.
     """
 
     l: int = 256
@@ -188,14 +190,16 @@ def plan(
             matrix, config.l, load_balance=config.load_balance,
             method=config.colorer, workers=workers,
         )
-    return GustPlan(config, sched, cache=cache, device=device)
+    return GustPlan(config, sched, cache=cache, device=device, source=matrix)
 
 
 class GustPlan:
     """Executable GUST artifact: schedule + packed layout on one device.
 
     Built by :func:`plan`.  Packing is lazy: the artifact materializes on
-    first execution (or on reading :attr:`artifact`)."""
+    first execution (or on reading :attr:`artifact`).  ``_source`` is the
+    :class:`COOMatrix` the plan was scheduled from (``None`` when it was
+    built from a :class:`GustSchedule`)."""
 
     def __init__(
         self,
@@ -204,11 +208,13 @@ class GustPlan:
         *,
         cache: Optional[ScheduleCache] = None,
         device="cuda",
+        source: Optional[COOMatrix] = None,
     ):
         self.config = config
         self.sched = sched
         self.cache = cache
         self.device = resolve_device(device)
+        self._source = source
         self._artifact: Optional[Union[PackedSchedule, RaggedSchedule]] = None
 
     @property
@@ -285,6 +291,26 @@ class GustPlan:
         if tuple(v.shape) != (n,):
             raise ValueError(f"vector shape {tuple(v.shape)} != ({n},)")
         return self.spmm(v[:, None])[:, 0]
+
+    def spgemm(self, other) -> COOMatrix:
+        """Sparse x sparse ``C = A @ B`` through this plan's color-block
+        stream (``other``: a :class:`COOMatrix`, a dense array, or another
+        plan built from a matrix).  On the card it runs the SpGEMM kernel,
+        on the CPU its plain version.  Returns a deduplicated, row-sorted
+        :class:`COOMatrix` without explicit zeros, which can itself be
+        planned.  See :mod:`repro_torch.core.spgemm`."""
+        from .spgemm import spgemm as _spgemm
+
+        return _spgemm(self, other)
+
+    def spgemm_cost(self, other) -> SpgemmCost:
+        """Predicted cost of ``self @ other`` (output-nnz estimate,
+        accumulator bytes, partial products, FLOP reduction against a dense
+        product) without packing or executing.  See
+        :class:`repro_torch.core.spgemm.SpgemmCost`."""
+        from .spgemm import spgemm_cost as _spgemm_cost
+
+        return _spgemm_cost(self, other)
 
     def cost(self) -> PlanCost:
         """Stream bytes and padding waste of this plan (packs a lazy plan)."""

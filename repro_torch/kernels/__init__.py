@@ -1,2 +1,3 @@
-"""GUST SpMV kernels for Hopper (CUDA C++ in ``csrc/``), their wrappers,
-plain PyTorch versions and the executor."""
+"""GUST kernels for Hopper (CUDA C++ in ``csrc/``): SpMV, SpGEMM and the
+Buffer Filler, with their wrappers, plain PyTorch versions and the
+executor."""

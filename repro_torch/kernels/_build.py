@@ -25,7 +25,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 #: Library name -> source in ``csrc/``.
-SOURCES = {"gust_spmv": "gust_spmv.cu", "gust_spmv_db": "gust_spmv_db.cu"}
+SOURCES = {
+    "gust_spmv": "gust_spmv.cu",
+    "gust_spmv_local": "gust_spmv_local.cu",
+    "gust_spmv_db": "gust_spmv_db.cu",
+    "gust_spgemm": "gust_spgemm.cu",
+    "gather_fill": "gather_fill.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -37,7 +43,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the launch's cudaError_t).
@@ -49,6 +55,23 @@ SIGNATURES = {
         # m, col, row, scale, x, y, block_starts, vdt, idt, W, l, c_blk, b,
         # stream
         "gust_spmv_ragged": [_P] * 7 + [_I] * 6 + [_P],
+    },
+    "gust_spmv_local": {
+        # m, col_loc, row, seg_blk, scale, x, y, vdt, idt, W,
+        # blocks_per_window, l, c_blk, s_blk, b, stream
+        "gust_spmv_local_padded": [_P] * 7 + [_I] * 8 + [_P],
+        # m, col_loc, row, seg_blk, scale, x, y, block_starts, vdt, idt, W,
+        # l, c_blk, s_blk, b, stream
+        "gust_spmv_local_ragged": [_P] * 8 + [_I] * 7 + [_P],
+    },
+    "gust_spgemm": {
+        # m, col, row, block_starts, b_vals, b_cols, lengths, y, vdt, idt, W,
+        # l, c_blk, r_rows, k_max, n_out, stream
+        "gust_spgemm": [_P] * 8 + [_I] * 8 + [_P],
+    },
+    "gather_fill": {
+        # col, x, out, idt, slots, b, stream
+        "gather_fill": [_P] * 3 + [_I, _L, _I, _P],
     },
     "gust_spmv_db": {
         # m, col, row, scale, x, y, vdt, idt, W, blocks_per_window, l,

@@ -80,6 +80,7 @@
 namespace {
 
 using gust::load_value;
+using gust::referenced_tiles;
 
 constexpr int kChunk = 8;  // most cycles in one pipeline unit
 constexpr int kWideChunk = GUST_DB_WIDE_CHUNK;
@@ -282,22 +283,6 @@ __global__ void __launch_bounds__(1024)
 // ---------------------------------------------------------------------------
 // Segment-local x, tiles streamed through a shared-memory ring.
 // ---------------------------------------------------------------------------
-
-// Number of tiles of block t to stream: 1 + the ascents of its seg_blk row,
-// which for a packer row (distinct segments ascending, then padding with
-// segment 0) is the length of its strictly increasing prefix.  Tiles
-// 0 .. n-1 stream from their own entries and slots past them read x
-// directly, so any row gives the right answer.  All threads call.
-__device__ __forceinline__ int referenced_tiles(const int* __restrict__ seg_blk,
-                                                int t, int s_blk) {
-  const int* row = seg_blk + (size_t)t * s_blk;
-  int n = 1;
-  for (int s0 = 1; s0 < s_blk; s0 += blockDim.x) {
-    const int s = s0 + threadIdx.x;
-    n += __syncthreads_count(s < s_blk && row[s] > row[s - 1]);
-  }
-  return n;
-}
 
 // Position in a window's sequence of tiles: tile s of the block's cnt
 // tiles, for chunk ci of block t.

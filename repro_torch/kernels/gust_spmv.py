@@ -5,6 +5,10 @@
   ``_kernel_q``): per ``(c_blk, l)`` block of the padded stream, gather
   ``x[col]``, multiply by the value, and add into the window's ``(l, B)``
   tile.
+* :func:`gust_spmv_local` (``csrc/gust_spmv_local.cu``) replaces
+  ``make_gust_spmv_local``: x read through the pack-time segment table,
+  each block's referenced tiles staged in shared memory before its
+  cycles run (single-buffered).
 * :func:`gust_spmv_db` (``csrc/gust_spmv_db.cu``) replaces
   ``make_gust_spmv_db``: the same product with the stream copied into
   shared memory ahead of use (double-buffered).
@@ -19,8 +23,8 @@ is described in their sources.
 
 On a CPU tensor a wrapper runs the plain version
 (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel
-or raises.  ``launches``, ``db_launches`` and ``local_db_launches`` count
-the launches of each kernel.
+or raises.  ``launches``, ``local_launches``, ``db_launches`` and
+``local_db_launches`` count the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ import torch
 
 from .ref import gust_spmv_local_ref, gust_spmv_ref
 
-__all__ = ["gust_spmv", "gust_spmv_db", "gust_spmv_local_db"]
+__all__ = ["gust_spmv", "gust_spmv_local", "gust_spmv_db", "gust_spmv_local_db"]
 
 #: Kernel launches made by :func:`gust_spmv` in this process.
 launches = 0
+#: ... by :func:`gust_spmv_local`.
+local_launches = 0
 #: ... by :func:`gust_spmv_db`.
 db_launches = 0
 #: ... by :func:`gust_spmv_local_db`.
@@ -47,8 +53,8 @@ _INDEX_CODES = {torch.int32: 0, torch.int16: 1}
 def _check_stream_args(
     m_blocks, col_blocks, row_blocks, x_padded, scale_blk, *, l, c_blk
 ):
-    """Validate the stream, x and scales a CUDA kernel takes; returns
-    ``(value_code, index_code)``."""
+    """Validate the stream, x (unless None) and scales a CUDA kernel
+    takes; returns ``(value_code, index_code)``."""
     dev = m_blocks.device
     if m_blocks.dtype not in _VALUE_CODES:
         raise TypeError(f"unsupported value dtype {m_blocks.dtype}")
@@ -57,7 +63,9 @@ def _check_stream_args(
             f"index leaves must share an int32/int16 dtype, got "
             f"{col_blocks.dtype} and {row_blocks.dtype}"
         )
-    if x_padded.dtype != torch.float32 or x_padded.dim() != 2:
+    if x_padded is not None and (
+        x_padded.dtype != torch.float32 or x_padded.dim() != 2
+    ):
         raise TypeError(
             f"x must be a 2-D float32 tensor, got {x_padded.dtype} "
             f"{tuple(x_padded.shape)}"
@@ -71,12 +79,14 @@ def _check_stream_args(
             raise ValueError(f"{name} stream has shape {tuple(t.shape)}, expected {shape}")
     if rows % c_blk:
         raise ValueError(f"stream rows {rows} not a multiple of c_blk {c_blk}")
-    if x_padded.shape[1] < 1:
+    if x_padded is not None and x_padded.shape[1] < 1:
         raise ValueError("x has no columns")
     quant = m_blocks.dtype == torch.int8
     if quant != (scale_blk is not None):
         raise ValueError("an int8 stream needs scale_blk, and only an int8 stream takes it")
-    tensors = [m_blocks, col_blocks, row_blocks, x_padded]
+    tensors = [m_blocks, col_blocks, row_blocks]
+    if x_padded is not None:
+        tensors.append(x_padded)
     if quant:
         if scale_blk.dtype != torch.float32 or tuple(scale_blk.shape) != (rows // c_blk,):
             raise ValueError(
@@ -176,6 +186,14 @@ def run_kernel(
     args += [scale_blk, x_padded, y] + ([blocks] if ragged else [])
     args += [vdt, idt, num_windows] + ([] if ragged else [blocks])
     args += [l, c_blk] + ([s_blk] if local else []) + [b]
+    launch(lib_name, entry, args, device)
+    return y
+
+
+def launch(lib_name: str, entry: str, args, device: torch.device) -> None:
+    """Call C entry point ``entry`` of library ``lib_name`` (built at
+    first use) with ``args`` (tensors pass their data pointers) and the
+    current stream of ``device``; raises if the launch failed."""
     from ._build import load
 
     lib = load(lib_name)
@@ -185,7 +203,6 @@ def run_kernel(
     if err != 0:
         msg = lib.gust_error_string(err).decode()
         raise RuntimeError(f"{entry} kernel launch failed: {msg} (cudaError {err})")
-    return y
 
 
 def gust_spmv(
@@ -213,6 +230,37 @@ def gust_spmv(
         scale_blk=scale_blk, blocks=bpw,
     )
     launches += 1
+    return y
+
+
+def gust_spmv_local(
+    m_blocks: torch.Tensor,  # (W*C_pad, l) values (0 in padding)
+    col_loc: torch.Tensor,  # (W*C_pad, l) int32/int16 block-local columns
+    row_blocks: torch.Tensor,  # (W*C_pad, l) int32/int16 adder index
+    seg_blk: torch.Tensor,  # (T_blk, S_blk) int32 segment table
+    x_padded: torch.Tensor,  # (S*l, B) float32
+    *,
+    num_windows: int,
+    l: int,
+    c_blk: int,
+    scale_blk: Optional[torch.Tensor] = None,  # (T_blk,) f32 for int8
+) -> torch.Tensor:
+    """Segment-local, single-buffered padded-stream SpMM: returns the
+    (W, l, B) f32 window tiles.  ``c_blk`` is the pack-time block height
+    the segment table was built at."""
+    global local_launches
+    bpw = _blocks_per_window(m_blocks.shape[0], num_windows, c_blk)
+    if m_blocks.device.type == "cpu":
+        return gust_spmv_local_ref(
+            m_blocks, col_loc, row_blocks, seg_blk, x_padded,
+            num_windows=num_windows, l=l, c_blk=c_blk, scale_blk=scale_blk,
+        )
+    y = run_kernel(
+        "gust_spmv_local", "gust_spmv_local_padded", m_blocks, col_loc,
+        row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
+        scale_blk=scale_blk, blocks=bpw, seg_blk=seg_blk,
+    )
+    local_launches += 1
     return y
 
 

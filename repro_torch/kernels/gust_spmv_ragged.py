@@ -5,6 +5,10 @@
   its int8 body ``_kernel_q``): the padded kernel's math over the ragged
   stream, where window ``w`` owns blocks
   ``block_starts[w]:block_starts[w+1]``.
+* :func:`gust_spmv_ragged_local` (``csrc/gust_spmv_local.cu``) replaces
+  ``make_gust_spmv_ragged_local``: x read through the pack-time segment
+  table, each block's referenced tiles staged in shared memory before
+  its cycles run (single-buffered).
 * :func:`gust_spmv_ragged_db` (``csrc/gust_spmv_db.cu``) replaces
   ``make_gust_spmv_ragged_db``: the same product with the stream copied
   into shared memory ahead of use (double-buffered).
@@ -18,8 +22,8 @@ as the padded kernels, at the card's 3.35 TB/s.
 
 On a CPU tensor a wrapper runs the plain version
 (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel
-or raises.  ``launches``, ``db_launches`` and ``local_db_launches`` count
-the launches of each kernel.
+or raises.  ``launches``, ``local_launches``, ``db_launches`` and
+``local_db_launches`` count the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -31,10 +35,17 @@ import torch
 from .gust_spmv import run_kernel
 from .ref import gust_spmv_ragged_local_ref, gust_spmv_ragged_ref
 
-__all__ = ["gust_spmv_ragged", "gust_spmv_ragged_db", "gust_spmv_ragged_local_db"]
+__all__ = [
+    "gust_spmv_ragged",
+    "gust_spmv_ragged_local",
+    "gust_spmv_ragged_db",
+    "gust_spmv_ragged_local_db",
+]
 
 #: Kernel launches made by :func:`gust_spmv_ragged` in this process.
 launches = 0
+#: ... by :func:`gust_spmv_ragged_local`.
+local_launches = 0
 #: ... by :func:`gust_spmv_ragged_db`.
 db_launches = 0
 #: ... by :func:`gust_spmv_ragged_local_db`.
@@ -69,6 +80,37 @@ def gust_spmv_ragged(
         scale_blk=scale_blk, blocks=block_starts,
     )
     launches += 1
+    return y
+
+
+def gust_spmv_ragged_local(
+    m_blocks: torch.Tensor,  # (T_blk*c_blk, l) values (0 in padding)
+    col_loc: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 block-local columns
+    row_blocks: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 adder index
+    seg_blk: torch.Tensor,  # (T_blk, S_blk) int32 segment table
+    block_window: torch.Tensor,  # (T_blk,) int32 window id of each block
+    block_starts: torch.Tensor,  # (W+1,) int32 per-window block prefix
+    x_padded: torch.Tensor,  # (S*l, B) float32
+    *,
+    num_windows: int,
+    l: int,
+    c_blk: int,
+    scale_blk: Optional[torch.Tensor] = None,  # (T_blk,) f32 for int8
+) -> torch.Tensor:
+    """Segment-local, single-buffered ragged-stream SpMM: returns the
+    (W, l, B) f32 window tiles."""
+    global local_launches
+    if m_blocks.device.type == "cpu":
+        return gust_spmv_ragged_local_ref(
+            m_blocks, col_loc, row_blocks, seg_blk, block_window, x_padded,
+            num_windows=num_windows, l=l, c_blk=c_blk, scale_blk=scale_blk,
+        )
+    y = run_kernel(
+        "gust_spmv_local", "gust_spmv_local_ragged", m_blocks, col_loc,
+        row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
+        scale_blk=scale_blk, blocks=block_starts, seg_blk=seg_blk,
+    )
+    local_launches += 1
     return y
 
 

@@ -16,10 +16,11 @@ import torch
 
 from ..core.packing import PackedSchedule, RaggedSchedule, resolve_gather
 
-from .gust_spmv import gust_spmv, gust_spmv_db, gust_spmv_local_db
+from .gust_spmv import gust_spmv, gust_spmv_db, gust_spmv_local, gust_spmv_local_db
 from .gust_spmv_ragged import (
     gust_spmv_ragged,
     gust_spmv_ragged_db,
+    gust_spmv_ragged_local,
     gust_spmv_ragged_local_db,
 )
 
@@ -32,9 +33,6 @@ EXECUTE_CHOICES = {
     "layout": ("padded", "ragged", "auto"),
     "pipeline": ("single", "double", "auto"),
 }
-
-#: Where the port's one missing execution mode is queued.
-_ROADMAP = "ROADMAP §2 items 3-4 (single-buffered segment-local kernels)"
 
 
 def normalize_choice(name: str, value: str, allowed: Tuple[str, ...] = None):
@@ -86,13 +84,10 @@ def execute_spmm(
     ``gather`` and ``pipeline`` are the reference's knobs, routed as the
     reference routes its kernels: on the card, ``pipeline="double"`` (and
     ``"auto"``, which means double-buffered there) runs the double-buffered
-    kernel of the layout and the resolved gather; ``pipeline="single"``
-    runs the single-buffered resident kernel.  The single-buffered
-    segment-local kernels are not ported yet: a resolved
-    ``gather="local"`` with ``pipeline="single"`` on the card raises
-    ``NotImplementedError`` naming the ROADMAP item.  The plain path has
-    no tile pipeline and ignores ``pipeline``, as the reference's jnp
-    path does.  ``layout`` is an assertion: naming the wrong one raises.
+    kernel of the layout and the resolved gather, ``pipeline="single"``
+    its single-buffered kernel.  The plain path has no tile pipeline and
+    ignores ``pipeline``, as the reference's jnp path does.  ``layout``
+    is an assertion: naming the wrong one raises.
     """
     normalize_choice("gather", gather)
     normalize_choice("pipeline", pipeline)
@@ -139,11 +134,6 @@ def execute_spmm(
             )
     local = gather == "local"
     double = pipeline != "single"
-    if packed.device.type == "cuda" and local and not double:
-        raise NotImplementedError(
-            f"gather='local' with pipeline='single' is not ported yet: "
-            f"{_ROADMAP}; use pipeline='double' or gather='resident'"
-        )
 
     xp = _prep_x(x, n, l)
     # the execute-time c_blk applies only to the padded resident unquantized
@@ -153,7 +143,8 @@ def execute_spmm(
     if ragged:
         blocks = (packed.block_window, packed.block_starts)
         if local:
-            y_win = gust_spmv_ragged_local_db(
+            fn = gust_spmv_ragged_local_db if double else gust_spmv_ragged_local
+            y_win = fn(
                 packed.m_blk, packed.col_loc, packed.row_blk, packed.seg_blk,
                 *blocks, xp, **kw,
             )
@@ -161,7 +152,8 @@ def execute_spmm(
             fn = gust_spmv_ragged_db if double else gust_spmv_ragged
             y_win = fn(packed.m_blk, packed.col_blk, packed.row_blk, *blocks, xp, **kw)
     elif local:
-        y_win = gust_spmv_local_db(
+        fn = gust_spmv_local_db if double else gust_spmv_local
+        y_win = fn(
             packed.m_blk, packed.col_loc, packed.row_blk, packed.seg_blk, xp, **kw
         )
     else:

@@ -22,6 +22,12 @@ the pack-time segment table — ``x[seg_blk[t, col_loc // l] * l + col_loc
 the resident versions' bits.  They compute that column and gather x
 directly instead of building the reference's ``(T, S_blk*l, B)`` tile
 array (gigabytes at a real matrix's size); the values are the same.
+
+:func:`gust_spgemm_ref` is the plain SpGEMM: it walks the stream's real
+slots (``m != 0``) in stream order, a bounded chunk at a time, and adds
+every partial product ``a * b`` into a flat ``W*l*n_out`` accumulator —
+on the CPU in the kernel's own order (one stream cycle after another;
+within a cycle no two products share a cell).
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ __all__ = [
     "gust_spmv_local_ref",
     "gust_spmv_ragged_ref",
     "gust_spmv_ragged_local_ref",
+    "gust_spgemm_ref",
+    "SPGEMM_REF_CHUNK",
 ]
 
 
@@ -203,3 +211,47 @@ def gust_spmv_ragged_local_ref(
         m_blocks, cols, row_blocks, block_window, x_padded,
         num_windows=num_windows, l=l, c_blk=c_blk, scale_blk=scale_blk,
     )
+
+
+#: Most partial products :func:`gust_spgemm_ref` materializes at once
+#: (slots x ``k_max``): about 24 bytes each across its temporaries, so
+#: about 0.8 GB at this cap, whatever the stream's length.
+SPGEMM_REF_CHUNK = 1 << 25
+
+
+def gust_spgemm_ref(
+    m_blocks: torch.Tensor,  # (T*c_blk, l) A values (0 in padding)
+    col_blocks: torch.Tensor,  # (T*c_blk, l) ORIGINAL A columns (B row ids)
+    row_blocks: torch.Tensor,  # (T*c_blk, l) adder index
+    window: torch.Tensor,  # (T*c_blk,) window id of each stream row
+    b_vals: torch.Tensor,  # (R, k_max) condensed B row values (0 in padding)
+    b_cols: torch.Tensor,  # (R, k_max) condensed B row columns (0 in padding)
+    *,
+    num_windows: int,
+    l: int,
+    n_out: int,
+) -> torch.Tensor:
+    """Plain SpGEMM through A's color-block stream, the reference
+    oracle's arguments and result: each slot ``(a, row, col=j)`` gathers
+    B's condensed row ``j``, multiplies its values by ``a`` and adds each
+    product into ``(window*l + row, b_col)``.  Returns (W, l, n_out) f32.
+
+    Slots with ``a == 0`` (padding) add ±0 and are dropped before the
+    gather; the rest go in chunks of at most :data:`SPGEMM_REF_CHUNK`
+    products, so memory does not grow with the stream."""
+    dev = m_blocks.device
+    k_max = b_vals.shape[1]
+    y = torch.zeros(num_windows * l * n_out, dtype=torch.float32, device=dev)
+    m_flat = m_blocks.reshape(-1).float()
+    slots = torch.nonzero(m_flat).squeeze(1)  # stream order
+    cols, rows = col_blocks.reshape(-1), row_blocks.reshape(-1)
+    vals, bcols = b_vals.float(), b_cols
+    per = max(1, SPGEMM_REF_CHUNK // max(k_max, 1))
+    for s0 in range(0, slots.numel(), per):
+        s = slots[s0:s0 + per]
+        col = cols[s].long()
+        part = m_flat[s][:, None] * vals.index_select(0, col)  # (n, k_max)
+        adder = window[s // l].long() * l + rows[s].long()
+        idx = adder[:, None] * n_out + bcols.index_select(0, col).long()
+        y.index_add_(0, idx.reshape(-1), part.reshape(-1))
+    return y.reshape(num_windows, l, n_out)

@@ -12,6 +12,9 @@ the plain version run on the CPU (the kernel's own order) the results
 must be bitwise equal.  The double-buffered and segment-local kernels
 must also equal the single-buffered resident kernel of their layout
 bitwise on the same artifact (``torch.equal``, which takes +0 == -0).
+The SpGEMM kernel is held bitwise to its plain version on the CPU and, on
+small-integer values, to the dense product; the Buffer Filler bitwise to
+``x[col]``.
 """
 
 import dataclasses
@@ -20,13 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.kernels.gather_fill as k_fill
+import repro_torch.kernels.gust_spgemm as k_gemm
 import repro_torch.kernels.gust_spmv as k_pad
 import repro_torch.kernels.gust_spmv_ragged as k_rag
 import repro_torch.kernels.ref as tref
-from repro_torch.core.formats import COOMatrix
+from repro_torch.core.formats import COOMatrix, dense_from_coo
 from repro_torch.core.packing import pack_ragged, pack_schedule
 from repro_torch.core.plan import PlanConfig, plan
 from repro_torch.core.scheduler import schedule
+from repro_torch.core.spgemm import _stream_view, condense_rows, row_windows
 from repro_torch.kernels.ops import _prep_x
 
 pytestmark = pytest.mark.gpu
@@ -93,6 +99,17 @@ def _run_db(art, xp, local):
         return k_pad.gust_spmv_local_db(
             art.m_blk, art.col_loc, art.row_blk, art.seg_blk, xp, **kw)
     return k_pad.gust_spmv_db(art.m_blk, art.col_blk, art.row_blk, xp, **kw)
+
+
+def _run_local_single(art, xp):
+    """Kernel 3/4 (segment-local, single-buffered) on one artifact."""
+    kw = dict(num_windows=art.num_windows, l=art.l, c_blk=art.c_blk,
+              scale_blk=art.scale_blk)
+    if hasattr(art, "block_starts"):
+        return k_rag.gust_spmv_ragged_local(
+            art.m_blk, art.col_loc, art.row_blk, art.seg_blk, art.block_window,
+            art.block_starts, xp, **kw)
+    return k_pad.gust_spmv_local(art.m_blk, art.col_loc, art.row_blk, art.seg_blk, xp, **kw)
 
 
 def shuffle_segment_table(art, seed):
@@ -242,12 +259,164 @@ def test_plan_on_card_and_launch_errors(cuda):
 
 
 @pytest.mark.parametrize("layout", ["padded", "ragged"])
-def test_local_single_is_not_ported(cuda, layout):
+def test_local_single_runs_through_plan(cuda, layout):
+    """``gather="local", pipeline="single"`` runs kernel 3/4 on the card and
+    gives the bits of the resident single-buffered plan."""
     dense = _dense(2, 200, 300, 0.05)
+    v = np.random.default_rng(6).standard_normal(300).astype(np.float32)
     p = plan(dense, PlanConfig(l=16, layout=layout, gather="local", pipeline="single"),
              device=cuda)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §2 items 3-4"):
-        p.spmv(np.ones(300, np.float32))
+    counter = k_rag if layout == "ragged" else k_pad
+    before = counter.local_launches
+    y = p.spmv(v)
+    assert counter.local_launches == before + 1
+    resident = plan(dense, PlanConfig(l=16, layout=layout, gather="resident",
+                                      pipeline="single"), device=cuda)
+    assert torch.equal(y, resident.spmv(v))
+    np.testing.assert_allclose(y.cpu().numpy(), dense @ v, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt,idt", [("float32", "int32"), ("bfloat16", "int16"),
+                                     ("int8", "int32"), ("int8", "int16")])
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_local_single_kernel_matches_plain_and_other_kernels(cuda, layout, vdt, idt, case):
+    """Kernels 3/4: against the plain version (card: tolerance; CPU:
+    bitwise), and bitwise against kernel 1/2 and kernel 6/8 on the same
+    artifact."""
+    m, n, l, c_blk, b = CASES[case]
+    sched = schedule(_coo(_dense(case, m, n, 0.05)), l)
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    art_gpu = pack(sched, c_blk, vdt, idt, device=cuda)
+    art_cpu = pack(sched, c_blk, vdt, idt, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((n, b)).astype(np.float32))
+    xp_cpu = _prep_x(x, n, l)
+    xp = xp_cpu.to(cuda)
+    counter = k_rag if layout == "ragged" else k_pad
+    before = counter.local_launches
+    y = _run_local_single(art_gpu, xp)
+    torch.cuda.synchronize()
+    assert counter.local_launches == before + 1
+    torch.testing.assert_close(y, _plain(art_gpu, xp), rtol=1e-5, atol=1e-5)
+    assert torch.equal(y.cpu(), _run_local_single(art_cpu, xp_cpu))
+    assert torch.equal(y, _run(art_gpu, xp))
+    assert torch.equal(y, _run_db(art_gpu, xp, local=True))
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt", ["float32", "int8"])
+@pytest.mark.parametrize("case", [0, 1, 3, 4])  # case 2: one segment, nothing to shuffle
+def test_local_single_kernel_takes_unordered_segment_tables(cuda, layout, vdt, case):
+    """Kernels 3/4 stage only the strictly increasing prefix of a table
+    row; a slot past it reads x directly, so a shuffled table gives the
+    bits of kernel 1/2 and of the plain version on the CPU."""
+    m, n, l, c_blk, b = CASES[case]
+    sched = schedule(_coo(_dense(case, m, n, 0.05)), l)
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    art_gpu = pack(sched, c_blk, vdt, "int32", device=cuda)
+    shuffled = shuffle_segment_table(art_gpu, seed=case)
+    assert not torch.equal(shuffled.seg_blk, art_gpu.seg_blk)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((n, b)).astype(np.float32))
+    xp_cpu = _prep_x(x, n, l)
+    xp = xp_cpu.to(cuda)
+    y = _run_local_single(shuffled, xp)
+    assert torch.equal(y, _run(art_gpu, xp))
+    shuffled_cpu = dataclasses.replace(shuffled, **{
+        f.name: getattr(shuffled, f.name).cpu() for f in dataclasses.fields(shuffled)
+        if isinstance(getattr(shuffled, f.name), torch.Tensor)})
+    assert torch.equal(y.cpu(), _run_local_single(shuffled_cpu, xp_cpu))
+
+
+def _spgemm_operands(seed, m, k, n_out, density, integers):
+    rng = np.random.default_rng(seed)
+    vals = (lambda shape: rng.integers(-3, 4, shape)) if integers else rng.standard_normal
+    a = ((rng.random((m, k)) < density) * vals((m, k))).astype(np.float32)
+    a[rng.integers(0, m)] = vals(k)  # a heavy row: many padding slots elsewhere
+    bm = ((rng.random((k, n_out)) < density) * vals((k, n_out))).astype(np.float32)
+    bm[:, 0] = vals(k)  # real work on B's column 0, where B's padding points
+    return a, bm
+
+
+def _run_spgemm(art, cond, n_out):
+    _, _, bs = _stream_view(art)
+    return k_gemm.gust_spgemm(bs, art.m_blk, art.col_blk, art.row_blk, cond.vals, cond.cols,
+                              num_windows=art.num_windows, l=art.l, n_out=n_out,
+                              c_blk=art.c_blk)
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt,idt", [("float32", "int32"), ("float32", "int16"),
+                                     ("bfloat16", "int32"), ("bfloat16", "int16")])
+@pytest.mark.parametrize("l", [7, 32, 256])
+def test_spgemm_kernel_matches_plain_and_dense(cuda, layout, vdt, idt, l):
+    """Kernel 9: on small-integer values bitwise equal to its plain version
+    (card and CPU) and to the dense product; on normal values bitwise to
+    the plain version on the CPU (the kernel's order) and within
+    ``1e-5 * (|A|·|B|)`` per element of the plain version on the card."""
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    for integers in (True, False):
+        a, bm = _spgemm_operands(l, 3 * l + 5, 2 * l + 3, 40, 0.08, integers)
+        sched = schedule(_coo(a), l)
+        art_gpu = pack(sched, 4, vdt, idt, device=cuda)
+        art_cpu = pack(sched, 4, vdt, idt, device="cpu")
+        cond_gpu = condense_rows(_coo(bm), l, device=cuda)
+        cond_cpu = condense_rows(_coo(bm), l, device="cpu")
+        before = k_gemm.launches
+        y = _run_spgemm(art_gpu, cond_gpu, 40)
+        torch.cuda.synchronize()
+        assert k_gemm.launches == before + 1
+        assert torch.equal(y.cpu(), _run_spgemm(art_cpu, cond_cpu, 40))
+        window = row_windows(_stream_view(art_gpu)[2], art_gpu.c_blk)
+        plain = tref.gust_spgemm_ref(art_gpu.m_blk, art_gpu.col_blk, art_gpu.row_blk, window,
+                                     cond_gpu.vals, cond_gpu.cols,
+                                     num_windows=art_gpu.num_windows, l=l, n_out=40)
+        if integers:
+            assert torch.equal(y, plain)
+            p = plan(a, PlanConfig(l=l, c_blk=4, layout=layout, value_dtype=vdt,
+                                   index_dtype=idt), device=cuda)
+            c = p.spgemm(bm)
+            want = a.astype(np.float64) @ bm.astype(np.float64)
+            assert np.array_equal(dense_from_coo(c), want.astype(np.float32))
+        else:
+            mag = tref.gust_spgemm_ref(art_gpu.m_blk.abs(), art_gpu.col_blk, art_gpu.row_blk,
+                                       window, cond_gpu.vals.abs(), cond_gpu.cols,
+                                       num_windows=art_gpu.num_windows, l=l, n_out=40)
+            assert bool(((y - plain).abs() <= 1e-5 * mag).all())
+
+
+def test_spgemm_row0_column0_padding_collision(cuda):
+    """Window 0 has one real slot, on adder row 0, in cycles full of padding
+    slots (row 0, value 0), and B's real entries sit in column 0 beside
+    B's padding entries (column 0, value 0): nothing may be lost."""
+    a = np.zeros((8, 8), np.float32)
+    a[0, 1] = 3.0  # window 0: one real slot, on row 0
+    a[4:8, :] = np.arange(1, 33, dtype=np.float32).reshape(4, 8)
+    bm = np.zeros((8, 5), np.float32)
+    bm[:, 0] = np.arange(1, 9)
+    bm[1, 4] = 2.0
+    bm[5, 0:5] = 1.0  # one long row: every other row is padded to it
+    want = a @ bm
+    for layout in ("padded", "ragged"):
+        p = plan(a, PlanConfig(l=4, c_blk=4, load_balance=False, layout=layout), device=cuda)
+        assert np.array_equal(dense_from_coo(p.spgemm(bm)), want), layout
+
+
+@pytest.mark.parametrize("idt", ["int32", "int16"])
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_gather_fill_matches_plain(cuda, idt, case):
+    """Kernel 10: bitwise equal to its plain version and to ``x[col]``."""
+    m, n, l, c_blk, _ = CASES[case]
+    art = pack_schedule(schedule(_coo(_dense(case, m, n, 0.05)), l), c_blk, "float32", idt,
+                        device=cuda)
+    for b in (1, 3, 8):
+        x = torch.from_numpy(np.random.default_rng(b).standard_normal((n, b)).astype(np.float32))
+        xp = _prep_x(x, n, l).to(cuda)
+        before = k_fill.launches
+        g = k_fill.gather_fill(art.col_blk, xp)
+        torch.cuda.synchronize()
+        assert k_fill.launches == before + 1
+        assert torch.equal(g, tref.gather_fill_ref(art.col_blk, xp))
+        assert torch.equal(g, xp[art.col_blk.long()])
 
 
 @pytest.mark.parametrize("vdt", ["float32", "int8"])

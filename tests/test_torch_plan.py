@@ -126,8 +126,11 @@ def test_default_device_needs_a_card(monkeypatch):
 def test_import_loads_neither_jax_nor_repro():
     code = (
         "import sys; import repro_torch; repro_torch.plan; repro_torch.PlanConfig; "
+        "repro_torch.spgemm; repro_torch.graph.triangle_count; "
         "import repro_torch.kernels.ops, repro_torch.core.convert, "
-        "repro_torch.kernels._build, repro_torch.data.matrices; "
+        "repro_torch.kernels._build, repro_torch.data.matrices, "
+        "repro_torch.core.spgemm, repro_torch.graph.analytics, "
+        "repro_torch.kernels.gust_spgemm, repro_torch.kernels.gather_fill; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); "
         "assert not bad, bad; print('ok')"
@@ -141,13 +144,11 @@ def test_import_loads_neither_jax_nor_repro():
     assert out.stdout.strip() == "ok"
 
 
-def test_unported_modes_raise_naming_the_roadmap():
-    """The modes this test once saw raise now run on the CPU: a resolved
-    ``gather="local"`` runs the segment-local plain versions and matches
-    the reference's plain path, and the plain path ignores ``pipeline``.
-    The one mode still unported (``pipeline="single"`` with a local
-    gather) raises only on a CUDA artifact; ``tests/test_torch_gpu.py``
-    checks that it names the ROADMAP item."""
+def test_local_gather_runs_on_cpu_under_every_pipeline():
+    """A resolved ``gather="local"`` runs the segment-local plain versions
+    on the CPU under every pipeline, matches the reference's plain path,
+    and equals the resident gather bitwise (the plain path ignores
+    ``pipeline``)."""
     for layout in ("padded", "ragged"):
         _, ref, port = _plans(layout, "float32")
         x = np.random.default_rng(4).standard_normal((port.shape[1], 2)).astype(np.float32)
@@ -158,7 +159,6 @@ def test_unported_modes_raise_naming_the_roadmap():
         np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
         assert torch.equal(y, tops.execute_spmm(port.artifact, torch.from_numpy(x),
                                                 gather="resident", pipeline="double"))
-    assert "ROADMAP §2 items 3-4" in tops._ROADMAP
 
 
 def _local_matrix(seed, m=256, n=1024, per_row=6):

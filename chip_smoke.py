@@ -63,12 +63,16 @@ Checks, each fatal:
     ``G·G`` (``torch.matmul``, TF32 off) on both layouts, padded ==
     ragged; ``pagerank(G)`` converged and within 2e-5 in L1 of scipy's
     float64 iteration run to its fixed point; ``feature_propagation``
-    within ``1e-4 * (|Â|·|Â|·|H|)`` per element of scipy in float64.
+    within ``1e-4 * (|Â|·|Â|·|H|)`` per element of scipy in float64;
+  * the library of kernels 6/8 (``gust_spmv_local_db.cu``) builds without
+    a spill (ptxas).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
-bytes), SpGEMM's wall time split (condensing B, kernel, reorder,
-compaction on the card, host copy), and as its last line
+bytes; kernels 6/8 also with their CTAs per SM, grid and
+``partial_bytes``, the scratch of block tiles that their fold reads),
+SpGEMM's wall time split (condensing B, kernel, reorder, compaction on
+the card, host copy), and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 """
@@ -92,6 +96,7 @@ SOURCES = {
     "gust_spmv.cu": "repro_torch/kernels/csrc/gust_spmv.cu",
     "gust_spmv_local.cu": "repro_torch/kernels/csrc/gust_spmv_local.cu",
     "gust_spmv_db.cu": "repro_torch/kernels/csrc/gust_spmv_db.cu",
+    "gust_spmv_local_db.cu": "repro_torch/kernels/csrc/gust_spmv_local_db.cu",
     "gust_spgemm.cu": "repro_torch/kernels/csrc/gust_spgemm.cu",
     "gather_fill.cu": "repro_torch/kernels/csrc/gather_fill.cu",
 }
@@ -107,11 +112,11 @@ KERNELS = {
                                "src/repro/kernels/gust_spmv_ragged.py:199"),
     "gust_spmv_db": ("padded", "resident", "gust_spmv_db.cu",
                      "src/repro/kernels/gust_spmv.py:504"),
-    "gust_spmv_local_db": ("padded", "local", "gust_spmv_db.cu",
+    "gust_spmv_local_db": ("padded", "local", "gust_spmv_local_db.cu",
                            "src/repro/kernels/gust_spmv.py:620"),
     "gust_spmv_ragged_db": ("ragged", "resident", "gust_spmv_db.cu",
                             "src/repro/kernels/gust_spmv_ragged.py:324"),
-    "gust_spmv_ragged_local_db": ("ragged", "local", "gust_spmv_db.cu",
+    "gust_spmv_ragged_local_db": ("ragged", "local", "gust_spmv_local_db.cu",
                                   "src/repro/kernels/gust_spmv_ragged.py:430"),
 }
 #: The single-buffered resident kernel of each layout: the bitwise
@@ -121,6 +126,12 @@ YARDSTICK = {"padded": "gust_spmv", "ragged": "gust_spmv_ragged"}
 #: double-buffered local kernel of their layout.
 LOCAL_TWIN = {"gust_spmv_local": "gust_spmv_local_db",
               "gust_spmv_ragged_local": "gust_spmv_ragged_local_db"}
+#: The kernels that spread a window's blocks over the card's CTAs and fold
+#: their (l, B) tiles from a scratch: each of their rows also prints the
+#: launch (CTAs per SM, grid) and the scratch's size, ``partial_bytes``.
+SPREAD = ("gust_spmv_local_db", "gust_spmv_ragged_local_db")
+#: Libraries that must build without a spill (ptxas).
+NO_SPILL = ("gust_spmv_local_db",)
 #: The kernels off the SpMV path: name -> (source, TPU kernel it replaces).
 OTHER_KERNELS = {
     "gather_fill": ("gather_fill.cu", "src/repro/kernels/gather_fill.py:57"),
@@ -266,6 +277,7 @@ def main() -> int:
     import repro_torch.kernels.ref as plain
     from repro_torch.kernels import _build
     from repro_torch.kernels.gather_fill import gather_fill
+    from repro_torch.kernels.gust_spmv import local_db_launch_plan
     from repro_torch.kernels.ops import _prep_x
 
     smi = subprocess.run(
@@ -296,6 +308,8 @@ def main() -> int:
                                 "spilling": spills}
         log(f"build {lib}: {info['seconds']:.1f} s, {len(regs)} kernels, "
             f"max {max(regs, default=0)} registers, {len(spills)} with spills")
+        if lib in NO_SPILL and spills:
+            raise AssertionError(f"{lib} spills (ptxas): {spills}")
     log(f"build: {report['build_s']:.1f} s")
 
     # -- matrix, schedules, packs ----------------------------------------------
@@ -428,6 +442,9 @@ def main() -> int:
                         bytes_and_ops(name, art, xp, b, coo.nnz),
                     ))
                     row["x_tile_bytes"] = x_tile_bytes(name, art, b)
+                    if name in SPREAD:
+                        row.update(local_db_launch_plan(art.m_blk, art.col_loc, xp,
+                                                        l=art.l, c_blk=art.c_blk))
                     log(f"kernel {tag}: max |kernel - plain| = {row['max_abs_err']:.3e}; "
                         + ", ".join(k for k, val in row.items()
                                     if k.startswith("bitwise") and val))
@@ -544,8 +561,10 @@ def main() -> int:
             f"{row['value_dtype']} B={row['B']}: kernel {row['ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
             f"library {lib}"
-            + "".join(f", {k} {row[k]}" for k in ("x_tile_bytes", "b_plane_bytes")
-                      if row.get(k) is not None))
+            + "".join(f", {k} {row[k]}" for k in ("x_tile_bytes", "b_plane_bytes",
+                                                  "partial_bytes", "ctas_per_sm")
+                      if row.get(k) is not None)
+            + (f", grid ({row['grid_x']}, {row['grid_y']})" if "grid_x" in row else ""))
     report["variants"] = variants
     spgemm_wall_split(report, gemm_rows)
 
@@ -568,6 +587,8 @@ def main() -> int:
         }
         if "bound_ms_at_power_limit" in head:
             entry["bound_ms_at_power_limit"] = head["bound_ms_at_power_limit"]
+        entry.update({k: head[k] for k in ("ctas_per_sm", "grid_x", "grid_y",
+                                           "partial_bytes") if k in head})
         kernels.append(entry)
     report["kernels"] = kernels
 

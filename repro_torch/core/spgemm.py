@@ -290,8 +290,8 @@ def window_product(art, cond: CondensedB, n_out: int) -> torch.Tensor:
 def to_original_rows(art, y_win: torch.Tensor, m: int) -> torch.Tensor:
     """The window accumulators as the dense ``(m, n_out)`` product in
     A's original row order."""
-    n_out = y_win.shape[-1]
-    y_sorted = y_win.reshape(-1, n_out)
+    w, l, n_out = y_win.shape
+    y_sorted = y_win.reshape(w * l, n_out)  # not (-1, n_out): n_out may be 0
     if art.identity_perm:
         return y_sorted[:m]
     out = torch.zeros(max(m, y_sorted.shape[0]), n_out, dtype=torch.float32,

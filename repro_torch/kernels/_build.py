@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "load", "build_log"]
+__all__ = ["BUILD_DIR", "SOURCES", "build", "bind", "load", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -29,6 +29,7 @@ SOURCES = {
     "gust_spmv": "gust_spmv.cu",
     "gust_spmv_local": "gust_spmv_local.cu",
     "gust_spmv_db": "gust_spmv_db.cu",
+    "gust_spmv_local_db": "gust_spmv_local_db.cu",
     "gust_spgemm": "gust_spgemm.cu",
     "gather_fill": "gather_fill.cu",
 }
@@ -80,12 +81,16 @@ SIGNATURES = {
         # m, col, row, scale, x, y, block_starts, vdt, idt, W, l, c_blk, b,
         # stream
         "gust_spmv_db_ragged": [_P] * 7 + [_I] * 6 + [_P],
-        # m, col_loc, row, seg_blk, scale, x, y, vdt, idt, W,
+    },
+    "gust_spmv_local_db": {
+        # m, col_loc, row, seg_blk, scale, x, y, partials, vdt, idt, W, T,
         # blocks_per_window, l, c_blk, s_blk, b, stream
-        "gust_spmv_local_db_padded": [_P] * 7 + [_I] * 8 + [_P],
-        # m, col_loc, row, seg_blk, scale, x, y, block_starts, vdt, idt, W,
-        # l, c_blk, s_blk, b, stream
-        "gust_spmv_local_db_ragged": [_P] * 8 + [_I] * 7 + [_P],
+        "gust_spmv_local_db_padded": [_P] * 8 + [_I] * 9 + [_P],
+        # m, col_loc, row, seg_blk, scale, x, y, partials, block_starts, vdt,
+        # idt, W, T, l, c_blk, s_blk, b, stream
+        "gust_spmv_local_db_ragged": [_P] * 9 + [_I] * 8 + [_P],
+        # vdt, idt, T, l, c_blk, b, out[6]
+        "gust_spmv_local_db_plan": [_I] * 6 + [_P],
     },
 }
 
@@ -145,15 +150,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return {name: _lib_path(name) for name in names}
 
 
+def bind(path: Path, name: str) -> ctypes.CDLL:
+    """The shared library at ``path`` with the C entry points of library
+    ``name`` (a build of its source, or of a variant of it) typed."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.gust_error_string.argtypes = [ctypes.c_int]
+    lib.gust_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The bound library ``name``, built first if needed."""
     if name not in _LIBS:
-        path = build([name])[name]
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.gust_error_string.argtypes = [ctypes.c_int]
-        lib.gust_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        _LIBS[name] = bind(build([name])[name], name)
     return _LIBS[name]

@@ -16,7 +16,6 @@ one JSON object and writes it to ``chiprun_out/chunk_sweep.json``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -62,13 +61,7 @@ def _build_caps(caps):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for cap {cap}:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        for fn, argtypes in _build.SIGNATURES["gust_spmv_db"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.gust_error_string.argtypes = [ctypes.c_int]
-        lib.gust_error_string.restype = ctypes.c_char_p
-        libs[cap] = lib
+        libs[cap] = _build.bind(out, "gust_spmv_db")
     return libs
 
 

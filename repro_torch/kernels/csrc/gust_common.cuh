@@ -1,6 +1,8 @@
 // Pieces that every GUST SpMV source shares: the value load (with the int8
 // dequant), the count of a block's referenced x tiles (segment-local
-// kernels) and the mapping from the wrappers' dtype codes to kernel types.
+// kernels), the cp.async copies and shared-memory opt-in of the
+// double-buffered kernels and the mapping from the wrappers' dtype codes
+// to kernel types.
 // The bitwise contracts between the sources (single == double, resident ==
 // local) rest on both being the same everywhere, so they live only here.
 
@@ -44,6 +46,56 @@ __device__ __forceinline__ int referenced_tiles(const int* __restrict__ seg_blk,
     n += __syncthreads_count(s < s_blk && row[s] > row[s - 1]);
   }
   return n;
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The most dynamic shared memory a CTA of the current device may opt in to.
+inline int max_shared_bytes() {
+  int dev = 0, bytes = 48 * 1024;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return bytes;
+}
+
+// Above 48 KB, dynamic shared memory needs the kernel's opt-in, or the
+// launch is refused.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 template <typename T>

@@ -17,7 +17,7 @@
 // with a barrier per cycle, the window accumulator in registers, products
 // and sums rounded with the _rn intrinsics, slots whose value is 0 skipped.
 // So on one artifact, for finite x, this kernel equals kernel 1/2 (and the
-// double-buffered local kernels of gust_spmv_db.cu) bitwise.  What the
+// double-buffered local kernels of gust_spmv_local_db.cu) bitwise.  What the
 // segment table changes is the gather.  Per chunk of up to kChunk cycles of
 // a block, each thread holds its lane's (value, col_loc, row); the CTA then
 // copies the block's referenced x tiles (the strictly increasing prefix of
@@ -44,11 +44,11 @@
 namespace {
 
 using gust::load_value;
+using gust::max_shared_bytes;
 using gust::referenced_tiles;
 
 constexpr int kChunk = 8;     // most cycles whose slots a thread holds at once
 constexpr int kMaxStage = 8;  // most x tiles staged per pass
-constexpr int kSmemDefault = 48 * 1024;  // above this, opt in per kernel
 // Fewer tiles per pass while a CTA needs more than this, so that two CTAs
 // fit on an SM at B > 1 (104 KB each at l = 256).
 constexpr int kSmemTarget = 110 * 1024;
@@ -174,14 +174,6 @@ __global__ void __launch_bounds__(1024) gust_spmv_local_kernel(
   }
 }
 
-int max_shared_bytes() {
-  int dev = 0, bytes = kSmemDefault;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  return bytes;
-}
-
 size_t local_smem(int l, int bt, int cc, int stage) {
   return (size_t)l * bt * 4 * (1 + stage + cc);
 }
@@ -200,11 +192,8 @@ cudaError_t launch(const void* m, const void* col_loc, const void* row,
   const size_t bytes = local_smem(l, BT, cc, stage);
   if (bytes > limit) return cudaErrorInvalidConfiguration;
   auto kernel = gust_spmv_local_kernel<V, I, QUANT, RAGGED, BT>;
-  if (bytes > (size_t)kSmemDefault) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = gust::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
   dim3 grid(num_windows, (b + BT - 1) / BT);
   kernel<<<grid, l, bytes, stream>>>(
       static_cast<const V*>(m), static_cast<const I*>(col_loc),

@@ -12,9 +12,11 @@
 * :func:`gust_spmv_db` (``csrc/gust_spmv_db.cu``) replaces
   ``make_gust_spmv_db``: the same product with the stream copied into
   shared memory ahead of use (double-buffered).
-* :func:`gust_spmv_local_db` (``csrc/gust_spmv_db.cu``) replaces
+* :func:`gust_spmv_local_db` (``csrc/gust_spmv_local_db.cu``) replaces
   ``make_gust_spmv_local_db``: x read through the pack-time segment
-  table, its tiles streamed into shared memory ahead of use.
+  table, each block's tiles staged one block ahead; the blocks are spread
+  over the card's CTAs and each window's block tiles folded in stream
+  order by a second kernel.
 
 All are bound by memory: each stream slot is read once (value + 2 index
 bytes), plus the scales, x once (local: also the referenced prefix of
@@ -35,7 +37,13 @@ import torch
 
 from .ref import gust_spmv_local_ref, gust_spmv_ref
 
-__all__ = ["gust_spmv", "gust_spmv_local", "gust_spmv_db", "gust_spmv_local_db"]
+__all__ = [
+    "gust_spmv",
+    "gust_spmv_local",
+    "gust_spmv_db",
+    "gust_spmv_local_db",
+    "local_db_launch_plan",
+]
 
 #: Kernel launches made by :func:`gust_spmv` in this process.
 launches = 0
@@ -161,15 +169,17 @@ def run_kernel(
     scale_blk: Optional[torch.Tensor],
     blocks: Union[int, torch.Tensor],  # padded: blocks per window; ragged: block_starts
     seg_blk: Optional[torch.Tensor] = None,  # the local kernels' segment table
+    partials: bool = False,  # the entry point takes a (T_blk, l, B) scratch
 ) -> torch.Tensor:
     """Check the arguments of C entry point ``entry`` of library
     ``lib_name`` (built at first use), allocate the (W, l, B) f32 output
+    (and with ``partials`` the (T_blk, l, B) f32 scratch of block tiles)
     and launch the kernel on the current stream of the stream's device.
     Raises on a tensor the kernel does not take and on a failed launch.
 
     The entry points take, in order: m, cols, row, [seg_blk], scale, x,
-    y, [block_starts], value code, index code, W, [blocks per window],
-    l, c_blk, [S_blk], B, stream."""
+    y, [partials], [block_starts], value code, index code, W, [T_blk],
+    [blocks per window], l, c_blk, [S_blk], B, stream."""
     if m_blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {m_blocks.device}")
     vdt, idt = _check_stream_args(
@@ -182,9 +192,13 @@ def run_kernel(
     if local:
         s_blk = _check_seg_blk(seg_blk, m_blocks.shape[0], c_blk, device)
     y = torch.empty(num_windows, l, b, dtype=torch.float32, device=device)
+    t_blk = m_blocks.shape[0] // c_blk
     args = [m_blocks, cols, row_blocks] + ([seg_blk] if local else [])
-    args += [scale_blk, x_padded, y] + ([blocks] if ragged else [])
-    args += [vdt, idt, num_windows] + ([] if ragged else [blocks])
+    args += [scale_blk, x_padded, y]
+    if partials:
+        args.append(torch.empty(t_blk, l, b, dtype=torch.float32, device=device))
+    args += ([blocks] if ragged else []) + [vdt, idt, num_windows]
+    args += ([t_blk] if partials else []) + ([] if ragged else [blocks])
     args += [l, c_blk] + ([s_blk] if local else []) + [b]
     launch(lib_name, entry, args, device)
     return y
@@ -316,9 +330,44 @@ def gust_spmv_local_db(
             num_windows=num_windows, l=l, c_blk=c_blk, scale_blk=scale_blk,
         )
     y = run_kernel(
-        "gust_spmv_db", "gust_spmv_local_db_padded", m_blocks, col_loc,
+        "gust_spmv_local_db", "gust_spmv_local_db_padded", m_blocks, col_loc,
         row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
-        scale_blk=scale_blk, blocks=bpw, seg_blk=seg_blk,
+        scale_blk=scale_blk, blocks=bpw, seg_blk=seg_blk, partials=True,
     )
     local_db_launches += 1
     return y
+
+
+def local_db_launch_plan(
+    m_blocks: torch.Tensor,  # (T_blk*c_blk, l) values on the card
+    col_loc: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 block-local columns
+    x_padded: torch.Tensor,  # (S*l, B) float32
+    *,
+    l: int,
+    c_blk: int,
+) -> dict:
+    """The launch :func:`gust_spmv_local_db` and
+    ``gust_spmv_ragged_local_db`` make for this stream on its card
+    (either layout: the block kernel sees only the stream): CTAs per SM
+    (from the occupancy calculator), the grid of the block kernel, its
+    shared bytes per CTA, the x tiles staged per block and the cycles per
+    chunk, and ``partial_bytes``, the size of the scratch of block tiles."""
+    import ctypes
+
+    from ._build import load
+
+    b, t_blk = x_padded.shape[1], m_blocks.shape[0] // c_blk
+    out = (ctypes.c_int * 6)()
+    lib = load("gust_spmv_local_db")
+    with torch.cuda.device(m_blocks.device):
+        err = lib.gust_spmv_local_db_plan(
+            _VALUE_CODES[m_blocks.dtype], _INDEX_CODES[col_loc.dtype], t_blk, l,
+            c_blk, b, out,
+        )
+    if err != 0:
+        msg = lib.gust_error_string(err).decode()
+        raise RuntimeError(f"gust_spmv_local_db_plan failed: {msg} (cudaError {err})")
+    keys = ("ctas_per_sm", "grid_x", "grid_y", "smem_bytes", "stage_tiles", "chunk_cycles")
+    plan = dict(zip(keys, out))
+    plan["partial_bytes"] = t_blk * l * b * 4
+    return plan

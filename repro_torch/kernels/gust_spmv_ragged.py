@@ -12,13 +12,16 @@
 * :func:`gust_spmv_ragged_db` (``csrc/gust_spmv_db.cu``) replaces
   ``make_gust_spmv_ragged_db``: the same product with the stream copied
   into shared memory ahead of use (double-buffered).
-* :func:`gust_spmv_ragged_local_db` (``csrc/gust_spmv_db.cu``) replaces
-  ``make_gust_spmv_ragged_local_db``: x read through the pack-time
-  segment table, its tiles streamed into shared memory ahead of use.
+* :func:`gust_spmv_ragged_local_db` (``csrc/gust_spmv_local_db.cu``)
+  replaces ``make_gust_spmv_ragged_local_db``: x read through the
+  pack-time segment table, each block's tiles staged one block ahead,
+  the blocks spread over the card's CTAs and each window's block tiles
+  folded in stream order by a second kernel.
 
-Each CUDA kernel gives each window one CTA that walks exactly its block
-range, so it needs no ``block_window`` and no atomics.  Bound by memory,
-as the padded kernels, at the card's 3.35 TB/s.
+The other CUDA kernels give each window one CTA that walks exactly its
+block range; each needs ``block_starts``, none ``block_window``, and
+none uses atomics.  Bound by memory, as the padded kernels, at the
+card's 3.35 TB/s.
 
 On a CPU tensor a wrapper runs the plain version
 (:mod:`repro_torch.kernels.ref`); on a CUDA tensor it launches its kernel
@@ -167,9 +170,10 @@ def gust_spmv_ragged_local_db(
             num_windows=num_windows, l=l, c_blk=c_blk, scale_blk=scale_blk,
         )
     y = run_kernel(
-        "gust_spmv_db", "gust_spmv_local_db_ragged", m_blocks, col_loc,
+        "gust_spmv_local_db", "gust_spmv_local_db_ragged", m_blocks, col_loc,
         row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
         scale_blk=scale_blk, blocks=block_starts, seg_blk=seg_blk,
+        partials=True,
     )
     local_db_launches += 1
     return y

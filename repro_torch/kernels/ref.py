@@ -14,7 +14,10 @@ the tile".  On the CPU ``index_add_`` adds in index order, so there this
 is the kernels' exact order; on the card ``index_add_`` uses atomics, so
 there the comparison is by tolerance.  Against the reference's oracles,
 which scatter every product straight into the window, sums are
-reordered: equal on exact-arithmetic inputs, close otherwise.
+reordered: equal on exact-arithmetic inputs, close otherwise.  Slots
+whose value is 0 (padding) add nothing, as the kernels skip them, so an
+inf or NaN in x at a column only padding points at leaves every row
+finite (the reference's oracles return NaN rows there).
 
 The segment-local twins (``*_local_*``) read each slot's x value through
 the pack-time segment table — ``x[seg_blk[t, col_loc // l] * l + col_loc
@@ -114,7 +117,9 @@ def _block_window_accumulate(
     t_blk = rows // c_blk
     b = x_padded.shape[1]
     dev = m.device
+    # a zero-valued (padding) slot adds +0 whatever x holds: see the module note
     partial = m[:, :, None] * gather_fill_ref(col_blocks, x_padded)
+    partial.masked_fill_(m[:, :, None] == 0, 0.0)
     blk_of_row = torch.arange(rows, device=dev) // c_blk
     adder = blk_of_row[:, None] * l + row_blocks.long()  # (rows, l)
     tiles = torch.zeros(t_blk * l, b, dtype=torch.float32, device=dev)
@@ -242,6 +247,8 @@ def gust_spgemm_ref(
     dev = m_blocks.device
     k_max = b_vals.shape[1]
     y = torch.zeros(num_windows * l * n_out, dtype=torch.float32, device=dev)
+    if n_out == 0:  # no cell to add into (B's padding plane still has one column)
+        return y.reshape(num_windows, l, 0)
     m_flat = m_blocks.reshape(-1).float()
     slots = torch.nonzero(m_flat).squeeze(1)  # stream order
     cols, rows = col_blocks.reshape(-1), row_blocks.reshape(-1)

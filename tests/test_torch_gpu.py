@@ -14,7 +14,12 @@ must also equal the single-buffered resident kernel of their layout
 bitwise on the same artifact (``torch.equal``, which takes +0 == -0).
 The SpGEMM kernel is held bitwise to its plain version on the CPU and, on
 small-integer values, to the dense product; the Buffer Filler bitwise to
-``x[col]``.
+``x[col]``.  Kernels 6/8, which spread a window's blocks over the card's
+CTAs, are also run where CTAs hold several blocks, a window spans many
+CTAs, a block references more x tiles than their stage holds, and a
+window is empty.  An infinite x at a column that only padding slots
+point at leaves every kernel's rows finite and equal to the plain
+version's.
 """
 
 import dataclasses
@@ -33,6 +38,7 @@ from repro_torch.core.packing import pack_ragged, pack_schedule
 from repro_torch.core.plan import PlanConfig, plan
 from repro_torch.core.scheduler import schedule
 from repro_torch.core.spgemm import _stream_view, condense_rows, row_windows
+from repro_torch.kernels.ref import _local_columns
 from repro_torch.kernels.ops import _prep_x
 
 pytestmark = pytest.mark.gpu
@@ -437,3 +443,166 @@ def test_default_plans_agree_across_layouts_gathers_pipelines(cuda, vdt, load_ba
         assert torch.equal(y, ys[0])
     if vdt == "float32":
         np.testing.assert_allclose(ys[0].cpu().numpy(), dense @ X, rtol=1e-4, atol=1e-4)
+
+
+def _run_family(family, art, xp):
+    """Kernel 1/2, 3/4, 5/7 or 6/8 of the artifact's layout."""
+    if family == "single":
+        return _run(art, xp)
+    if family == "local_single":
+        return _run_local_single(art, xp)
+    return _run_db(art, xp, local=family == "local_db")
+
+
+def _inf_case():
+    """64x64 of small integers whose column 3 holds no entry; x = 1 except
+    x[3] = inf, where padding slots of lane 3 point at l=8."""
+    rng = np.random.default_rng(41)
+    dense = ((rng.random((64, 64)) < 0.15) * rng.integers(-3, 4, (64, 64))).astype(np.float32)
+    dense[:, 3] = 0
+    x = np.ones((64, 1), np.float32)
+    x[3] = np.inf
+    return dense, x
+
+
+@pytest.mark.parametrize("family", ["single", "local_single", "db", "local_db"])
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt", ["float32", "int8"])
+def test_kernels_skip_padding_at_an_infinite_x(cuda, family, layout, vdt):
+    """Every SpMV kernel skips zero-valued slots, and so does its plain
+    version: with an inf at a column only padding points at, the rows are
+    finite and bitwise equal to the plain version on the CPU (B=1)."""
+    dense, x = _inf_case()
+    sched = schedule(_coo(dense), 8)
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    art_gpu = pack(sched, 4, vdt, "int32", device=cuda)
+    art_cpu = pack(sched, 4, vdt, "int32", device="cpu")
+    cols = art_cpu.col_blk if "local" not in family else _local_columns(
+        art_cpu.col_loc, art_cpu.seg_blk, l=8, c_blk=4)
+    assert bool(((art_cpu.m_blk == 0) & (cols == 3)).any())  # padding reads the inf
+    xp_cpu = _prep_x(torch.from_numpy(x), 64, 8)
+    y = _run_family(family, art_gpu, xp_cpu.to(cuda))
+    assert bool(torch.isfinite(y).all())
+    assert torch.equal(y.cpu(), _run_family(family, art_cpu, xp_cpu))
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_plans_at_an_infinite_x_equal_m_x(cuda, layout):
+    dense, x = _inf_case()
+    keep = np.arange(64) != 3
+    want = (dense[:, keep].astype(np.float64) @ x[keep].astype(np.float64)).astype(np.float32)
+    for gather, pipeline in (("resident", "single"), ("local", "single"),
+                             ("resident", "double"), ("local", "double")):
+        p = plan(dense, PlanConfig(l=8, c_blk=4, layout=layout, gather=gather,
+                                   pipeline=pipeline), device=cuda)
+        y = p.spmm(x)
+        assert np.array_equal(y.cpu().numpy(), want), (gather, pipeline)
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_spgemm_zero_column_b_on_card(cuda, layout):
+    """B with no column: an empty (m, 0) product, as the reference gives."""
+    rng = np.random.default_rng(3)
+    a = ((rng.random((40, 70)) < 0.2) * rng.integers(1, 4, (40, 70))).astype(np.float32)
+    empty = COOMatrix((70, 0), np.zeros(0, np.int64), np.zeros(0, np.int64),
+                      np.zeros(0, np.float32))
+    c = plan(a, PlanConfig(l=8, layout=layout), device=cuda).spgemm(empty)
+    assert c.shape == (40, 0) and c.nnz == 0
+
+
+def _heavy_window(seed, l, windows, n, heavy_deg, deg):
+    """``l * windows`` rows over ``n`` columns: window 0's rows hold
+    ``heavy_deg`` entries each, the others ``deg``, so that without load
+    balancing window 0 has many times the blocks of any other window."""
+    rng = np.random.default_rng(seed)
+    m = l * windows
+    cols = [np.sort(rng.choice(n, size=heavy_deg if r < l else deg, replace=False))
+            for r in range(m)]
+    rows = np.repeat(np.arange(m), [c.size for c in cols])
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return COOMatrix((m, n), rows.astype(np.int64), np.concatenate(cols).astype(np.int64), vals)
+
+
+def _empty_window(seed):
+    """96x120 at l=32 whose second window (rows 32..63) is empty."""
+    d = _dense(seed, 96, 120, 0.08)
+    d[32:64] = 0
+    return _coo(d)
+
+
+#: Matrices of the spread cases: name -> (function that makes it, l).
+SPREAD_MATRICES = {
+    "heavy256": (lambda: _heavy_window(0, 256, 16, 2000, 900, 60), 256),
+    "heavy128": (lambda: _heavy_window(1, 128, 24, 1500, 700, 40), 128),
+    "many_segments_a": (lambda: _coo(_dense(7, 64, 400, 0.1)), 4),
+    "many_segments_b": (lambda: _coo(_dense(8, 64, 600, 0.1)), 4),
+    "empty_window": (lambda: _empty_window(5), 32),
+    "odd_l": (lambda: _coo(_dense(6, 150, 200, 0.05)), 7),
+    "l1024": (lambda: _coo(_dense(9, 2048, 3000, 0.01)), 1024),
+}
+#: name -> (matrix, c_blk, B, values, indices, what it exercises)
+SPREAD_CASES = {
+    "heavy_window_b1": ("heavy256", 1, 1, "float32", "int32", "blocks_per_cta"),
+    "heavy_window_b8_bf16_int16": ("heavy256", 1, 8, "bfloat16", "int16", "blocks_per_cta"),
+    "heavy_window_b3_int8": ("heavy128", 1, 3, "int8", "int32", "blocks_per_cta"),
+    "over_cap_b8": ("many_segments_a", 8, 8, "float32", "int32", "over_cap"),
+    "over_cap_b1_int8_int16": ("many_segments_b", 8, 1, "int8", "int16", "over_cap"),
+    "empty_window_b3_int8": ("empty_window", 4, 3, "int8", "int32", "empty_window"),
+    "odd_l_b3_bf16_int16": ("odd_l", 3, 3, "bfloat16", "int16", "odd_l"),
+    "l1024_b1": ("l1024", 4, 1, "float32", "int32", "l1024"),
+    "l1024_b8_int8": ("l1024", 4, 8, "int8", "int32", "l1024"),
+}
+_SPREAD_SCHEDULES = {}
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("case", sorted(SPREAD_CASES))
+def test_local_db_spread_over_ctas(cuda, case, layout):
+    """Kernels 6/8 spread the stream's blocks over the card's CTAs and fold
+    each window's block tiles in stream order: bitwise equal to kernels
+    1/2 and 3/4 on the same artifact and to the plain version on the CPU,
+    where each CTA holds several blocks and window 0 spans many CTAs,
+    where a block references more x tiles than the stage holds, where a
+    ragged window is empty (one all-padding block) and a padded window is
+    mostly all-padding blocks, at an odd l, at l=1024, in every value and
+    index type and at B = 1, 3 and 8."""
+    matrix, c_blk, b, vdt, idt, what = SPREAD_CASES[case]
+    build, l = SPREAD_MATRICES[matrix]
+    if matrix not in _SPREAD_SCHEDULES:
+        _SPREAD_SCHEDULES[matrix] = schedule(build(), l, load_balance=False, workers=1)
+    sched = _SPREAD_SCHEDULES[matrix]
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    art_gpu = pack(sched, c_blk, vdt, idt, device=cuda)
+    art_cpu = pack(sched, c_blk, vdt, idt, device="cpu")
+    n = sched.shape[1]
+    x = torch.from_numpy(np.random.default_rng(b).standard_normal((n, b)).astype(np.float32))
+    xp_cpu = _prep_x(x, n, l)
+    xp = xp_cpu.to(cuda)
+    t_blk = art_cpu.m_blk.shape[0] // c_blk
+    launch = k_pad.local_db_launch_plan(art_gpu.m_blk, art_gpu.col_loc, xp, l=l, c_blk=c_blk)
+    seg = art_cpu.seg_blk.numpy()
+    tiles = 1 + (seg[:, 1:] > seg[:, :-1]).sum(axis=1)
+    blocks_of = (np.diff(art_cpu.block_starts.numpy()) if layout == "ragged"
+                 else np.full(art_cpu.num_windows, t_blk // art_cpu.num_windows))
+    if what in ("blocks_per_cta", "l1024"):
+        assert launch["grid_x"] < t_blk / 2  # CTAs run several blocks each
+    if what == "blocks_per_cta" and layout == "ragged":
+        assert blocks_of[0] > 5 * np.median(blocks_of[1:])
+        assert blocks_of[0] > 4 * t_blk / launch["grid_x"]  # window 0 spans many CTAs
+    if what == "over_cap":
+        assert tiles.max() > launch["stage_tiles"]
+    if what == "empty_window" and layout == "ragged":
+        t0 = int(art_cpu.block_starts[1])
+        assert blocks_of[1] == 1
+        assert not bool(art_cpu.m_blk[t0 * c_blk:(t0 + 1) * c_blk].any())
+    if layout == "padded":  # windows padded to the longest: all-padding blocks
+        blk = art_cpu.m_blk.reshape(t_blk, -1)
+        assert not bool(blk.any(dim=1).all())
+    counter = k_rag if layout == "ragged" else k_pad
+    before = counter.local_db_launches
+    y = _run_db(art_gpu, xp, local=True)
+    torch.cuda.synchronize()
+    assert counter.local_db_launches == before + 1
+    assert torch.equal(y, _run(art_gpu, xp))
+    assert torch.equal(y, _run_local_single(art_gpu, xp))
+    assert torch.equal(y.cpu(), _run_db(art_cpu, xp_cpu, local=True))

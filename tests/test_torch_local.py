@@ -151,3 +151,18 @@ def test_local_plain_takes_unordered_segment_tables(layout, vdt):
     assert not torch.equal(shuffled.seg_blk, port.seg_blk)
     xp = _xp(rng, 200, 16, 2)
     assert np.array_equal(_run_port_local(shuffled, xp), _run_port_local(port, xp))
+
+
+def test_local_db_sweep_edits_apply_to_the_source():
+    """``python -m repro_torch.kernels.local_db_sweep`` builds its variants
+    of kernels 6/8 by editing ``csrc/gust_spmv_local_db.cu``; every edit
+    must still find its text, and change it."""
+    from repro_torch.kernels import _build, local_db_sweep
+
+    src = (_build.CSRC / _build.SOURCES[local_db_sweep.NAME]).read_text()
+    for name, (edits, _) in local_db_sweep.VARIANTS.items():
+        text = src
+        for old, new in edits:
+            assert old in text, name
+            text = text.replace(old, new)
+        assert text != src, name

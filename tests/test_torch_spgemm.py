@@ -8,8 +8,9 @@
   ``tests/test_spgemm_property.py`` runs it): on small-integer inputs
   bitwise, and bitwise to the dense product; on normal f32 inputs within
   ``rtol=1e-5, atol=1e-6`` (summation orders differ).
-* Rectangular, empty and empty-row operands, ``other`` as a plan or a
-  dense array, the validation messages and the int8 rejection.
+* Rectangular, empty and empty-row operands, a B with no column,
+  ``other`` as a plan or a dense array, the validation messages and the
+  int8 rejection.
 * The ``gust_spgemm`` wrapper's CPU path against ``make_gust_spgemm`` on
   the reference's leaves carried across.
 
@@ -121,6 +122,28 @@ def test_spgemm_rectangular_empty_and_empty_rows():
 def _coo(dense):
     r, c = np.nonzero(dense)
     return RefCOO(dense.shape, r.astype(np.int64), c.astype(np.int64), dense[r, c])
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_spgemm_zero_column_b_matches_reference(layout):
+    """A 40x70 at l=8 times a 70x0 B: the reference returns an empty
+    (40, 0) COO, and so does the port; its plain SpGEMM returns the empty
+    (W, l, 0) accumulator without touching B's padding plane."""
+    rng = np.random.default_rng(3)
+    A = _coo(((rng.random((40, 70)) < 0.2) * rng.integers(1, 4, (40, 70))).astype(np.float32))
+    B = RefCOO((70, 0), np.zeros(0, np.int64), np.zeros(0, np.int64),
+               np.zeros(0, np.float32))
+    R = repro.plan(A, repro.PlanConfig(l=8, layout=layout)).spgemm(B)
+    p = port_plan(_port(A), PortConfig(l=8, layout=layout), device="cpu")
+    C = p.spgemm(_port(B))
+    _canonical(C)
+    assert C.shape == R.shape == (40, 0) and C.nnz == R.nnz == 0
+    art = p.artifact
+    cond = tsp.condense_rows(_port(B), 8, device="cpu")
+    _, _, bs = tsp._stream_view(art)
+    y = tk.gust_spgemm(bs, art.m_blk, art.col_blk, art.row_blk, cond.vals, cond.cols,
+                       num_windows=art.num_windows, l=8, n_out=0, c_blk=art.c_blk)
+    assert tuple(y.shape) == (art.num_windows, 8, 0)
 
 
 def test_spgemm_other_as_plan_or_dense_and_chained():

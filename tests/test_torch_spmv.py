@@ -11,7 +11,10 @@
   reference's own tests run them here, in interpret mode.
 * The wrappers take the plain path for CPU tensors and launch nothing;
   padded and ragged streams agree bitwise; padding slots that share row
-  0 with a real slot in one cycle add nothing.
+  0 with a real slot in one cycle add nothing, and add nothing either
+  when x is infinite at the column they point at (the kernels skip them;
+  the reference's jnp path returns NaN rows there, a reference-side
+  defect, so that case is checked against ``M·x`` itself).
 
 The segment-local and double-buffered paths are in
 ``tests/test_torch_local.py``.  The CUDA kernels themselves are held
@@ -31,6 +34,7 @@ from repro.core.scheduler import schedule as ref_schedule
 from repro.kernels.gust_spmv import make_gust_spmv
 from repro.kernels.gust_spmv_ragged import make_gust_spmv_ragged
 
+import repro_torch
 import repro_torch.kernels.gust_spmv as k_pad
 import repro_torch.kernels.gust_spmv_ragged as k_rag
 import repro_torch.kernels.ref as tref
@@ -174,6 +178,33 @@ def test_row0_padding_collision_adds_nothing():
         assert (m0 != 0).sum() == 1 and (r0 == 0).all()  # the collision exists
         y = execute_spmm(port, torch.from_numpy(x), gather="resident")
         assert np.array_equal(y.numpy(), dense @ x)
+
+
+@pytest.mark.parametrize("gather", ["resident", "local"])
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_inf_in_unreferenced_column_leaves_rows_finite(layout, gather):
+    """64x64 at l=8 whose column 3 holds no entry, x = 1 except x[3] =
+    inf: padding slots read x[3] (a padding column is its lane), yet
+    every row is finite and equals ``M·x`` (small integers: exact), for
+    ``spmv`` and ``spmm``."""
+    rng = np.random.default_rng(41)
+    dense = _dense(rng, 64, 64, 0.15, integers=True)
+    dense[:, 3] = 0
+    x = np.ones(64, np.float32)
+    x[3] = np.inf
+    X = np.stack([x, 2 * x, -x], axis=1)
+    keep = np.arange(64) != 3
+    p = repro_torch.plan(dense, repro_torch.PlanConfig(l=8, layout=layout, gather=gather),
+                         device="cpu")
+    art = p.artifact
+    cols = art.col_blk if gather == "resident" else tref._local_columns(
+        art.col_loc, art.seg_blk, l=8, c_blk=art.c_blk)
+    assert p.gather_mode == gather
+    assert bool(((art.m_blk == 0) & (cols == 3)).any())  # padding reads the inf
+    for got, xs in ((p.spmv(x), x), (p.spmm(X), X)):
+        want = (dense[:, keep].astype(np.float64) @ xs[keep].astype(np.float64))
+        assert np.isfinite(got.numpy()).all()
+        assert np.array_equal(got.numpy(), want.astype(np.float32))
 
 
 @pytest.mark.parametrize("vdt", ["float32", "int8"])

@@ -64,13 +64,15 @@ Checks, each fatal:
     ragged; ``pagerank(G)`` converged and within 2e-5 in L1 of scipy's
     float64 iteration run to its fixed point; ``feature_propagation``
     within ``1e-4 * (|Â|·|Â|·|H|)`` per element of scipy in float64;
-  * the library of kernels 6/8 (``gust_spmv_local_db.cu``) builds without
-    a spill (ptxas).
+  * the libraries of the segment-local kernels 3/4
+    (``gust_spmv_local.cu``) and 6/8 (``gust_spmv_local_db.cu``) build
+    without a spill (ptxas).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
-bytes; kernels 6/8 also with their CTAs per SM, grid and
-``partial_bytes``, the scratch of block tiles that their fold reads),
+bytes; the segment-local kernels 3/4 and 6/8 also with their CTAs per
+SM, grid and ``partial_bytes``, the scratch of block tiles that their
+fold reads),
 SpGEMM's wall time split (condensing B, kernel, reorder, compaction on
 the card, host copy), and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -127,11 +129,13 @@ YARDSTICK = {"padded": "gust_spmv", "ragged": "gust_spmv_ragged"}
 LOCAL_TWIN = {"gust_spmv_local": "gust_spmv_local_db",
               "gust_spmv_ragged_local": "gust_spmv_ragged_local_db"}
 #: The kernels that spread a window's blocks over the card's CTAs and fold
-#: their (l, B) tiles from a scratch: each of their rows also prints the
-#: launch (CTAs per SM, grid) and the scratch's size, ``partial_bytes``.
-SPREAD = ("gust_spmv_local_db", "gust_spmv_ragged_local_db")
+#: their (l, B) tiles from a scratch, with the pipeline of their launch
+#: plan: each of their rows also prints the launch (CTAs per SM, grid) and
+#: the scratch's size, ``partial_bytes``.
+SPREAD = {"gust_spmv_local": "single", "gust_spmv_ragged_local": "single",
+          "gust_spmv_local_db": "double", "gust_spmv_ragged_local_db": "double"}
 #: Libraries that must build without a spill (ptxas).
-NO_SPILL = ("gust_spmv_local_db",)
+NO_SPILL = ("gust_spmv_local", "gust_spmv_local_db")
 #: The kernels off the SpMV path: name -> (source, TPU kernel it replaces).
 OTHER_KERNELS = {
     "gather_fill": ("gather_fill.cu", "src/repro/kernels/gather_fill.py:57"),
@@ -277,7 +281,7 @@ def main() -> int:
     import repro_torch.kernels.ref as plain
     from repro_torch.kernels import _build
     from repro_torch.kernels.gather_fill import gather_fill
-    from repro_torch.kernels.gust_spmv import local_db_launch_plan
+    from repro_torch.kernels.gust_spmv import local_launch_plan
     from repro_torch.kernels.ops import _prep_x
 
     smi = subprocess.run(
@@ -443,8 +447,9 @@ def main() -> int:
                     ))
                     row["x_tile_bytes"] = x_tile_bytes(name, art, b)
                     if name in SPREAD:
-                        row.update(local_db_launch_plan(art.m_blk, art.col_loc, xp,
-                                                        l=art.l, c_blk=art.c_blk))
+                        row.update(local_launch_plan(art.m_blk, art.col_loc, xp,
+                                                     l=art.l, c_blk=art.c_blk,
+                                                     pipeline=SPREAD[name]))
                     log(f"kernel {tag}: max |kernel - plain| = {row['max_abs_err']:.3e}; "
                         + ", ".join(k for k, val in row.items()
                                     if k.startswith("bitwise") and val))

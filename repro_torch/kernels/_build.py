@@ -46,6 +46,21 @@ NVCC_FLAGS = (
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+
+def _local_spread(prefix: str) -> Dict[str, list]:
+    """The entry points of a library built on ``csrc/gust_local_spread.cuh``."""
+    return {
+        # m, col_loc, row, seg_blk, scale, x, y, partials, vdt, idt, W, T,
+        # blocks_per_window, l, c_blk, s_blk, b, stream
+        f"{prefix}_padded": [_P] * 8 + [_I] * 9 + [_P],
+        # m, col_loc, row, seg_blk, scale, x, y, partials, block_starts, vdt,
+        # idt, W, T, l, c_blk, s_blk, b, stream
+        f"{prefix}_ragged": [_P] * 9 + [_I] * 8 + [_P],
+        # vdt, idt, T, l, c_blk, b, out[6]
+        f"{prefix}_plan": [_I] * 6 + [_P],
+    }
+
+
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the launch's cudaError_t).
 SIGNATURES = {
@@ -57,14 +72,7 @@ SIGNATURES = {
         # stream
         "gust_spmv_ragged": [_P] * 7 + [_I] * 6 + [_P],
     },
-    "gust_spmv_local": {
-        # m, col_loc, row, seg_blk, scale, x, y, vdt, idt, W,
-        # blocks_per_window, l, c_blk, s_blk, b, stream
-        "gust_spmv_local_padded": [_P] * 7 + [_I] * 8 + [_P],
-        # m, col_loc, row, seg_blk, scale, x, y, block_starts, vdt, idt, W,
-        # l, c_blk, s_blk, b, stream
-        "gust_spmv_local_ragged": [_P] * 8 + [_I] * 7 + [_P],
-    },
+    "gust_spmv_local": _local_spread("gust_spmv_local"),
     "gust_spgemm": {
         # m, col, row, block_starts, b_vals, b_cols, lengths, y, vdt, idt, W,
         # l, c_blk, r_rows, k_max, n_out, stream
@@ -82,16 +90,7 @@ SIGNATURES = {
         # stream
         "gust_spmv_db_ragged": [_P] * 7 + [_I] * 6 + [_P],
     },
-    "gust_spmv_local_db": {
-        # m, col_loc, row, seg_blk, scale, x, y, partials, vdt, idt, W, T,
-        # blocks_per_window, l, c_blk, s_blk, b, stream
-        "gust_spmv_local_db_padded": [_P] * 8 + [_I] * 9 + [_P],
-        # m, col_loc, row, seg_blk, scale, x, y, partials, block_starts, vdt,
-        # idt, W, T, l, c_blk, s_blk, b, stream
-        "gust_spmv_local_db_ragged": [_P] * 9 + [_I] * 8 + [_P],
-        # vdt, idt, T, l, c_blk, b, out[6]
-        "gust_spmv_local_db_plan": [_I] * 6 + [_P],
-    },
+    "gust_spmv_local_db": _local_spread("gust_spmv_local_db"),
 }
 
 #: Library name -> {"seconds", "log"} of the builds this process ran

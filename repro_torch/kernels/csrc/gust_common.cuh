@@ -1,8 +1,7 @@
 // Pieces that every GUST SpMV source shares: the value load (with the int8
-// dequant), the count of a block's referenced x tiles (segment-local
-// kernels), the cp.async copies and shared-memory opt-in of the
-// double-buffered kernels and the mapping from the wrappers' dtype codes
-// to kernel types.
+// dequant), the cp.async copies and shared-memory opt-in of the
+// double-buffered and segment-local kernels and the mapping from the
+// wrappers' dtype codes to kernel types.
 // The bitwise contracts between the sources (single == double, resident ==
 // local) rest on both being the same everywhere, so they live only here.
 
@@ -30,22 +29,6 @@ template <bool QUANT, typename V>
 __device__ __forceinline__ float load_value(V v, float scale) {
   const float f = to_f32(v);
   return QUANT ? __fmul_rn(f, scale) : f;
-}
-
-// Number of x tiles of block t to stage: 1 + the ascents of its seg_blk
-// row, which for a packer row (distinct segments ascending, then padding
-// with segment 0) is the length of its strictly increasing prefix.  Tiles
-// 0 .. n-1 come from their own entries and slots past them read x
-// directly, so any row gives the right answer.  All threads call.
-__device__ __forceinline__ int referenced_tiles(const int* __restrict__ seg_blk,
-                                                int t, int s_blk) {
-  const int* row = seg_blk + (size_t)t * s_blk;
-  int n = 1;
-  for (int s0 = 1; s0 < s_blk; s0 += blockDim.x) {
-    const int s = s0 + threadIdx.x;
-    n += __syncthreads_count(s < s_blk && row[s] > row[s - 1]);
-  }
-  return n;
 }
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) {

@@ -1,6 +1,6 @@
 // Segment-local, double-buffered GUST SpMV on Hopper (sm_90a): y = M @ x
 // over a packed color-block stream whose blocks read x only through their
-// pack-time segment tables, each block's x tiles staged ahead.
+// pack-time segment tables, each block's x tiles staged one block ahead.
 //
 // Replaces the TPU kernels
 //   repro/kernels/gust_spmv.py::make_gust_spmv_local_db               (padded stream)
@@ -8,407 +8,29 @@
 // with their f32/bf16 bodies and their int8 bodies (_q: value = float(q) *
 // scale_blk[t], scales on pack-time blocks).
 //
-// What they compute is what gust_spmv.cu computes (see its note), with x
-// read through the segment table: the slot at block-local address col_loc
-// of block t takes x[seg_blk[t, col_loc / l] * l + col_loc % l].  Kernel 1
-// sums each (c_blk, l) block cycle by cycle into a zeroed (l, B) tile
-// (products and sums rounded with the _rn intrinsics, slots whose value is 0
-// skipped), then folds the window's block tiles in stream order:
-// acc = p[t0], acc = __fadd_rn(acc, p[t]).  This kernel keeps that
-// arithmetic, so on one artifact, for finite x, it equals kernels 1/2, 3/4
-// and 5/7 bitwise, padded equals ragged, and at B=1 it equals the plain
-// version run on the CPU.
+// Design: the two-stage instance of gust_local_spread.cuh (see its note):
+// the stream's blocks spread over a persistent grid, each block's tile
+// written to a (T, l, B) scratch and folded per window in stream order;
+// block t+1's x tiles (up to a cap of 16 at l=256 and B=1, 2 at B=8) and
+// block t+2's table row are copied with cp.async while block t computes,
+// and a chunk's cycles run with two barriers.  At l=256 and B=1 a CTA
+// takes 40 KB and up to 64 registers a thread, and the registers allow 4
+// CTAs per SM; at B=8 its 64 KB allow 3 (the occupancy calculator's count,
+// which gust_spmv_local_db_plan returns and chip_smoke.py prints).
 //
-// Design.  A block's tile depends on nothing outside the block, so the
-// blocks need not run one window to a CTA.
-//   1. local_db_partials: a persistent grid (CTAs per SM from the occupancy
-//      calculator times the SMs, never more CTAs than blocks) in which CTA
-//      c takes the run of consecutive blocks T*c/G .. T*(c+1)/G of the
-//      whole stream, whatever their windows, and writes each block's (l, B)
-//      tile to a scratch (T, l, B) f32.  local_db_fold then adds each
-//      window's tiles in stream order, one thread per (window, lane,
-//      column), with exactly kernel 1's adds.  The C entry points launch
-//      both on the caller's stream.
-//   2. Each block's working set is staged one block ahead.  A ring of two
-//      seg_blk rows in shared memory is filled two blocks ahead, so the
-//      count of a block's tiles comes from shared memory.  At the top of
-//      block t the CTA waits once for block t's copies, passes one barrier,
-//      and starts the cp.async copies of all of block t+1's tiles (16-byte
-//      copies where x's alignment and the tile length allow) and of block
-//      t+2's table row; they fly while block t computes.  The staged tiles
-//      of a block are the strictly increasing prefix of its table row (the
-//      packer's rows: distinct segments ascending, then padding with
-//      segment 0, which no slot references), at most `cap` of them.
-//   3. A slot whose local segment is staged reads x at
-//      tiles[col_loc * bt + k] in shared memory.  A slot past the staged
-//      tiles (past the cap, or past a prefix that a table out of order cuts
-//      short) reads seg_blk and x directly, so the result never rests on
-//      the order or the cap; it only costs a dependent read.
-//   4. The cycles of a chunk (up to kc cycles of one block) run with two
-//      barriers, not one per cycle: each lane writes its slots' products
-//      into a shared (cycle, column, row) buffer (collision-free: within a
-//      cycle no two real slots share a row), then thread j adds row j's
-//      entries cycle by cycle into its register tile and clears them.  A
-//      cycle that has no slot on a row leaves +0 there, and adding +0 to a
-//      sum that started at +0 changes no bit, so the sums are kernel 1's.
-//      The next chunk's (value, col_loc, row) slots are loaded into
-//      registers as soon as this chunk's products are out, before the
-//      barrier.
-// Shared memory per CTA: two stages of `cap` x tiles of (l, B) f32, the
-// (kc, B, l) product buffer and the two table rows, sized from l, B and the
-// cap, never from S_blk.  The cap fills kStageBudget (16 tiles at l=256,
-// B=1; 2 at B=8) and kc is 8 cycles at B=1, 4 at B>1.  At l=256 and B=1 a
-// CTA takes 40 KB and up to 64 registers a thread, and the registers allow
-// 4 CTAs per SM; at B=8 its 64 KB allow 3 (the occupancy calculator's
-// count, which gust_spmv_local_db_plan returns and chip_smoke.py prints).
-//
-// Bound.  Memory: each stream slot read once (value + col_loc + row bytes),
-// the scales, x once, the referenced prefix of each seg_blk row, y written
-// once.  The design adds the scratch, T*l*B*4 bytes written and read again
-// (chip_smoke.py prints it as partial_bytes), and the x-tile copies, which
-// re-read x from L2 (x_tile_bytes).  One multiply and one add per slot and
-// vector column is far below the card's rate.
+// Bound: the stream's bytes, as gust_local_spread.cuh says, plus the
+// scratch (partial_bytes) and the x-tile L2 re-reads (x_tile_bytes).
 //
 // Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W; crankseg_2 with
-// load_balance=False, f32, B=1; PERF.md): kernel 6 0.147 ms (bound 0.103,
-// kernel 5 0.122, the one-CTA-per-window design this replaced 0.435),
-// kernel 8 0.102 ms (bound 0.066, kernel 7 0.112, before 0.427).  Of
-// kernel 6's time the fold takes 9 us; dropping the products saves 2%,
-// dropping the scratch write 5%, dropping the tile staging costs 18%
-// (python -m repro_torch.kernels.local_db_sweep): what remains is the
-// stream's loads, at about 2.5 TB/s.
+// load_balance=False; PERF.md): at f32 B=1 kernel 6 0.147 ms (bound 0.103,
+// kernel 5 0.123, the one-CTA-per-window design this replaced 0.435) and
+// kernel 8 0.101 ms (bound 0.066, kernel 7 0.112, before 0.427); at B=8
+// 0.454 / 0.326 ms.  Of kernel 6's time at B=1 the fold takes 9 us;
+// dropping the products saves 3%, dropping the scratch write 7%, dropping
+// the tile staging costs 19% (python -m repro_torch.kernels.local_db_sweep):
+// what remains is the stream's loads, at about 2.5 TB/s.
 
-#include <algorithm>
-
-#include "gust_common.cuh"
-
-namespace {
-
-using gust::align16;
-using gust::allow_smem;
-using gust::cp_async16;
-using gust::cp_async4;
-using gust::cp_async_commit;
-using gust::cp_async_wait;
-using gust::load_value;
-using gust::max_shared_bytes;
-
-constexpr int kMaxCap = 16;              // most x tiles staged per block
-constexpr int kStageBudget = 32 * 1024;  // bytes of both x-tile stages
-constexpr int kFoldThreads = 256;
-
-// Most cycles per chunk: the slots a thread holds in registers at once.
-template <int BT>
-__host__ __device__ constexpr int chunk_cycles() {
-  return BT == 1 ? 8 : 4;
-}
-
-// Shared-memory layout of local_db_partials, in bytes.
-struct Smem {
-  size_t stage;    // one stage: cap tiles of (l, BT) f32
-  size_t contrib;  // offset of the (kc, BT, l) f32 product buffer
-  size_t ring;     // offset of the two cap-entry table rows
-  size_t total;
-};
-
-__host__ __device__ __forceinline__ Smem smem_layout(int l, int bt, int cc,
-                                                     int cap) {
-  Smem s;
-  s.stage = align16((size_t)cap * l * bt * sizeof(float));
-  s.contrib = 2 * s.stage;
-  s.ring = s.contrib + align16((size_t)cc * bt * l * sizeof(float));
-  s.total = s.ring + align16((size_t)2 * cap * sizeof(int));
-  return s;
-}
-
-template <typename V, typename I, bool QUANT, int BT>
-__global__ void __launch_bounds__(1024) local_db_partials(
-    const V* __restrict__ m, const I* __restrict__ col_loc,
-    const I* __restrict__ row, const int* __restrict__ seg_blk,
-    const float* __restrict__ scale, const float* __restrict__ x,
-    float* __restrict__ part, int t_blk, int l, int c_blk, int s_blk, int b,
-    int cc, int cap) {
-  constexpr int KC = chunk_cycles<BT>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem lay = smem_layout(l, BT, cc, cap);
-  float* contrib = reinterpret_cast<float*>(smem + lay.contrib);  // [cycle][column][row]
-  int* ring = reinterpret_cast<int*>(smem + lay.ring);            // [slot][cap]
-  const int j = threadIdx.x, nt = blockDim.x;
-  const int b0 = blockIdx.y * BT;
-  const int bt = min(BT, b - b0);
-  const int tile_f = l * bt;  // floats of one staged x tile
-  const int row_n = min(s_blk, cap);  // table entries kept per row
-  const int ta = (int)((long long)t_blk * blockIdx.x / gridDim.x);
-  const int tb = (int)((long long)t_blk * (blockIdx.x + 1) / gridDim.x);
-  if (ta >= tb) return;
-  // one column tile whose rows are 16-byte runs: x tiles copy 16 bytes at a time
-  const bool vec = bt == b && tile_f % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
-
-  auto stage_of = [&](int slot) {
-    return reinterpret_cast<float*>(smem + slot * lay.stage);
-  };
-  auto fetch_row = [&](int t, int slot) {
-    for (int e = j; e < row_n; e += nt) {
-      cp_async4(ring + slot * cap + e, seg_blk + (size_t)t * s_blk + e);
-    }
-  };
-  // Tiles staged for the row in ring slot `slot`: its strictly increasing
-  // prefix, at most cap.  Every thread computes the same count; with full
-  // warps each warp counts the row's ascents with one ballot (row_n <= 16).
-  auto staged = [&](int slot) {
-    const int* r = ring + slot * cap;
-    if (l % 32 == 0) {
-      const int lane = j & 31;
-      const bool up = lane >= 1 && lane < row_n && r[lane] > r[lane - 1];
-      return __ffs(~__ballot_sync(0xffffffffu, up) & ~1u) - 1;
-    }
-    int n = 1;
-    while (n < row_n && r[n] > r[n - 1]) ++n;
-    return n;
-  };
-  // The n tiles named by ring slot `slot` into stage `slot`, as (l, bt) each.
-  auto fetch_tiles = [&](int slot, int n) {
-    const int* r = ring + slot * cap;
-    float* dst = stage_of(slot);
-    if (vec) {
-      const int per = tile_f / 4;
-      for (int e = j; e < n * per; e += nt) {
-        const int s = e / per, q = (e - s * per) * 4;
-        cp_async16(dst + s * tile_f + q, x + (size_t)r[s] * tile_f + q);
-      }
-    } else {
-      for (int e = j; e < n * tile_f; e += nt) {
-        const int s = e / tile_f, q = e - s * tile_f;
-        const int rr = q / bt, k = q - rr * bt;
-        cp_async4(dst + e, x + ((size_t)r[s] * l + rr) * b + b0 + k);
-      }
-    }
-  };
-
-  // This thread's slots of one chunk, and the chunk's block scale.
-  V v[KC];
-  I cl[KC], rw[KC];
-  float s = 1.f;
-  auto load_chunk = [&](int t, int c0) {
-    const int ncc = min(cc, c_blk - c0);
-    const size_t base = ((size_t)t * c_blk + c0) * l + j;
-    if (QUANT) s = scale[t];
-#pragma unroll
-    for (int i = 0; i < KC; ++i) {
-      if (i < ncc) {
-        v[i] = m[base + (size_t)i * l];
-        cl[i] = col_loc[base + (size_t)i * l];
-        rw[i] = row[base + (size_t)i * l];
-      }
-    }
-  };
-
-  for (int e = j; e < cc * BT * l; e += nt) contrib[e] = 0.f;
-  fetch_row(ta, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  int n_cur = staged(0), n_next = 0;
-  fetch_tiles(0, n_cur);
-  if (ta + 1 < tb) fetch_row(ta + 1, 1);
-  cp_async_commit();
-  load_chunk(ta, 0);
-
-  const int nchunk = (c_blk + cc - 1) / cc;
-  float acc[BT];
-  int t = ta, ci = 0;
-  while (t < tb) {
-    const int slot = (t - ta) & 1;
-    if (ci == 0) {
-      cp_async_wait<0>();
-      __syncthreads();  // block t's tiles and row t+1 are in; block t-1 is done
-      if (t + 1 < tb) {
-        n_next = staged(slot ^ 1);
-        fetch_tiles(slot ^ 1, n_next);
-        if (t + 2 < tb) fetch_row(t + 2, slot);
-      }
-      cp_async_commit();
-#pragma unroll
-      for (int k = 0; k < BT; ++k) acc[k] = 0.f;
-    }
-    const int c0 = ci * cc;
-    const int ncc = min(cc, c_blk - c0);
-    const float* tiles = stage_of(slot);
-    const int lim = n_cur * l;
-#pragma unroll
-    for (int i = 0; i < KC; ++i) {
-      if (i < ncc) {
-        const float val = load_value<QUANT>(v[i], s);
-        if (val != 0.f) {
-          const int c = static_cast<int>(cl[i]);
-          float* dst = contrib + (size_t)i * BT * l + static_cast<int>(rw[i]);
-          if (c < lim) {
-#pragma unroll
-            for (int k = 0; k < BT; ++k) {
-              if (k < bt) dst[k * l] = __fmul_rn(val, tiles[c * bt + k]);
-            }
-          } else {
-            const int seg = seg_blk[(size_t)t * s_blk + c / l];
-            const float* xr = x + ((size_t)seg * l + c % l) * b + b0;
-#pragma unroll
-            for (int k = 0; k < BT; ++k) {
-              if (k < bt) dst[k * l] = __fmul_rn(val, __ldg(xr + k));
-            }
-          }
-        }
-      }
-    }
-    // the next chunk's slots fly through the barrier and the sums
-    const bool last = ci + 1 == nchunk;
-    if (!last || t + 1 < tb) load_chunk(last ? t + 1 : t, last ? 0 : c0 + cc);
-    __syncthreads();  // every product of the chunk is in the buffer
-#pragma unroll
-    for (int i = 0; i < KC; ++i) {
-      if (i < ncc) {
-#pragma unroll
-        for (int k = 0; k < BT; ++k) {
-          if (k < bt) {
-            float* p = contrib + ((size_t)i * BT + k) * l + j;
-            acc[k] = __fadd_rn(acc[k], *p);
-            *p = 0.f;
-          }
-        }
-      }
-    }
-    if (last) {
-      float* out = part + ((size_t)t * l + j) * b + b0;
-#pragma unroll
-      for (int k = 0; k < BT; ++k) {
-        if (k < bt) out[k] = acc[k];
-      }
-      n_cur = n_next;
-      ci = 0;
-      ++t;
-    } else {
-      ++ci;
-      __syncthreads();  // the next chunk writes into the cleared buffer
-    }
-  }
-}
-
-// y[w, j, c] = the stream-order sum of window w's block tiles part[t, j, c]:
-// acc = p[t0], then acc = __fadd_rn(acc, p[t]), as kernel 1 folds; 0 for a
-// window with no block.
-template <bool RAGGED>
-__global__ void __launch_bounds__(kFoldThreads) local_db_fold(
-    const float* __restrict__ part, float* __restrict__ y,
-    const int* __restrict__ block_starts, int bpw, int num_windows, int l,
-    int b) {
-  const size_t per_w = (size_t)l * b;
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (size_t)num_windows * per_w) return;
-  const int w = (int)(e / per_w);
-  const float* p = part + (e - (size_t)w * per_w);
-  const int t0 = RAGGED ? block_starts[w] : w * bpw;
-  const int t1 = RAGGED ? block_starts[w + 1] : t0 + bpw;
-  float acc = 0.f;
-  if (t0 < t1) {
-    acc = __ldg(p + (size_t)t0 * per_w);
-    int t = t0 + 1;
-    for (; t + 8 <= t1; t += 8) {  // eight loads in flight, added in order
-      float q[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) q[i] = __ldg(p + (size_t)(t + i) * per_w);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc = __fadd_rn(acc, q[i]);
-    }
-    for (; t < t1; ++t) acc = __fadd_rn(acc, __ldg(p + (size_t)t * per_w));
-  }
-  y[e] = acc;
-}
-
-// The launch of local_db_partials for one stream: chunk height, stage cap,
-// shared memory, CTAs per SM and grid.
-struct Plan {
-  int cc, cap, ctas_per_sm, grid_x, grid_y;
-  size_t smem;
-};
-
-template <typename V, typename I, bool QUANT, int BT>
-cudaError_t plan_partials(int t_blk, int l, int c_blk, int b, Plan& p) {
-  const size_t limit = max_shared_bytes();
-  p.cc = std::min(c_blk, chunk_cycles<BT>());
-  p.cap = std::max(1, std::min(kMaxCap, kStageBudget / (2 * l * BT * 4)));
-  while (p.cc > 1 && smem_layout(l, BT, p.cc, p.cap).total > limit) --p.cc;
-  p.smem = smem_layout(l, BT, p.cc, p.cap).total;
-  if (p.smem > limit) return cudaErrorInvalidConfiguration;
-  auto kernel = local_db_partials<V, I, QUANT, BT>;
-  cudaError_t err = allow_smem(kernel, p.smem);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.ctas_per_sm, kernel,
-                                                      l, p.smem);
-  if (err != cudaSuccess) return err;
-  if (p.ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err != cudaSuccess) return err;
-  p.grid_y = (b + BT - 1) / BT;
-  const int fill = (sms * p.ctas_per_sm + p.grid_y - 1) / p.grid_y;
-  p.grid_x = std::max(1, std::min(t_blk, fill));
-  return cudaSuccess;
-}
-
-template <typename V, typename I, bool QUANT, bool RAGGED, int BT>
-cudaError_t launch(const void* m, const void* col_loc, const void* row,
-                   const int* seg_blk, const float* scale, const float* x,
-                   float* y, float* part, const int* block_starts,
-                   int num_windows, int t_blk, int bpw, int l, int c_blk,
-                   int s_blk, int b, cudaStream_t stream) {
-  Plan p;
-  cudaError_t err = plan_partials<V, I, QUANT, BT>(t_blk, l, c_blk, b, p);
-  if (err != cudaSuccess) return err;
-  local_db_partials<V, I, QUANT, BT>
-      <<<dim3(p.grid_x, p.grid_y), l, p.smem, stream>>>(
-          static_cast<const V*>(m), static_cast<const I*>(col_loc),
-          static_cast<const I*>(row), seg_blk, scale, x, part, t_blk, l, c_blk,
-          s_blk, b, p.cc, p.cap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t n = (size_t)num_windows * l * b;
-  local_db_fold<RAGGED>
-      <<<(unsigned)((n + kFoldThreads - 1) / kFoldThreads), kFoldThreads, 0,
-         stream>>>(part, y, block_starts, bpw, num_windows, l, b);
-  return cudaGetLastError();
-}
-
-// vdt and idt: the dtype codes of gust::dispatch_dtypes.
-template <bool RAGGED>
-cudaError_t dispatch(const void* m, const void* col_loc, const void* row,
-                     const int* seg_blk, const float* scale, const float* x,
-                     float* y, float* part, const int* block_starts, int vdt,
-                     int idt, int num_windows, int t_blk, int bpw, int l,
-                     int c_blk, int s_blk, int b, cudaStream_t stream) {
-  if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || num_windows < 1 ||
-      t_blk < 1 || s_blk < 1 || !seg_blk || !part ||
-      (vdt == 2) != (scale != nullptr) || (RAGGED && !block_starts) ||
-      (!RAGGED && (bpw < 1 || (long long)bpw * num_windows != t_blk))) {
-    return cudaErrorInvalidValue;
-  }
-  return gust::dispatch_dtypes(vdt, idt, [&](auto v, auto i, auto q) {
-    using V = typename decltype(v)::type;
-    using I = typename decltype(i)::type;
-    constexpr bool Q = decltype(q)::value;
-    if (b == 1) {
-      return launch<V, I, Q, RAGGED, 1>(m, col_loc, row, seg_blk, scale, x, y,
-                                        part, block_starts, num_windows, t_blk,
-                                        bpw, l, c_blk, s_blk, b, stream);
-    }
-    return launch<V, I, Q, RAGGED, 8>(m, col_loc, row, seg_blk, scale, x, y,
-                                      part, block_starts, num_windows, t_blk,
-                                      bpw, l, c_blk, s_blk, b, stream);
-  });
-}
-
-}  // namespace
+#include "gust_local_spread.cuh"
 
 extern "C" {
 
@@ -421,9 +43,9 @@ int gust_spmv_local_db_padded(const void* m, const void* col_loc,
                               float* part, int vdt, int idt, int num_windows,
                               int t_blk, int blocks_per_window, int l,
                               int c_blk, int s_blk, int b, void* stream) {
-  return dispatch<false>(m, col_loc, row, seg_blk, scale, x, y, part, nullptr,
-                         vdt, idt, num_windows, t_blk, blocks_per_window, l,
-                         c_blk, s_blk, b, static_cast<cudaStream_t>(stream));
+  return local_spread<false, 2>(m, col_loc, row, seg_blk, scale, x, y, part,
+                                nullptr, vdt, idt, num_windows, t_blk,
+                                blocks_per_window, l, c_blk, s_blk, b, stream);
 }
 
 // Ragged stream: window w owns blocks block_starts[w] .. block_starts[w+1]
@@ -434,34 +56,15 @@ int gust_spmv_local_db_ragged(const void* m, const void* col_loc,
                               float* part, const int* block_starts, int vdt,
                               int idt, int num_windows, int t_blk, int l,
                               int c_blk, int s_blk, int b, void* stream) {
-  return dispatch<true>(m, col_loc, row, seg_blk, scale, x, y, part,
-                        block_starts, vdt, idt, num_windows, t_blk, 0, l,
-                        c_blk, s_blk, b, static_cast<cudaStream_t>(stream));
+  return local_spread<true, 2>(m, col_loc, row, seg_blk, scale, x, y, part,
+                               block_starts, vdt, idt, num_windows, t_blk, 0,
+                               l, c_blk, s_blk, b, stream);
 }
 
-// The launch either entry point makes for t_blk blocks of a stream with
-// these dtypes and l, c_blk, b on the current device: out[0..5] = CTAs per
-// SM, grid x, grid y, shared bytes per CTA, stage cap (tiles), cycles per
-// chunk.
+// The launch either entry point makes: see local_spread_plan.
 int gust_spmv_local_db_plan(int vdt, int idt, int t_blk, int l, int c_blk,
                             int b, int* out) {
-  if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || t_blk < 1 || !out) {
-    return cudaErrorInvalidValue;
-  }
-  return gust::dispatch_dtypes(vdt, idt, [&](auto v, auto i, auto q) {
-    using V = typename decltype(v)::type;
-    using I = typename decltype(i)::type;
-    constexpr bool Q = decltype(q)::value;
-    Plan p;
-    cudaError_t err = b == 1 ? plan_partials<V, I, Q, 1>(t_blk, l, c_blk, b, p)
-                             : plan_partials<V, I, Q, 8>(t_blk, l, c_blk, b, p);
-    if (err == cudaSuccess) {
-      const int vals[6] = {p.ctas_per_sm, p.grid_x, p.grid_y, (int)p.smem,
-                           p.cap, p.cc};
-      std::copy(vals, vals + 6, out);
-    }
-    return err;
-  });
+  return local_spread_plan<2>(vdt, idt, t_blk, l, c_blk, b, out);
 }
 
 const char* gust_error_string(int err) {

@@ -7,8 +7,9 @@
   tile.
 * :func:`gust_spmv_local` (``csrc/gust_spmv_local.cu``) replaces
   ``make_gust_spmv_local``: x read through the pack-time segment table,
-  each block's referenced tiles staged in shared memory before its
-  cycles run (single-buffered).
+  each block's tiles staged in shared memory at the block's own top
+  (single-buffered); the blocks are spread over the card's CTAs and each
+  window's block tiles folded in stream order by a second kernel.
 * :func:`gust_spmv_db` (``csrc/gust_spmv_db.cu``) replaces
   ``make_gust_spmv_db``: the same product with the stream copied into
   shared memory ahead of use (double-buffered).
@@ -16,7 +17,9 @@
   ``make_gust_spmv_local_db``: x read through the pack-time segment
   table, each block's tiles staged one block ahead; the blocks are spread
   over the card's CTAs and each window's block tiles folded in stream
-  order by a second kernel.
+  order by a second kernel, as for :func:`gust_spmv_local`
+  (``csrc/gust_local_spread.cuh`` holds the code of both).
+  :func:`local_launch_plan` reports the launch either makes.
 
 All are bound by memory: each stream slot is read once (value + 2 index
 bytes), plus the scales, x once (local: also the referenced prefix of
@@ -42,7 +45,7 @@ __all__ = [
     "gust_spmv_local",
     "gust_spmv_db",
     "gust_spmv_local_db",
-    "local_db_launch_plan",
+    "local_launch_plan",
 ]
 
 #: Kernel launches made by :func:`gust_spmv` in this process.
@@ -272,7 +275,7 @@ def gust_spmv_local(
     y = run_kernel(
         "gust_spmv_local", "gust_spmv_local_padded", m_blocks, col_loc,
         row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
-        scale_blk=scale_blk, blocks=bpw, seg_blk=seg_blk,
+        scale_blk=scale_blk, blocks=bpw, seg_blk=seg_blk, partials=True,
     )
     local_launches += 1
     return y
@@ -338,35 +341,43 @@ def gust_spmv_local_db(
     return y
 
 
-def local_db_launch_plan(
+#: The library of the segment-local kernels of each pipeline.
+_LOCAL_LIBS = {"single": "gust_spmv_local", "double": "gust_spmv_local_db"}
+
+
+def local_launch_plan(
     m_blocks: torch.Tensor,  # (T_blk*c_blk, l) values on the card
     col_loc: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 block-local columns
     x_padded: torch.Tensor,  # (S*l, B) float32
     *,
     l: int,
     c_blk: int,
+    pipeline: str,  # "single" (kernels 3/4) or "double" (kernels 6/8)
 ) -> dict:
-    """The launch :func:`gust_spmv_local_db` and
-    ``gust_spmv_ragged_local_db`` make for this stream on its card
-    (either layout: the block kernel sees only the stream): CTAs per SM
-    (from the occupancy calculator), the grid of the block kernel, its
-    shared bytes per CTA, the x tiles staged per block and the cycles per
-    chunk, and ``partial_bytes``, the size of the scratch of block tiles."""
+    """The launch the segment-local kernels of ``pipeline`` make for this
+    stream on its card (either layout: the block kernel sees only the
+    stream): CTAs per SM (from the occupancy calculator), the grid of the
+    block kernel, its shared bytes per CTA, the x tiles staged per block
+    and the cycles per chunk, and ``partial_bytes``, the size of the
+    scratch of block tiles."""
     import ctypes
 
     from ._build import load
 
+    if pipeline not in _LOCAL_LIBS:
+        raise ValueError(f"pipeline must be one of {sorted(_LOCAL_LIBS)}, got {pipeline!r}")
+    name = _LOCAL_LIBS[pipeline]
     b, t_blk = x_padded.shape[1], m_blocks.shape[0] // c_blk
     out = (ctypes.c_int * 6)()
-    lib = load("gust_spmv_local_db")
+    lib = load(name)
     with torch.cuda.device(m_blocks.device):
-        err = lib.gust_spmv_local_db_plan(
+        err = getattr(lib, f"{name}_plan")(
             _VALUE_CODES[m_blocks.dtype], _INDEX_CODES[col_loc.dtype], t_blk, l,
             c_blk, b, out,
         )
     if err != 0:
         msg = lib.gust_error_string(err).decode()
-        raise RuntimeError(f"gust_spmv_local_db_plan failed: {msg} (cudaError {err})")
+        raise RuntimeError(f"{name}_plan failed: {msg} (cudaError {err})")
     keys = ("ctas_per_sm", "grid_x", "grid_y", "smem_bytes", "stage_tiles", "chunk_cycles")
     plan = dict(zip(keys, out))
     plan["partial_bytes"] = t_blk * l * b * 4

@@ -7,8 +7,9 @@
   ``block_starts[w]:block_starts[w+1]``.
 * :func:`gust_spmv_ragged_local` (``csrc/gust_spmv_local.cu``) replaces
   ``make_gust_spmv_ragged_local``: x read through the pack-time segment
-  table, each block's referenced tiles staged in shared memory before
-  its cycles run (single-buffered).
+  table, each block's tiles staged in shared memory at the block's own
+  top (single-buffered), the blocks spread over the card's CTAs and each
+  window's block tiles folded in stream order by a second kernel.
 * :func:`gust_spmv_ragged_db` (``csrc/gust_spmv_db.cu``) replaces
   ``make_gust_spmv_ragged_db``: the same product with the stream copied
   into shared memory ahead of use (double-buffered).
@@ -18,8 +19,9 @@
   the blocks spread over the card's CTAs and each window's block tiles
   folded in stream order by a second kernel.
 
-The other CUDA kernels give each window one CTA that walks exactly its
-block range; each needs ``block_starts``, none ``block_window``, and
+The resident kernels give each window one CTA that walks exactly its
+block range; the segment-local ones fold each window's block range from
+their scratch.  Each needs ``block_starts``, none ``block_window``, and
 none uses atomics.  Bound by memory, as the padded kernels, at the
 card's 3.35 TB/s.
 
@@ -112,6 +114,7 @@ def gust_spmv_ragged_local(
         "gust_spmv_local", "gust_spmv_local_ragged", m_blocks, col_loc,
         row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
         scale_blk=scale_blk, blocks=block_starts, seg_blk=seg_blk,
+        partials=True,
     )
     local_launches += 1
     return y

@@ -1,29 +1,39 @@
-"""Time kernels 6/8 against variants of their source, and split their time.
+"""Time kernels 3/4 and 6/8 against variants of their shared source, and
+split their time.
 
     python -m repro_torch.kernels.local_db_sweep [--iters 20]
 
-Builds ``csrc/gust_spmv_local_db.cu`` as it is and in variants made by
-editing its text (each edit must apply, or the script stops) into
-``build/kernels/sweep_local_db/``, then on crankseg_2 at its published
+Kernels 3/4 (``csrc/gust_spmv_local.cu``, one x-tile stage) and 6/8
+(``csrc/gust_spmv_local_db.cu``, two) are instances of one template,
+``csrc/gust_local_spread.cuh``.  The script builds variants of that
+header, made by editing its text (each edit must apply, or the script
+stops), each with the sources of the pipelines it names, into
+``build/kernels/sweep_local_db/``.  Then on crankseg_2 at its published
 size (``load_balance=False``, ``l=256, c_blk=8``, both layouts; f32 and
-int8 at B=1, f32 at B=8) times with CUDA events (mean of ``--iters``
-after 2 warm-ups) kernels 5/7, the kept kernel and each variant, the
-kept kernel twice (first and last) for the spread between calls.
+int8 at B=1 and B=8) it times with CUDA events (mean of ``--iters``
+after 2 warm-ups) kernels 5/7, and for each pipeline the kept kernel and
+each of its variants, the kept kernel twice (first and last) for the
+spread between calls.
 
-* Design variants, each held bitwise to kernel 1/2: ``serial_count``
-  (a block's staged tiles counted by a serial scan of its table row, not
-  a warp ballot), ``regs_x2`` (a second set of slot registers, loaded
+* Design variants, each held bitwise to kernel 1/2: ``cap_x2`` (kernels
+  3/4's one stage with the bytes of 6/8's two: 4 tiles at B=8 instead of
+  2, and 3 CTAs per SM instead of 4), ``serial_count`` (a
+  block's staged tiles counted by a serial scan of its table row, not a
+  warp ballot), ``regs_x2`` (a second set of slot registers, loaded
   before the products instead of after them), ``prefetch_l2_2`` (a
-  ``prefetch.global.L2`` of the stream two blocks ahead), ``fold16``
-  (16 loads in flight in the fold, not 8).
+  ``prefetch.global.L2`` of the stream two blocks ahead), ``fold16`` (16
+  loads in flight in the fold, not 8), ``scalar_out`` / ``scalar_x`` /
+  ``scalar_tiles`` / ``scalar_rows`` (at B=8, a block tile's row written
+  to the scratch, a slot's x row read from x, from the staged tile, or
+  all three, 4 bytes at a time instead of 16).
 * Diagnostics, wrong on purpose and timed only: ``diag_no_scratch``
   (block tiles not written), ``diag_no_tiles`` (nothing staged: every
   slot reads x directly), ``diag_no_products`` (stream loads only).
 
-It also splits the kept kernel's time into its two kernels with
-``torch.profiler`` (``local_db_partials`` and ``local_db_fold``).  Needs
-a CUDA card; prints one JSON object per row and writes all of them to
-``chiprun_out/local_db_sweep.json``.
+It also splits each kept kernel's time into its two kernels with
+``torch.profiler`` (``local_partials``, the block kernel, and
+``local_fold``).  Needs a CUDA card; prints one JSON object per row and
+writes all of them to ``chiprun_out/local_db_sweep.json``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -43,8 +54,13 @@ from . import gust_spmv as k_pad
 from . import gust_spmv_ragged as k_rag
 from .chunk_sweep import _ms
 
-L, C_BLK, NAME = 256, 8, "gust_spmv_local_db"
+L, C_BLK = 256, 8
+#: The template both pipelines' sources include; the variants edit it.
+HEADER = "gust_local_spread.cuh"
+#: pipeline -> library (kernels 3/4, kernels 6/8).
+LIBS = {"single": "gust_spmv_local", "double": "gust_spmv_local_db"}
 
+_CAP_X2 = [("kStageBytes / (l * BT * 4)", "2 * kStageBytes / (l * BT * 4)")]
 _SERIAL_COUNT = [(
     """    if (l % 32 == 0) {
       const int lane = j & 31;
@@ -79,10 +95,8 @@ _REGS_X2 = [
     __syncthreads();""", """    __syncthreads();"""),
 ]
 _PREFETCH_L2_2 = [
-    ("""      cp_async_commit();
-#pragma unroll
-      for (int k = 0; k < BT; ++k) acc[k] = 0.f;""", """      cp_async_commit();
-      if (t + 2 < tb) {
+    ("""#pragma unroll
+      for (int k = 0; k < BT; ++k) acc[k] = 0.f;""", """      if (t + 2 < tb) {
         const size_t f = (size_t)(t + 2) * c_blk * l, n = (size_t)c_blk * l;
         const char* leaf[3] = {reinterpret_cast<const char*>(m + f),
                                reinterpret_cast<const char*>(col_loc + f),
@@ -110,57 +124,97 @@ _FOLD16 = [(
       for (int i = 0; i < 16; ++i) q[i] = __ldg(p + (size_t)(t + i) * per_w);
 #pragma unroll
       for (int i = 0; i < 16; ++i) acc = __fadd_rn(acc, q[i]);""")]
-_NO_SCRATCH = [("        if (k < bt) out[k] = acc[k];",
-                "        if (k < bt && acc[k] != acc[k]) out[k] = acc[k];")]
+_NO_SCRATCH = [("      store_row<BT>(part + ((size_t)t * l + j) * b + b0, bt, acc);",
+                """      if (acc[0] != acc[0])
+        store_row<BT>(part + ((size_t)t * l + j) * b + b0, bt, acc);""")]
 _NO_TILES = [
-    ("""        n_next = staged(slot ^ 1);
-        fetch_tiles(slot ^ 1, n_next);""", "        n_next = 0;"),
-    ("""  int n_cur = staged(0), n_next = 0;
-  fetch_tiles(0, n_cur);""", "  int n_cur = 0, n_next = 0;"),
+    ("""          n_next = staged(slot ^ 1);
+          fetch_tiles(slot ^ 1, n_next);""", "          n_next = 0;"),
+    ("""    n_cur = staged(0);
+    fetch_tiles(0, n_cur);""", "    n_cur = 0;"),
+    ("""        n_cur = staged(slot);
+        fetch_tiles(slot, n_cur);""", "        n_cur = 0;"),
 ]
 _NO_PRODUCTS = [("""        const float val = load_value<QUANT>(v[i], s);
         if (val != 0.f) {""", """        const float val = load_value<QUANT>(v[i], s);
         if (val == 12345.f && static_cast<int>(cl[i]) == 7 &&
             static_cast<int>(rw[i]) == 3) {""")]
 
-#: name -> (text edits, bitwise-checked)
+_SCALAR_ROWS = [("if constexpr (BT % 4 == 0)", "if constexpr (BT < 0)")]
+_SCALAR_OUT = [(
+    "      store_row<BT>(part + ((size_t)t * l + j) * b + b0, bt, acc);",
+    """      float* out = part + ((size_t)t * l + j) * b + b0;
+#pragma unroll
+      for (int k = 0; k < BT; ++k) {
+        if (k < bt) out[k] = acc[k];
+      }""")]
+_SCALAR_X = [(
+    "            mul_row<BT, true>(dst, l, val, x + ((size_t)seg * l + c % l) * b + b0, bt);",
+    """            const float* xr = x + ((size_t)seg * l + c % l) * b + b0;
+#pragma unroll
+            for (int k = 0; k < BT; ++k) {
+              if (k < bt) dst[k * l] = __fmul_rn(val, __ldg(xr + k));
+            }""")]
+_SCALAR_TILES = [(
+    "            mul_row<BT, false>(dst, l, val, tiles + c * bt, bt);",
+    """#pragma unroll
+            for (int k = 0; k < BT; ++k) {
+              if (k < bt) dst[k * l] = __fmul_rn(val, tiles[c * bt + k]);
+            }""")]
+BOTH = tuple(LIBS)
+#: name -> (text edits of HEADER, bitwise-checked, pipelines built)
 VARIANTS = {
-    "serial_count": (_SERIAL_COUNT, True),
-    "regs_x2": (_REGS_X2, True),
-    "prefetch_l2_2": (_PREFETCH_L2_2, True),
-    "fold16": (_FOLD16, True),
-    "diag_no_scratch": (_NO_SCRATCH, False),
-    "diag_no_tiles": (_NO_TILES, False),
-    "diag_no_products": (_NO_PRODUCTS, False),
+    "cap_x2": (_CAP_X2, True, ("single",)),
+    "serial_count": (_SERIAL_COUNT, True, ("double",)),
+    "regs_x2": (_REGS_X2, True, ("double",)),
+    "prefetch_l2_2": (_PREFETCH_L2_2, True, BOTH),
+    "fold16": (_FOLD16, True, ("double",)),
+    "scalar_rows": (_SCALAR_ROWS, True, BOTH),
+    "scalar_out": (_SCALAR_OUT, True, BOTH),
+    "scalar_x": (_SCALAR_X, True, BOTH),
+    "scalar_tiles": (_SCALAR_TILES, True, BOTH),
+    "diag_no_scratch": (_NO_SCRATCH, False, BOTH),
+    "diag_no_tiles": (_NO_TILES, False, BOTH),
+    "diag_no_products": (_NO_PRODUCTS, False, BOTH),
 }
 
 
+def edited_header(edits) -> str:
+    """HEADER's text with ``edits`` applied; raises if one finds no text."""
+    text = (_build.CSRC / HEADER).read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError("an edit no longer applies to " + HEADER)
+        text = text.replace(old, new)
+    return text
+
+
 def _build_variants():
-    """name -> (ctypes library, ptxas lines with spills) of each variant."""
+    """(name, pipeline) -> (ctypes library, ptxas lines with spills) of each
+    variant: the pipeline's source beside the edited header (a quoted
+    include finds it first), ``csrc/`` for the other headers."""
     out_dir = _build.BUILD_DIR / "sweep_local_db"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / _build.SOURCES[NAME]).read_text()
     procs = {}
-    for name, (edits, _) in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: an edit no longer applies to the source")
-            text = text.replace(old, new)
-        cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
-        cu.write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
+    for name, (edits, _, pipelines) in VARIANTS.items():
+        vdir = out_dir / name
+        vdir.mkdir(parents=True, exist_ok=True)
+        (vdir / HEADER).write_text(edited_header(edits))
+        for pipeline in pipelines:
+            lib = LIBS[pipeline]
+            cu, so = vdir / _build.SOURCES[lib], vdir / f"lib{lib}.so"
+            shutil.copyfile(_build.CSRC / _build.SOURCES[lib], cu)
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
+                   str(cu)]
+            procs[name, pipeline] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
-    for name, (proc, so) in procs.items():
+    for (name, pipeline), (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = _build.bind(so, NAME)
+            raise RuntimeError(f"nvcc failed for variant {name} ({pipeline}):\n{log}")
         spills = [ln.strip() for ln in log.splitlines()
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-        libs[name] = (lib, spills)
+        libs[name, pipeline] = (_build.bind(so, LIBS[pipeline]), spills)
     return libs
 
 
@@ -174,7 +228,7 @@ def _profile_split(fn):
         torch.cuda.synchronize()
     split = {}
     for evt in prof.key_averages():
-        for tag in ("local_db_partials", "local_db_fold"):
+        for tag in ("local_partials", "local_fold"):
             if tag in evt.key:
                 total = getattr(evt, "device_time_total", None)
                 if total is None:
@@ -200,10 +254,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build([NAME, "gust_spmv", "gust_spmv_db"])
+    _build.build([*LIBS.values(), "gust_spmv", "gust_spmv_db"])
     variants = _build_variants()
     build_s = time.perf_counter() - t0
-    kept = _build.load(NAME)
+    kept = {lib: _build.load(lib) for lib in LIBS.values()}
     coo = make_real_world_surrogate(REAL_WORLD_SUITE[0], scale=1.0, seed=0)
     n = coo.shape[1]
     cache = ScheduleCache()
@@ -213,7 +267,7 @@ def main(argv=None) -> int:
                      n, L) for b in (1, 8)}
     rows = []
     for layout in ("padded", "ragged"):
-        for vdt, b in (("float32", 1), ("int8", 1), ("float32", 8)):
+        for vdt, b in (("float32", 1), ("int8", 1), ("float32", 8), ("int8", 8)):
             cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout=layout, value_dtype=vdt,
                                          load_balance=False)
             art = repro_torch.plan(coo, cfg, cache=cache, device="cuda").artifact
@@ -226,34 +280,44 @@ def main(argv=None) -> int:
                     art.m_blk, art.col_blk, art.row_blk, *blocks, xp, **kw)
                 resident = lambda: k_rag.gust_spmv_ragged_db(  # noqa: E731
                     art.m_blk, art.col_blk, art.row_blk, *blocks, xp, **kw)
-                local = lambda: k_rag.gust_spmv_ragged_local_db(  # noqa: E731
+                local = {p: lambda fn=fn: fn(  # noqa: E731
                     art.m_blk, art.col_loc, art.row_blk, art.seg_blk, *blocks, xp, **kw)
+                    for p, fn in (("single", k_rag.gust_spmv_ragged_local),
+                                  ("double", k_rag.gust_spmv_ragged_local_db))}
             else:
                 yard = lambda: k_pad.gust_spmv(  # noqa: E731
                     art.m_blk, art.col_blk, art.row_blk, xp, **kw)
                 resident = lambda: k_pad.gust_spmv_db(  # noqa: E731
                     art.m_blk, art.col_blk, art.row_blk, xp, **kw)
-                local = lambda: k_pad.gust_spmv_local_db(  # noqa: E731
+                local = {p: lambda fn=fn: fn(  # noqa: E731
                     art.m_blk, art.col_loc, art.row_blk, art.seg_blk, xp, **kw)
+                    for p, fn in (("single", k_pad.gust_spmv_local),
+                                  ("double", k_pad.gust_spmv_local_db))}
             want = yard()
-            if not torch.equal(local(), want):
-                raise AssertionError(f"{layout} {vdt} B={b}: the kept kernel differs bitwise "
-                                     "from kernel 1/2")
             row = {"layout": layout, "value_dtype": vdt, "B": b,
-                   "resident_db_ms": _ms(resident, args.iters),
-                   "kept_ms": _ms(local, args.iters)}
-            row.update(_profile_split(local))
-            for name, (lib, _) in variants.items():
-                _build._LIBS[NAME] = lib
-                if VARIANTS[name][1] and not torch.equal(local(), want):
-                    raise AssertionError(f"variant {name}: differs bitwise from kernel 1/2")
-                row[f"{name}_ms"] = _ms(local, args.iters)
-            _build._LIBS[NAME] = kept
-            row["kept_again_ms"] = _ms(local, args.iters)
+                   "resident_db_ms": _ms(resident, args.iters)}
+            for pipeline, run in local.items():
+                lib = LIBS[pipeline]
+                if not torch.equal(run(), want):
+                    raise AssertionError(f"{layout} {vdt} B={b}: the kept {pipeline} kernel "
+                                         "differs bitwise from kernel 1/2")
+                row[f"{pipeline}_ms"] = _ms(run, args.iters)
+                row.update({f"{pipeline}_{k}": v for k, v in _profile_split(run).items()})
+                for (name, vp), (vlib, _) in variants.items():
+                    if vp != pipeline:
+                        continue
+                    _build._LIBS[lib] = vlib
+                    if VARIANTS[name][1] and not torch.equal(run(), want):
+                        raise AssertionError(f"variant {name} ({pipeline}): differs bitwise "
+                                             "from kernel 1/2")
+                    row[f"{pipeline}_{name}_ms"] = _ms(run, args.iters)
+                _build._LIBS[lib] = kept[lib]
+                row[f"{pipeline}_again_ms"] = _ms(run, args.iters)
             rows.append(row)
             print(json.dumps(row), flush=True)
     report = {"nvidia_smi": smi, "build_s": build_s, "rows": rows,
-              "spilling": {name: spills for name, (_, spills) in variants.items()}}
+              "spilling": {f"{name}/{p}": spills
+                           for (name, p), (_, spills) in variants.items()}}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "local_db_sweep.json"), "w") as f:
         json.dump(report, f, indent=1)

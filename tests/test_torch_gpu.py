@@ -14,10 +14,10 @@ must also equal the single-buffered resident kernel of their layout
 bitwise on the same artifact (``torch.equal``, which takes +0 == -0).
 The SpGEMM kernel is held bitwise to its plain version on the CPU and, on
 small-integer values, to the dense product; the Buffer Filler bitwise to
-``x[col]``.  Kernels 6/8, which spread a window's blocks over the card's
-CTAs, are also run where CTAs hold several blocks, a window spans many
-CTAs, a block references more x tiles than their stage holds, and a
-window is empty.  An infinite x at a column that only padding slots
+``x[col]``.  Kernels 3/4 and 6/8, which spread a window's blocks over
+the card's CTAs, are also run where CTAs hold several blocks, a window
+spans many CTAs, a block references more x tiles than their stage holds,
+and a window is empty.  An infinite x at a column that only padding slots
 point at leaves every kernel's rows finite and equal to the plain
 version's.
 """
@@ -555,12 +555,19 @@ SPREAD_CASES = {
 _SPREAD_SCHEDULES = {}
 
 
+def _run_local(pipeline, art, xp):
+    """Kernel 3/4 (``"single"``) or 6/8 (``"double"``) on one artifact."""
+    return _run_local_single(art, xp) if pipeline == "single" else _run_db(art, xp, local=True)
+
+
+@pytest.mark.parametrize("pipeline", ["single", "double"])
 @pytest.mark.parametrize("layout", ["padded", "ragged"])
 @pytest.mark.parametrize("case", sorted(SPREAD_CASES))
-def test_local_db_spread_over_ctas(cuda, case, layout):
-    """Kernels 6/8 spread the stream's blocks over the card's CTAs and fold
-    each window's block tiles in stream order: bitwise equal to kernels
-    1/2 and 3/4 on the same artifact and to the plain version on the CPU,
+def test_local_db_spread_over_ctas(cuda, case, layout, pipeline):
+    """Kernels 3/4 (one x-tile stage) and 6/8 (two) spread the stream's
+    blocks over the card's CTAs and fold each window's block tiles in
+    stream order: bitwise equal to kernels 1/2, to the kernels of the other
+    pipeline on the same artifact and to the plain version on the CPU,
     where each CTA holds several blocks and window 0 spans many CTAs,
     where a block references more x tiles than the stage holds, where a
     ragged window is empty (one all-padding block) and a padded window is
@@ -579,7 +586,8 @@ def test_local_db_spread_over_ctas(cuda, case, layout):
     xp_cpu = _prep_x(x, n, l)
     xp = xp_cpu.to(cuda)
     t_blk = art_cpu.m_blk.shape[0] // c_blk
-    launch = k_pad.local_db_launch_plan(art_gpu.m_blk, art_gpu.col_loc, xp, l=l, c_blk=c_blk)
+    launch = k_pad.local_launch_plan(art_gpu.m_blk, art_gpu.col_loc, xp, l=l, c_blk=c_blk,
+                                     pipeline=pipeline)
     seg = art_cpu.seg_blk.numpy()
     tiles = 1 + (seg[:, 1:] > seg[:, :-1]).sum(axis=1)
     blocks_of = (np.diff(art_cpu.block_starts.numpy()) if layout == "ragged"
@@ -599,10 +607,12 @@ def test_local_db_spread_over_ctas(cuda, case, layout):
         blk = art_cpu.m_blk.reshape(t_blk, -1)
         assert not bool(blk.any(dim=1).all())
     counter = k_rag if layout == "ragged" else k_pad
-    before = counter.local_db_launches
-    y = _run_db(art_gpu, xp, local=True)
+    attr = "local_launches" if pipeline == "single" else "local_db_launches"
+    before = getattr(counter, attr)
+    y = _run_local(pipeline, art_gpu, xp)
     torch.cuda.synchronize()
-    assert counter.local_db_launches == before + 1
+    assert getattr(counter, attr) == before + 1
     assert torch.equal(y, _run(art_gpu, xp))
-    assert torch.equal(y, _run_local_single(art_gpu, xp))
-    assert torch.equal(y.cpu(), _run_db(art_cpu, xp_cpu, local=True))
+    other = "double" if pipeline == "single" else "single"
+    assert torch.equal(y, _run_local(other, art_gpu, xp))
+    assert torch.equal(y.cpu(), _run_local(pipeline, art_cpu, xp_cpu))

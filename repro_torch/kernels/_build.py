@@ -47,8 +47,14 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
+#: The launch plan entry point of every library built on
+#: ``csrc/gust_spread.cuh``: vdt, idt, T, l, c_blk, b, out[6].
+_PLAN = [_I] * 6 + [_P]
+
+
 def _local_spread(prefix: str) -> Dict[str, list]:
-    """The entry points of a library built on ``csrc/gust_local_spread.cuh``."""
+    """The entry points of a library built on ``csrc/gust_spread.cuh``
+    with the segment-local gather."""
     return {
         # m, col_loc, row, seg_blk, scale, x, y, partials, vdt, idt, W, T,
         # blocks_per_window, l, c_blk, s_blk, b, stream
@@ -56,21 +62,20 @@ def _local_spread(prefix: str) -> Dict[str, list]:
         # m, col_loc, row, seg_blk, scale, x, y, partials, block_starts, vdt,
         # idt, W, T, l, c_blk, s_blk, b, stream
         f"{prefix}_ragged": [_P] * 9 + [_I] * 8 + [_P],
-        # vdt, idt, T, l, c_blk, b, out[6]
-        f"{prefix}_plan": [_I] * 6 + [_P],
+        f"{prefix}_plan": _PLAN,
     }
-
 
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the launch's cudaError_t).
 SIGNATURES = {
     "gust_spmv": {
-        # m, col, row, scale, x, y, vdt, idt, W, blocks_per_window, l,
-        # c_blk, b, stream
-        "gust_spmv_padded": [_P] * 6 + [_I] * 7 + [_P],
+        # m, col, row, scale, x, y, partials, vdt, idt, W, T,
+        # blocks_per_window, l, c_blk, b, stream (on gust_spread.cuh)
+        "gust_spmv_padded": [_P] * 7 + [_I] * 8 + [_P],
         # m, col, row, scale, x, y, block_starts, vdt, idt, W, l, c_blk, b,
         # stream
         "gust_spmv_ragged": [_P] * 7 + [_I] * 6 + [_P],
+        "gust_spmv_plan": _PLAN,
     },
     "gust_spmv_local": _local_spread("gust_spmv_local"),
     "gust_spgemm": {
@@ -86,9 +91,10 @@ SIGNATURES = {
         # m, col, row, scale, x, y, vdt, idt, W, blocks_per_window, l,
         # c_blk, b, stream
         "gust_spmv_db_padded": [_P] * 6 + [_I] * 7 + [_P],
-        # m, col, row, scale, x, y, block_starts, vdt, idt, W, l, c_blk, b,
-        # stream
-        "gust_spmv_db_ragged": [_P] * 7 + [_I] * 6 + [_P],
+        # m, col, row, scale, x, y, partials, block_starts, vdt, idt, W, T,
+        # l, c_blk, b, stream (on gust_spread.cuh)
+        "gust_spmv_db_ragged": [_P] * 8 + [_I] * 7 + [_P],
+        "gust_spmv_db_plan": _PLAN,
     },
     "gust_spmv_local_db": _local_spread("gust_spmv_local_db"),
 }

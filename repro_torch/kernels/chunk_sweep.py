@@ -1,15 +1,17 @@
-"""Sweep the stage height of the double-buffered resident kernels at B > 1.
+"""Sweep the stage height of the double-buffered padded resident kernel 5
+at B > 1.
 
     python -m repro_torch.kernels.chunk_sweep [--caps 8,4,2,1] [--iters 20]
 
 Builds ``csrc/gust_spmv_db.cu`` once per cap with ``-DGUST_DB_WIDE_CHUNK``
-(the most cycles per pipeline unit when B > 1; each unit is one of the two
-shared-memory stages, so the cap sets the CTA's shared memory) into
-``build/kernels/sweep/``, then times kernels 5 and 7 of each build on
-crankseg_2 at its published size (load-balanced schedule, ``l=256,
-c_blk=8``, f32 and int8, B=1 and B=8) beside kernels 1 and 2 of the
-regular build, with CUDA events (mean of ``--iters`` after 2 warm-ups).
-Every variant must equal kernel 1/2 bitwise.  Needs a CUDA card; prints
+(the most cycles per pipeline unit of kernel 5 when B > 1; each unit is
+one of its two shared-memory stages, so the cap sets the CTA's shared
+memory; kernel 7 in the same source has no stage) into
+``build/kernels/sweep/``, then times kernel 5 of each build on crankseg_2
+at its published size (load-balanced schedule, ``l=256, c_blk=8``, f32
+and int8, B=1 and B=8) beside kernel 1 of the regular build, with CUDA
+events (mean of ``--iters`` after 2 warm-ups).  Every variant must equal
+kernel 1 bitwise.  Needs a CUDA card; prints
 one JSON object and writes it to ``chiprun_out/chunk_sweep.json``.
 """
 
@@ -27,7 +29,6 @@ import torch
 
 from . import _build
 from . import gust_spmv as k_pad
-from . import gust_spmv_ragged as k_rag
 
 L, C_BLK, BATCH = 256, 8, 8
 
@@ -97,38 +98,29 @@ def main(argv=None) -> int:
                      n, L) for b in (1, BATCH)}
     regular = _build.load("gust_spmv_db")
     rows = []
-    for layout in ("padded", "ragged"):
-        for vdt in ("float32", "int8"):
-            cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout=layout, value_dtype=vdt,
-                                         gather="resident", pipeline="double")
-            art = repro_torch.plan(coo, cfg, cache=cache, device="cuda").artifact
-            kw = dict(num_windows=art.num_windows, l=art.l, c_blk=art.c_blk,
-                      scale_blk=art.scale_blk)
-            if layout == "ragged":
-                single = lambda xp: k_rag.gust_spmv_ragged(  # noqa: E731
-                    art.m_blk, art.col_blk, art.row_blk, art.block_window,
-                    art.block_starts, xp, **kw)
-                double = lambda xp: k_rag.gust_spmv_ragged_db(  # noqa: E731
-                    art.m_blk, art.col_blk, art.row_blk, art.block_window,
-                    art.block_starts, xp, **kw)
-            else:
-                single = lambda xp: k_pad.gust_spmv(  # noqa: E731
-                    art.m_blk, art.col_blk, art.row_blk, xp, **kw)
-                double = lambda xp: k_pad.gust_spmv_db(  # noqa: E731
-                    art.m_blk, art.col_blk, art.row_blk, xp, **kw)
-            for b, xp in xs.items():
-                row = {"layout": layout, "value_dtype": vdt, "B": b,
-                       "single_ms": _ms(lambda: single(xp), args.iters)}
-                want = single(xp)
-                for cap in caps:
-                    _build._LIBS["gust_spmv_db"] = libs[cap]
-                    if not torch.equal(double(xp), want):
-                        raise AssertionError(f"cap {cap} {layout} {vdt} B={b}: differs "
-                                             "bitwise from the single-buffered kernel")
-                    row[f"cap{cap}_ms"] = _ms(lambda: double(xp), args.iters)
-                _build._LIBS["gust_spmv_db"] = regular
-                rows.append(row)
-                print(json.dumps(row), flush=True)
+    for vdt in ("float32", "int8"):
+        cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout="padded", value_dtype=vdt,
+                                     gather="resident", pipeline="double")
+        art = repro_torch.plan(coo, cfg, cache=cache, device="cuda").artifact
+        kw = dict(num_windows=art.num_windows, l=art.l, c_blk=art.c_blk,
+                  scale_blk=art.scale_blk)
+        single = lambda xp: k_pad.gust_spmv(  # noqa: E731
+            art.m_blk, art.col_blk, art.row_blk, xp, **kw)
+        double = lambda xp: k_pad.gust_spmv_db(  # noqa: E731
+            art.m_blk, art.col_blk, art.row_blk, xp, **kw)
+        for b, xp in xs.items():
+            row = {"layout": "padded", "value_dtype": vdt, "B": b,
+                   "single_ms": _ms(lambda: single(xp), args.iters)}
+            want = single(xp)
+            for cap in caps:
+                _build._LIBS["gust_spmv_db"] = libs[cap]
+                if not torch.equal(double(xp), want):
+                    raise AssertionError(f"cap {cap} {vdt} B={b}: differs "
+                                         "bitwise from kernel 1")
+                row[f"cap{cap}_ms"] = _ms(lambda: double(xp), args.iters)
+            _build._LIBS["gust_spmv_db"] = regular
+            rows.append(row)
+            print(json.dumps(row), flush=True)
     report = {"nvidia_smi": smi, "build_s": build_s, "caps": caps, "rows": rows}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chunk_sweep.json"), "w") as f:

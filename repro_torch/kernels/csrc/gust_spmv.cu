@@ -1,5 +1,5 @@
 // GUST SpMV on Hopper (sm_90a): y = M @ x over a packed color-block stream,
-// x resident in device memory, one CTA per output window.
+// x resident in device memory.
 //
 // Replaces the TPU kernels
 //   repro/kernels/gust_spmv.py::make_gust_spmv              (padded stream)
@@ -12,62 +12,65 @@
 // output tile.  The edge coloring makes each cycle collision-free: no two
 // real slots of a cycle share a row.  Padding slots carry m == 0, row == 0.
 //
-// Design.  The TPU kernels gather x and route products with one-hot matmuls
-// because the TPU has no fast gather or scatter.  Here each thread owns a
-// lane: it loads x[col] directly, multiplies, and adds the product into a
-// shared-memory (l, Bt) block tile at its row, with a barrier between
-// cycles so that two lanes of different cycles never touch a row at once.
-// At the end of a block, thread r owns row r of the tile and folds it into
-// the window accumulator it keeps in registers.  A CTA walks its window's
-// blocks in stream order (padded: w*bpw .. (w+1)*bpw; ragged:
-// block_starts[w] .. block_starts[w+1]), so every output tile has exactly
-// one owner: no atomics, and the result is deterministic.  The association
-// is the reference kernels': sum within the block (cycle by cycle), then
-// add the block into the tile; products and sums round with the _rn
-// intrinsics, so nvcc contracts nothing into an FMA and the plain PyTorch
-// version (repro_torch/kernels/ref.py) gives the same bits on the CPU.
+// Padded stream (kernel 1, gust_spmv_padded): the resident, single-buffered
+// instance of gust_spread.cuh (see its note).  The stream's blocks are
+// spread over a persistent grid, each block's (l, B) tile summed through a
+// shared product buffer with two barriers a chunk of cycles and written to
+// a (T, l, B) scratch, then each window's tiles folded in stream order by
+// a second kernel, so no CTA walks the longest window alone and no CTA
+// waits at a barrier per cycle.  Each slot reads x[col] directly; the next
+// chunk's slots load into registers while this chunk sums.  At l=256 a CTA
+// takes 8 KB of shared memory at B=1 and 32 KB at B=8.
 //
-// Padding slots collide with real slots on row 0 within a cycle, so slots
-// whose value is 0 are skipped: exact for finite x (adding m*x == +-0
-// changes no sum).  An int8 value that quantizes to 0 is skipped the same
-// way.  Each thread loads the (m, col, row) of up to kStage cycles before
-// it works through them, so those loads are in flight together.
+// Ragged stream (kernel 2, gust_spmv_ragged): still the first design, one
+// CTA per window.  Each thread owns a lane: it loads x[col] directly,
+// multiplies, and adds the product into a shared-memory (l, Bt) block tile
+// at its row, with a barrier between cycles so that two lanes of different
+// cycles never touch a row at once.  At the end of a block, thread r owns
+// row r of the tile and folds it into the window accumulator it keeps in
+// registers.  A CTA walks its window's blocks block_starts[w] ..
+// block_starts[w+1] in stream order, so every output tile has exactly one
+// owner: no atomics, and the result is deterministic.  Each thread loads
+// the (m, col, row) of up to kStage cycles before it works through them.
+//
+// Both keep the reference kernels' association: sum within the block
+// (cycle by cycle), then add the block into the tile; products and sums
+// round with the _rn intrinsics, so nvcc contracts nothing into an FMA and
+// the plain PyTorch version (repro_torch/kernels/ref.py) gives the same
+// bits on the CPU.  Padding slots collide with real slots on row 0 within
+// a cycle, so slots whose value is 0 are skipped: exact for finite x
+// (adding m*x == +-0 changes no sum).  An int8 value that quantizes to 0 is
+// skipped the same way.  So the two kernels equal each other bitwise on
+// one matrix (padded == ragged).
 //
 // Bound.  Memory: every stream slot is read once (value + column + row
-// bytes), plus the scales, x and y.  The arithmetic (one multiply and one
-// add per slot and vector column) is far below the card's rate, and the
-// per-cycle barrier and the scattered shared-memory adds keep this simple
-// first version well short of the memory bound.
+// bytes), plus the scales, x and y; kernel 1 adds its scratch
+// (partial_bytes).  The arithmetic (one multiply and one add per slot and
+// vector column) is far below the card's rate.  Kernel 2's barrier per
+// cycle, with about two CTAs of 256 threads per SM, keeps it well short of
+// the memory bound.
 
-#include "gust_common.cuh"
+#include "gust_spread.cuh"
 
 namespace {
 
-using gust::load_value;
+constexpr int kStage = 8;  // cycles whose (m, col, row) kernel 2 loads ahead
 
-constexpr int kStage = 8;  // cycles whose (m, col, row) are loaded ahead
-
-template <typename V, typename I, bool QUANT, bool RAGGED, int BT>
+template <typename V, typename I, bool QUANT, int BT>
 __global__ void __launch_bounds__(1024)
     gust_spmv_kernel(const V* __restrict__ m, const I* __restrict__ col,
                      const I* __restrict__ row,
                      const float* __restrict__ scale,
                      const float* __restrict__ x, float* __restrict__ y,
-                     const int* __restrict__ block_starts,
-                     int blocks_per_window, int l, int c_blk, int b) {
+                     const int* __restrict__ block_starts, int l, int c_blk,
+                     int b) {
   extern __shared__ float tile[];  // (l, BT) partial sums of one block
   const int w = blockIdx.x;
   const int j = threadIdx.x;  // lane of the stream; after a block, tile row
   const int b0 = blockIdx.y * BT;
   const int bt = min(BT, b - b0);
-  int t0, t1;
-  if (RAGGED) {
-    t0 = block_starts[w];
-    t1 = block_starts[w + 1];
-  } else {
-    t0 = w * blocks_per_window;
-    t1 = t0 + blocks_per_window;
-  }
+  const int t0 = block_starts[w];
+  const int t1 = block_starts[w + 1];
 
   float acc[BT];
 #pragma unroll
@@ -126,75 +129,68 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <typename V, typename I, bool QUANT, bool RAGGED>
-cudaError_t launch_typed(const void* m, const void* col, const void* row,
-                         const float* scale, const float* x, float* y,
-                         const int* block_starts, int num_windows,
-                         int blocks_per_window, int l, int c_blk, int b,
-                         cudaStream_t stream) {
+template <typename V, typename I, bool QUANT>
+cudaError_t launch_ragged(const void* m, const void* col, const void* row,
+                          const float* scale, const float* x, float* y,
+                          const int* block_starts, int num_windows, int l,
+                          int c_blk, int b, cudaStream_t stream) {
   const V* mv = static_cast<const V*>(m);
   const I* cv = static_cast<const I*>(col);
   const I* rv = static_cast<const I*>(row);
   if (b == 1) {
     dim3 grid(num_windows, 1);
-    gust_spmv_kernel<V, I, QUANT, RAGGED, 1>
-        <<<grid, l, l * sizeof(float), stream>>>(
-            mv, cv, rv, scale, x, y, block_starts, blocks_per_window, l,
-            c_blk, b);
+    gust_spmv_kernel<V, I, QUANT, 1>
+        <<<grid, l, l * sizeof(float), stream>>>(mv, cv, rv, scale, x, y,
+                                                 block_starts, l, c_blk, b);
   } else {
     constexpr int kBt = 8;
     dim3 grid(num_windows, (b + kBt - 1) / kBt);
-    gust_spmv_kernel<V, I, QUANT, RAGGED, kBt>
+    gust_spmv_kernel<V, I, QUANT, kBt>
         <<<grid, l, l * kBt * sizeof(float), stream>>>(
-            mv, cv, rv, scale, x, y, block_starts, blocks_per_window, l,
-            c_blk, b);
+            mv, cv, rv, scale, x, y, block_starts, l, c_blk, b);
   }
   return cudaGetLastError();
-}
-
-// vdt and idt: the dtype codes of gust::dispatch_dtypes.
-template <bool RAGGED>
-cudaError_t dispatch(const void* m, const void* col, const void* row,
-                     const float* scale, const float* x, float* y,
-                     const int* block_starts, int vdt, int idt,
-                     int num_windows, int blocks_per_window, int l, int c_blk,
-                     int b, cudaStream_t stream) {
-  if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || num_windows < 1 ||
-      (vdt == 2) != (scale != nullptr)) {
-    return cudaErrorInvalidValue;
-  }
-  return gust::dispatch_dtypes(vdt, idt, [&](auto v, auto i, auto q) {
-    return launch_typed<typename decltype(v)::type, typename decltype(i)::type,
-                        decltype(q)::value, RAGGED>(
-        m, col, row, scale, x, y, block_starts, num_windows,
-        blocks_per_window, l, c_blk, b, stream);
-  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Padded stream: window w owns blocks w*bpw .. (w+1)*bpw.  y is (W, l, b).
+// Padded stream: window w owns blocks w*bpw .. (w+1)*bpw of the t_blk =
+// W*bpw blocks.  part is a (t_blk, l, b) f32 scratch, y is (W, l, b).
+// vdt and idt: the dtype codes of gust::dispatch_dtypes.
 int gust_spmv_padded(const void* m, const void* col, const void* row,
-                     const float* scale, const float* x, float* y, int vdt,
-                     int idt, int num_windows, int blocks_per_window, int l,
-                     int c_blk, int b, void* stream) {
-  if (blocks_per_window < 1) return cudaErrorInvalidValue;
-  return dispatch<false>(m, col, row, scale, x, y, nullptr, vdt, idt,
-                         num_windows, blocks_per_window, l, c_blk, b,
-                         static_cast<cudaStream_t>(stream));
+                     const float* scale, const float* x, float* y, float* part,
+                     int vdt, int idt, int num_windows, int t_blk,
+                     int blocks_per_window, int l, int c_blk, int b,
+                     void* stream) {
+  return spread<false, Gather::kResident, 0>(
+      m, col, row, nullptr, scale, x, y, part, nullptr, vdt, idt, num_windows,
+      t_blk, blocks_per_window, l, c_blk, 0, b, stream);
 }
 
 // Ragged stream: window w owns blocks block_starts[w] .. block_starts[w+1].
+// y is (W, l, b).
 int gust_spmv_ragged(const void* m, const void* col, const void* row,
                      const float* scale, const float* x, float* y,
                      const int* block_starts, int vdt, int idt,
                      int num_windows, int l, int c_blk, int b, void* stream) {
-  if (block_starts == nullptr) return cudaErrorInvalidValue;
-  return dispatch<true>(m, col, row, scale, x, y, block_starts, vdt, idt,
-                        num_windows, 0, l, c_blk, b,
-                        static_cast<cudaStream_t>(stream));
+  if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || num_windows < 1 ||
+      block_starts == nullptr || (vdt == 2) != (scale != nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  return gust::dispatch_dtypes(vdt, idt, [&](auto v, auto i, auto q) {
+    return launch_ragged<typename decltype(v)::type,
+                         typename decltype(i)::type, decltype(q)::value>(
+        m, col, row, scale, x, y, block_starts, num_windows, l, c_blk, b,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The launch gust_spmv_padded makes: see spread_plan.
+int gust_spmv_plan(int vdt, int idt, int t_blk, int l, int c_blk, int b,
+                   int* out) {
+  return spread_plan<Gather::kResident, 0>(vdt, idt, t_blk, l, c_blk, b, out);
 }
 
 const char* gust_error_string(int err) {

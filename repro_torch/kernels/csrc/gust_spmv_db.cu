@@ -1,6 +1,5 @@
 // Double-buffered GUST SpMV on Hopper (sm_90a), resident x: y = M @ x over
-// a packed color-block stream, one CTA per output window, the stream copied
-// into shared memory by cp.async while the previous chunk computes.
+// a packed color-block stream.
 //
 // Replaces the TPU kernels
 //   repro/kernels/gust_spmv.py::make_gust_spmv_db                (padded stream)
@@ -12,38 +11,50 @@
 //
 // What they compute is what gust_spmv.cu computes (see its note): each
 // cycle of a (c_blk, l) block gives lane j one slot (value m, column, adder
-// row), which adds m * x[col, :] into its window's (l, B) output tile.  The
-// design is gust_spmv.cu's, so the same bits come out: one CTA per window
-// walking the window's blocks in stream order, one thread per lane, a
-// shared-memory block tile with a barrier per cycle, the window accumulator
-// in registers (initialised from the window's first block), products and
-// sums rounded with the _rn intrinsics (no FMA contraction), and slots whose
-// value is 0 skipped (padding slots share row 0 with real slots).  So on one
-// artifact, for finite x, these kernels equal gust_spmv_padded /
-// gust_spmv_ragged bitwise (single == double), and the padded and ragged
-// kernels equal each other.
+// row), which adds m * x[col, :] into its window's (l, B) output tile, with
+// the association of kernels 1/2 (sum within the block cycle by cycle, then
+// the blocks in stream order), products and sums rounded with the _rn
+// intrinsics (no FMA contraction), and slots whose value is 0 skipped
+// (padding slots share row 0 with real slots).  So on one artifact, for
+// finite x, these kernels equal gust_spmv_padded / gust_spmv_ragged bitwise
+// (single == double), and the padded and ragged kernels equal each other.
 //
-// The unit of the pipeline is a chunk of up to kChunk cycles of one block.
-// Its (m, col, row) rows are one contiguous run of each leaf; the CTA copies
-// the run of chunk u+1 into one of two shared-memory stages with cp.async
-// (16-byte copies where source and length allow, 4-byte copies, or plain
-// loads at a misaligned edge: int8/int16/bf16 leaves at odd l) while chunk u
-// computes out of the other.  A chunk is 8 cycles at B=1 and
-// GUST_DB_WIDE_CHUNK (4) when B > 1.  x is read straight from device memory
-// (it stays in the 50 MB L2).  At B=1 each thread starts the x loads of the
-// whole chunk before its first add.
+// Ragged stream (kernel 7, gust_spmv_db_ragged): the resident instance of
+// gust_spread.cuh (see its note), the same code as kernel 1.  The stream's
+// blocks are spread over a persistent grid, each block's tile written to a
+// (T, l, B) scratch and folded per window in stream order, and a chunk's
+// cycles run with two barriers.  Its second buffer is the register
+// prefetch: each thread loads the next chunk's (m, col, row) slots, the
+// next block's first chunk included, while this chunk sums, so the stream
+// is in flight while the CTA computes.  No shared-memory stream stage: a
+// cp.async copy of the next chunk's rows would only move the same bytes
+// through shared memory, and such a stage was slower for kernels 6/8 on
+// the card (PERF.md).
+//
+// Padded stream (kernel 5, gust_spmv_db_padded): still the first design,
+// one CTA per window walking its blocks w*bpw .. (w+1)*bpw in stream
+// order, one thread per lane, a shared-memory block tile with a barrier
+// per cycle and the window accumulator in registers (initialised from the
+// window's first block).  The unit of its pipeline is a chunk of up to
+// kChunk cycles of one block.  Its (m, col, row) rows are one contiguous
+// run of each leaf; the CTA copies the run of chunk u+1 into one of two
+// shared-memory stages with cp.async (16-byte copies where source and
+// length allow, 4-byte copies, or plain loads at a misaligned edge:
+// int8/int16/bf16 leaves at odd l) while chunk u computes out of the
+// other.  A chunk is 8 cycles at B=1 and GUST_DB_WIDE_CHUNK (4) when B > 1.
+// x is read straight from device memory (it stays in the 50 MB L2).  At
+// B=1 each thread starts the x loads of the whole chunk before its first
+// add.
 //
 // Bound.  Memory: each stream slot read once (value + column + row bytes),
-// the scales and x once, y written once.  One multiply and one add per slot
-// and vector column is far below the card's rate.  As in gust_spmv.cu, the
-// per-cycle barrier with about two CTAs of 256 threads per SM keeps this
-// first version latency-bound.
+// the scales and x once, y written once; kernel 7 adds its scratch
+// (partial_bytes).  One multiply and one add per slot and vector column
+// is far below the card's rate.  Kernel 5's per-cycle barrier with about
+// two CTAs of 256 threads per SM keeps it latency-bound.
 
-#include <algorithm>
+#include "gust_spread.cuh"
 
-#include "gust_common.cuh"
-
-// Most cycles in one pipeline unit of the resident kernels when B > 1: a
+// Most cycles in one pipeline unit of kernel 5 when B > 1: a
 // build-time constant so that it can be swept
 // (python -m repro_torch.kernels.chunk_sweep).  On the H100 at B=8 an
 // 8-cycle f32 unit (56 KB of shared memory per CTA) ran 35% slower than
@@ -54,15 +65,6 @@
 #endif
 
 namespace {
-
-using gust::align16;
-using gust::allow_smem;
-using gust::cp_async16;
-using gust::cp_async4;
-using gust::cp_async_commit;
-using gust::cp_async_wait;
-using gust::load_value;
-using gust::max_shared_bytes;
 
 constexpr int kChunk = 8;  // most cycles in one pipeline unit
 constexpr int kWideChunk = GUST_DB_WIDE_CHUNK;
@@ -84,20 +86,6 @@ __device__ __forceinline__ void copy_to_shared(void* dst, const void* src,
     for (size_t i = tid * 4; i < n; i += nt * 4) cp_async4(d + i, s + i);
   } else {
     for (size_t i = tid; i < n; i += nt) d[i] = s[i];
-  }
-}
-
-// Window w's block range: padded w*bpw .. (w+1)*bpw, ragged from
-// block_starts.
-template <bool RAGGED>
-__device__ __forceinline__ void window_blocks(const int* block_starts, int w,
-                                              int bpw, int& t0, int& t1) {
-  if (RAGGED) {
-    t0 = block_starts[w];
-    t1 = block_starts[w + 1];
-  } else {
-    t0 = w * bpw;
-    t1 = t0 + bpw;
   }
 }
 
@@ -126,18 +114,13 @@ __device__ __forceinline__ void store_window(float* y, const float (&acc)[BT],
   }
 }
 
-// ---------------------------------------------------------------------------
-// Resident x, double-buffered stream.
-// ---------------------------------------------------------------------------
-
-template <typename V, typename I, bool QUANT, bool RAGGED, int BT>
+template <typename V, typename I, bool QUANT, int BT>
 __global__ void __launch_bounds__(1024)
     gust_spmv_db_kernel(const V* __restrict__ m, const I* __restrict__ col,
                         const I* __restrict__ row,
                         const float* __restrict__ scale,
                         const float* __restrict__ x, float* __restrict__ y,
-                        const int* __restrict__ block_starts, int bpw, int l,
-                        int c_blk, int b, int cc) {
+                        int bpw, int l, int c_blk, int b, int cc) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* tile = reinterpret_cast<float*>(smem);  // (l, BT) block partials
   const size_t v_bytes = align16((size_t)cc * l * sizeof(V));
@@ -149,8 +132,8 @@ __global__ void __launch_bounds__(1024)
   const int j = threadIdx.x;
   const int b0 = blockIdx.y * BT;
   const int bt = min(BT, b - b0);
-  int t0, t1;
-  window_blocks<RAGGED>(block_starts, w, bpw, t0, t1);
+  const int t0 = w * bpw;
+  const int t1 = t0 + bpw;
   const int nchunk = (c_blk + cc - 1) / cc;
   const int units = (t1 - t0) * nchunk;
 
@@ -230,96 +213,75 @@ __global__ void __launch_bounds__(1024)
   store_window<BT>(y, acc, w, l, b, b0, bt);
 }
 
-// ---------------------------------------------------------------------------
-// Host side: shared-memory plan, launch, dtype dispatch.
-// ---------------------------------------------------------------------------
-
 size_t resident_smem(int l, int bt, int cc, size_t ev, size_t ei) {
   return align16((size_t)l * bt * 4) +
          2 * (align16((size_t)cc * l * ev) + 2 * align16((size_t)cc * l * ei));
 }
 
-template <typename V, typename I, bool QUANT, bool RAGGED, int BT>
-cudaError_t launch_resident(const void* m, const void* col, const void* row,
-                            const float* scale, const float* x, float* y,
-                            const int* block_starts, int num_windows, int bpw,
-                            int l, int c_blk, int b, cudaStream_t stream) {
+template <typename V, typename I, bool QUANT, int BT>
+cudaError_t launch_padded(const void* m, const void* col, const void* row,
+                          const float* scale, const float* x, float* y,
+                          int num_windows, int bpw, int l, int c_blk, int b,
+                          cudaStream_t stream) {
   const int limit = max_shared_bytes();
   int cc = std::min(c_blk, BT == 1 ? kChunk : kWideChunk);
   while (cc > 1 && resident_smem(l, BT, cc, sizeof(V), sizeof(I)) > (size_t)limit) --cc;
   const size_t bytes = resident_smem(l, BT, cc, sizeof(V), sizeof(I));
   if (bytes > (size_t)limit) return cudaErrorInvalidConfiguration;
-  auto kernel = gust_spmv_db_kernel<V, I, QUANT, RAGGED, BT>;
+  auto kernel = gust_spmv_db_kernel<V, I, QUANT, BT>;
   dim3 grid(num_windows, (b + BT - 1) / BT);
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, l, bytes, stream>>>(
       static_cast<const V*>(m), static_cast<const I*>(col),
-      static_cast<const I*>(row), scale, x, y, block_starts, bpw, l, c_blk, b,
-      cc);
+      static_cast<const I*>(row), scale, x, y, bpw, l, c_blk, b, cc);
   return cudaGetLastError();
-}
-
-template <typename V, typename I, bool QUANT, bool RAGGED>
-cudaError_t launch_bt(const void* m, const void* col, const void* row,
-                      const float* scale, const float* x, float* y,
-                      const int* block_starts, int num_windows, int bpw, int l,
-                      int c_blk, int b, cudaStream_t stream) {
-  if (b == 1) {
-    return launch_resident<V, I, QUANT, RAGGED, 1>(
-        m, col, row, scale, x, y, block_starts, num_windows, bpw, l, c_blk, b,
-        stream);
-  }
-  return launch_resident<V, I, QUANT, RAGGED, 8>(
-      m, col, row, scale, x, y, block_starts, num_windows, bpw, l, c_blk, b,
-      stream);
-}
-
-// vdt and idt: the dtype codes of gust::dispatch_dtypes.
-template <bool RAGGED>
-cudaError_t dispatch(const void* m, const void* col, const void* row,
-                     const float* scale, const float* x, float* y,
-                     const int* block_starts, int vdt, int idt,
-                     int num_windows, int bpw, int l, int c_blk, int b,
-                     cudaStream_t stream) {
-  if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || num_windows < 1 ||
-      (vdt == 2) != (scale != nullptr) || (RAGGED && !block_starts) ||
-      (!RAGGED && bpw < 1)) {
-    return cudaErrorInvalidValue;
-  }
-  return gust::dispatch_dtypes(vdt, idt, [&](auto v, auto i, auto q) {
-    return launch_bt<typename decltype(v)::type, typename decltype(i)::type,
-                     decltype(q)::value, RAGGED>(
-        m, col, row, scale, x, y, block_starts, num_windows, bpw, l, c_blk, b,
-        stream);
-  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Padded stream, resident x: window w owns blocks w*bpw .. (w+1)*bpw.
-// y is (W, l, b).
+// Padded stream: window w owns blocks w*bpw .. (w+1)*bpw.  y is (W, l, b).
+// vdt and idt: the dtype codes of gust::dispatch_dtypes.
 int gust_spmv_db_padded(const void* m, const void* col, const void* row,
                         const float* scale, const float* x, float* y, int vdt,
                         int idt, int num_windows, int blocks_per_window, int l,
                         int c_blk, int b, void* stream) {
-  return dispatch<false>(m, col, row, scale, x, y, nullptr, vdt, idt,
-                         num_windows, blocks_per_window, l, c_blk, b,
-                         static_cast<cudaStream_t>(stream));
+  if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || num_windows < 1 ||
+      (vdt == 2) != (scale != nullptr) || blocks_per_window < 1) {
+    return cudaErrorInvalidValue;
+  }
+  return gust::dispatch_dtypes(vdt, idt, [&](auto v, auto i, auto q) {
+    using V = typename decltype(v)::type;
+    using I = typename decltype(i)::type;
+    constexpr bool Q = decltype(q)::value;
+    auto s = static_cast<cudaStream_t>(stream);
+    if (b == 1) {
+      return launch_padded<V, I, Q, 1>(m, col, row, scale, x, y, num_windows,
+                                       blocks_per_window, l, c_blk, b, s);
+    }
+    return launch_padded<V, I, Q, 8>(m, col, row, scale, x, y, num_windows,
+                                     blocks_per_window, l, c_blk, b, s);
+  });
 }
 
-// Ragged stream, resident x: window w owns blocks block_starts[w] ..
-// block_starts[w+1].
+// Ragged stream: window w owns blocks block_starts[w] .. block_starts[w+1]
+// of the t_blk blocks.  part is a (t_blk, l, b) f32 scratch, y is (W, l, b).
 int gust_spmv_db_ragged(const void* m, const void* col, const void* row,
                         const float* scale, const float* x, float* y,
-                        const int* block_starts, int vdt, int idt,
-                        int num_windows, int l, int c_blk, int b,
+                        float* part, const int* block_starts, int vdt, int idt,
+                        int num_windows, int t_blk, int l, int c_blk, int b,
                         void* stream) {
-  return dispatch<true>(m, col, row, scale, x, y, block_starts, vdt, idt,
-                        num_windows, 0, l, c_blk, b,
-                        static_cast<cudaStream_t>(stream));
+  return spread<true, Gather::kResident, 0>(
+      m, col, row, nullptr, scale, x, y, part, block_starts, vdt, idt,
+      num_windows, t_blk, 0, l, c_blk, 0, b, stream);
+}
+
+// The launch gust_spmv_db_ragged makes: see spread_plan.
+int gust_spmv_db_plan(int vdt, int idt, int t_blk, int l, int c_blk, int b,
+                      int* out) {
+  return spread_plan<Gather::kResident, 0>(vdt, idt, t_blk, l, c_blk, b, out);
 }
 
 const char* gust_error_string(int err) {

@@ -9,7 +9,7 @@
 // with their f32/bf16 bodies (_local_kernel) and int8 bodies
 // (_local_kernel_q: value = float(q) * scale_blk[t]).
 //
-// Design: the one-stage instance of gust_local_spread.cuh (see its note),
+// Design: the one-stage instance of gust_spread.cuh (see its note),
 // the block kernel and fold of the double-buffered kernels 6/8
 // (gust_spmv_local_db.cu) with one x-tile stage.  The stream's blocks are
 // spread over a persistent grid, each block's tile written to a (T, l, B)
@@ -23,7 +23,7 @@
 // the other CTAs on its SM compute.  At l=256 a CTA takes 24 KB at B=1
 // and 48 KB at B=8, and up to 64 registers a thread: 4 CTAs per SM.
 //
-// Bound: the stream's bytes, as gust_local_spread.cuh says, plus the
+// Bound: the stream's bytes, as gust_spread.cuh says, plus the
 // scratch (partial_bytes) and the x-tile L2 re-reads (x_tile_bytes).
 // Unlike kernels 6/8, a block's tile copies are not hidden behind the block
 // before it: each block waits once for an L2 round trip.
@@ -37,7 +37,7 @@
 // instead of staging the tiles costs 15-32% at B=1 (python -m
 // repro_torch.kernels.local_db_sweep).
 
-#include "gust_local_spread.cuh"
+#include "gust_spread.cuh"
 
 extern "C" {
 
@@ -50,9 +50,9 @@ int gust_spmv_local_padded(const void* m, const void* col_loc, const void* row,
                            int idt, int num_windows, int t_blk,
                            int blocks_per_window, int l, int c_blk, int s_blk,
                            int b, void* stream) {
-  return local_spread<false, 1>(m, col_loc, row, seg_blk, scale, x, y, part,
-                                nullptr, vdt, idt, num_windows, t_blk,
-                                blocks_per_window, l, c_blk, s_blk, b, stream);
+  return spread<false, Gather::kLocal, 1>(
+      m, col_loc, row, seg_blk, scale, x, y, part, nullptr, vdt, idt,
+      num_windows, t_blk, blocks_per_window, l, c_blk, s_blk, b, stream);
 }
 
 // Ragged stream: window w owns blocks block_starts[w] .. block_starts[w+1]
@@ -63,15 +63,15 @@ int gust_spmv_local_ragged(const void* m, const void* col_loc, const void* row,
                            const int* block_starts, int vdt, int idt,
                            int num_windows, int t_blk, int l, int c_blk,
                            int s_blk, int b, void* stream) {
-  return local_spread<true, 1>(m, col_loc, row, seg_blk, scale, x, y, part,
-                               block_starts, vdt, idt, num_windows, t_blk, 0,
-                               l, c_blk, s_blk, b, stream);
+  return spread<true, Gather::kLocal, 1>(
+      m, col_loc, row, seg_blk, scale, x, y, part, block_starts, vdt, idt,
+      num_windows, t_blk, 0, l, c_blk, s_blk, b, stream);
 }
 
-// The launch either entry point makes: see local_spread_plan.
+// The launch either entry point makes: see spread_plan.
 int gust_spmv_local_plan(int vdt, int idt, int t_blk, int l, int c_blk, int b,
                          int* out) {
-  return local_spread_plan<1>(vdt, idt, t_blk, l, c_blk, b, out);
+  return spread_plan<Gather::kLocal, 1>(vdt, idt, t_blk, l, c_blk, b, out);
 }
 
 const char* gust_error_string(int err) {

@@ -8,7 +8,7 @@
 // with their f32/bf16 bodies and their int8 bodies (_q: value = float(q) *
 // scale_blk[t], scales on pack-time blocks).
 //
-// Design: the two-stage instance of gust_local_spread.cuh (see its note):
+// Design: the two-stage instance of gust_spread.cuh (see its note):
 // the stream's blocks spread over a persistent grid, each block's tile
 // written to a (T, l, B) scratch and folded per window in stream order;
 // block t+1's x tiles (up to a cap of 16 at l=256 and B=1, 2 at B=8) and
@@ -18,7 +18,7 @@
 // CTAs per SM; at B=8 its 64 KB allow 3 (the occupancy calculator's count,
 // which gust_spmv_local_db_plan returns and chip_smoke.py prints).
 //
-// Bound: the stream's bytes, as gust_local_spread.cuh says, plus the
+// Bound: the stream's bytes, as gust_spread.cuh says, plus the
 // scratch (partial_bytes) and the x-tile L2 re-reads (x_tile_bytes).
 //
 // Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W; crankseg_2 with
@@ -30,7 +30,7 @@
 // the tile staging costs 19% (python -m repro_torch.kernels.local_db_sweep):
 // what remains is the stream's loads, at about 2.5 TB/s.
 
-#include "gust_local_spread.cuh"
+#include "gust_spread.cuh"
 
 extern "C" {
 
@@ -43,9 +43,9 @@ int gust_spmv_local_db_padded(const void* m, const void* col_loc,
                               float* part, int vdt, int idt, int num_windows,
                               int t_blk, int blocks_per_window, int l,
                               int c_blk, int s_blk, int b, void* stream) {
-  return local_spread<false, 2>(m, col_loc, row, seg_blk, scale, x, y, part,
-                                nullptr, vdt, idt, num_windows, t_blk,
-                                blocks_per_window, l, c_blk, s_blk, b, stream);
+  return spread<false, Gather::kLocal, 2>(
+      m, col_loc, row, seg_blk, scale, x, y, part, nullptr, vdt, idt,
+      num_windows, t_blk, blocks_per_window, l, c_blk, s_blk, b, stream);
 }
 
 // Ragged stream: window w owns blocks block_starts[w] .. block_starts[w+1]
@@ -56,15 +56,15 @@ int gust_spmv_local_db_ragged(const void* m, const void* col_loc,
                               float* part, const int* block_starts, int vdt,
                               int idt, int num_windows, int t_blk, int l,
                               int c_blk, int s_blk, int b, void* stream) {
-  return local_spread<true, 2>(m, col_loc, row, seg_blk, scale, x, y, part,
-                               block_starts, vdt, idt, num_windows, t_blk, 0,
-                               l, c_blk, s_blk, b, stream);
+  return spread<true, Gather::kLocal, 2>(
+      m, col_loc, row, seg_blk, scale, x, y, part, block_starts, vdt, idt,
+      num_windows, t_blk, 0, l, c_blk, s_blk, b, stream);
 }
 
-// The launch either entry point makes: see local_spread_plan.
+// The launch either entry point makes: see spread_plan.
 int gust_spmv_local_db_plan(int vdt, int idt, int t_blk, int l, int c_blk,
                             int b, int* out) {
-  return local_spread_plan<2>(vdt, idt, t_blk, l, c_blk, b, out);
+  return spread_plan<Gather::kLocal, 2>(vdt, idt, t_blk, l, c_blk, b, out);
 }
 
 const char* gust_error_string(int err) {

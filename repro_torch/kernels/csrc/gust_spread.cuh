@@ -1,38 +1,46 @@
-// Segment-local GUST SpMV spread over the card: the block kernel, the
-// in-order fold, the launch plan and the dtype dispatch that the
-// single-buffered kernels 3/4 (gust_spmv_local.cu, one x-tile stage) and
-// the double-buffered kernels 6/8 (gust_spmv_local_db.cu, two stages)
-// share, templated on the number of stages.  Each source includes this
-// header once and keeps its own entry points and library.
+// GUST SpMV spread over the card: the block kernel, the in-order fold, the
+// launch plan and the dtype dispatch that kernels 1, 3, 4, 6, 7 and 8
+// share, templated on the gather and the number of x-tile stages:
+//   resident (Gather::kResident, no stage): a slot reads x[col] directly;
+//     kernel 1 (gust_spmv.cu, padded) and kernel 7 (gust_spmv_db.cu,
+//     ragged).
+//   segment-local (Gather::kLocal): a slot reads x through its block's
+//     segment table, the slot at block-local address col_loc of block t
+//     taking x[seg_blk[t, col_loc / l] * l + col_loc % l]; one x-tile
+//     stage for kernels 3/4 (gust_spmv_local.cu), two for 6/8
+//     (gust_spmv_local_db.cu).
+// Each source includes this header once and keeps its own entry points and
+// library.
 //
-// What they compute is what gust_spmv.cu computes (see its note), with x
-// read through the segment table: the slot at block-local address col_loc
-// of block t takes x[seg_blk[t, col_loc / l] * l + col_loc % l].  Kernel 1
-// sums each (c_blk, l) block cycle by cycle into a zeroed (l, B) tile
-// (products and sums rounded with the _rn intrinsics, slots whose value is 0
-// skipped), then folds the window's block tiles in stream order:
-// acc = p[t0], acc = __fadd_rn(acc, p[t]).  Both instances keep that
-// arithmetic, so on one artifact, for finite x, they equal kernels 1/2 and
-// 5/7 and each other bitwise, padded equals ragged, and at B=1 they equal
-// the plain version run on the CPU.
+// What they compute.  The stream holds blocks of c_blk cycles x l lanes;
+// in each cycle lane j carries one slot (value, column, adder row) that
+// adds value * x[column, :] into its row of the window's (l, B) output
+// tile.  Each (c_blk, l) block is summed cycle by cycle into a zeroed
+// (l, B) tile (products and sums rounded with the _rn intrinsics, slots
+// whose value is 0 skipped), then the window's block tiles are folded in
+// stream order: acc = p[t0], acc = __fadd_rn(acc, p[t]).  That is the
+// association of the one-CTA-per-window kernels 2 (gust_spmv.cu) and 5
+// (gust_spmv_db.cu), so on one artifact, for finite x, every instance
+// equals them and each other bitwise, padded equals ragged, and at B=1
+// they equal the plain version run on the CPU.
 //
 // Design.  A block's tile depends on nothing outside the block, so the
 // blocks need not run one window to a CTA.
-//   1. local_partials: a persistent grid (CTAs per SM from the occupancy
+//   1. spread_partials: a persistent grid (CTAs per SM from the occupancy
 //      calculator times the SMs, never more CTAs than blocks) in which CTA
 //      c takes the run of consecutive blocks T*c/G .. T*(c+1)/G of the
 //      whole stream, whatever their windows, and writes each block's (l, B)
-//      tile to a scratch (T, l, B) f32.  local_fold then adds each window's
-//      tiles in stream order, one thread per (window, lane, column), with
-//      exactly kernel 1's adds.  The C entry points launch both on the
-//      caller's stream.
-//   2. A ring of two seg_blk rows in shared memory is filled ahead, so the
-//      count of a block's staged tiles comes from shared memory, one warp
-//      ballot.  The staged tiles of a block are the strictly increasing
-//      prefix of its table row (the packer's rows: distinct segments
-//      ascending, then padding with segment 0, which no slot references),
-//      at most `cap` of them, copied with cp.async (16 bytes at a time where
-//      x's alignment and the tile length allow).
+//      tile to a scratch (T, l, B) f32.  spread_fold then adds each
+//      window's tiles in stream order, one thread per (window, lane,
+//      column), with exactly the adds above.  The C entry points launch
+//      both on the caller's stream.
+//   2. Local only: a ring of two seg_blk rows in shared memory is filled
+//      ahead, so the count of a block's staged tiles comes from shared
+//      memory, one warp ballot.  The staged tiles of a block are the
+//      strictly increasing prefix of its table row (the packer's rows:
+//      distinct segments ascending, then padding with segment 0, which no
+//      slot references), at most `cap` of them, copied with cp.async (16
+//      bytes at a time where x's alignment and the tile length allow).
 //        STAGES == 1: at the top of block t, once block t-1 has read its
 //        last tile, the CTA starts the copies of block t's tiles into the
 //        one stage and of block t+1's table row, then waits once and
@@ -42,11 +50,13 @@
 //        t's copies, passes one barrier and starts the copies of block
 //        t+1's tiles into the other stage and of block t+2's table row;
 //        they fly while block t computes.
-//   3. A slot whose local segment is staged reads x at
-//      tiles[col_loc * bt + k] in shared memory.  A slot past the staged
-//      tiles (past the cap, or past a prefix that a table out of order cuts
-//      short) reads seg_blk and x directly, so the result never rests on
-//      the order or the cap; it only costs a dependent read.  At B=8 a
+//   3. A local slot whose segment is staged reads x at tiles[col_loc * bt
+//      + k] in shared memory.  A local slot past the staged tiles (past the
+//      cap, or past a prefix that a table out of order cuts short) reads
+//      seg_blk and x directly, so the result never rests on the order or
+//      the cap; it only costs a dependent read.  A resident slot always
+//      reads x directly: x is read once per slot from L2 (it is 0.26 MB
+//      at B=1 on crankseg_2), and there is nothing to stage.  At B=8 a
 //      slot's x row (from the stage or from x) is read, and a block tile's
 //      row written to the scratch, 16 bytes at a time (mul_row,
 //      store_row): with one 4-byte access per column each warp access
@@ -59,25 +69,29 @@
 //      cycle no two real slots share a row), then thread j adds row j's
 //      entries cycle by cycle into its register tile and clears them.  A
 //      cycle that has no slot on a row leaves +0 there, and adding +0 to a
-//      sum that started at +0 changes no bit, so the sums are kernel 1's.
-//      The next chunk's (value, col_loc, row) slots, the next block's first
-//      ones included, are loaded into registers as soon as this chunk's
-//      products are out, before the barrier.
-// Shared memory per CTA: STAGES stages of `cap` x tiles of (l, B) f32, the
-// (kc, B, l) product buffer and the two table rows, sized from l, B and the
-// cap, never from S_blk.  A stage fills kStageBytes, so the cap is 16 tiles
-// at l=256 and B=1 and 2 at B=8 for either instance; one stage with the
-// bytes of two (4 tiles at B=8) was 11-13% slower on the card at B=8, its
-// larger CTA leaving 3 CTAs per SM instead of 4 (python -m
-// repro_torch.kernels.local_db_sweep, variant cap_x2).  kc is 8 cycles at
-// B=1, 4 at B>1.
+//      sum that started at +0 changes no bit.  The next chunk's (value,
+//      column, row) slots, the next block's first ones included, are
+//      loaded into registers as soon as this chunk's products are out,
+//      before the barrier, so they are in flight while the chunk sums.
+//      The local instances pass the second barrier at a block's top (the
+//      stage barrier of 2); the resident one after every chunk.
+// Shared memory per CTA: the (kc, B, l) product buffer; a local CTA also
+// holds STAGES stages of `cap` x tiles of (l, B) f32 and the two table
+// rows, sized from l, B and the cap, never from S_blk.  A stage fills
+// kStageBytes, so the cap is 16 tiles at l=256 and B=1 and 2 at B=8 for
+// either local instance; one stage with the bytes of two (4 tiles at B=8)
+// was 11-13% slower on the card at B=8, its larger CTA leaving 3 CTAs per
+// SM instead of 4 (python -m repro_torch.kernels.local_db_sweep, variant
+// cap_x2).  kc is 8 cycles at B=1, 4 at B>1.  A resident CTA takes 8 KB at
+// l=256 and B=1, 32 KB at B=8.
 //
-// Bound.  Memory: each stream slot read once (value + col_loc + row bytes),
-// the scales, x once, the referenced prefix of each seg_blk row, y written
-// once.  The design adds the scratch, T*l*B*4 bytes written and read again
-// (chip_smoke.py prints it as partial_bytes), and the x-tile copies, which
-// re-read x from L2 (x_tile_bytes).  One multiply and one add per slot and
-// vector column is far below the card's rate.
+// Bound.  Memory: each stream slot read once (value + column + row bytes),
+// the scales, x once (local: also the referenced prefix of each seg_blk
+// row), y written once.  The design adds the scratch, T*l*B*4 bytes
+// written and read again (chip_smoke.py prints it as partial_bytes), and
+// for the local gather the x-tile copies, which re-read x from L2
+// (x_tile_bytes).  One multiply and one add per slot and vector column is
+// far below the card's rate.
 
 #pragma once
 
@@ -95,6 +109,10 @@ using gust::cp_async_commit;
 using gust::cp_async_wait;
 using gust::load_value;
 using gust::max_shared_bytes;
+
+// Where a slot's x value comes from: x[col] (resident) or x through the
+// block's segment table (local).
+enum class Gather { kResident, kLocal };
 
 constexpr int kMaxCap = 16;             // most x tiles staged per block
 constexpr int kStageBytes = 16 * 1024;  // bytes of one x-tile stage
@@ -153,7 +171,8 @@ __device__ __forceinline__ void store_row(float* p, int bt,
   }
 }
 
-// Shared-memory layout of local_partials, in bytes.
+// Shared-memory layout of spread_partials, in bytes (a resident CTA has
+// no stage and no ring: cap == stages == 0).
 struct Smem {
   size_t stage;    // one stage: cap tiles of (l, BT) f32
   size_t contrib;  // offset of the (kc, BT, l) f32 product buffer
@@ -171,14 +190,20 @@ __host__ __device__ __forceinline__ Smem smem_layout(int l, int bt, int cc,
   return s;
 }
 
-template <typename V, typename I, bool QUANT, int BT, int STAGES>
-__global__ void __launch_bounds__(1024) local_partials(
-    const V* __restrict__ m, const I* __restrict__ col_loc,
+// cols: the resident gather's columns of x, or the local gather's
+// block-local columns (col_loc) with their table seg_blk; a resident
+// instance takes seg_blk == nullptr, s_blk == cap == 0.
+template <typename V, typename I, bool QUANT, int BT, Gather G, int STAGES>
+__global__ void __launch_bounds__(1024) spread_partials(
+    const V* __restrict__ m, const I* __restrict__ cols,
     const I* __restrict__ row, const int* __restrict__ seg_blk,
     const float* __restrict__ scale, const float* __restrict__ x,
     float* __restrict__ part, int t_blk, int l, int c_blk, int s_blk, int b,
     int cc, int cap) {
-  static_assert(STAGES == 1 || STAGES == 2, "one or two x-tile stages");
+  constexpr bool LOCAL = G == Gather::kLocal;
+  static_assert(LOCAL ? STAGES == 1 || STAGES == 2 : STAGES == 0,
+                "one or two x-tile stages for the local gather, none for "
+                "the resident one");
   constexpr int KC = chunk_cycles<BT>();
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem lay = smem_layout(l, BT, cc, cap, STAGES);
@@ -250,16 +275,18 @@ __global__ void __launch_bounds__(1024) local_partials(
     for (int i = 0; i < KC; ++i) {
       if (i < ncc) {
         v[i] = m[base + (size_t)i * l];
-        cl[i] = col_loc[base + (size_t)i * l];
+        cl[i] = cols[base + (size_t)i * l];
         rw[i] = row[base + (size_t)i * l];
       }
     }
   };
 
   for (int e = j; e < cc * BT * l; e += nt) contrib[e] = 0.f;
-  fetch_row(ta, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if constexpr (LOCAL) {
+    fetch_row(ta, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
   __syncthreads();
   int n_cur = 0, n_next = 0;
   if (STAGES == 2) {
@@ -276,23 +303,25 @@ __global__ void __launch_bounds__(1024) local_partials(
   while (t < tb) {
     const int slot = (t - ta) & 1;
     if (ci == 0) {
-      if (STAGES == 1) {
-        // the stage is free: block t-1 read its last tile before its last
-        // chunk's product barrier
-        n_cur = staged(slot);
-        fetch_tiles(slot, n_cur);
-        if (t + 1 < tb) fetch_row(t + 1, slot ^ 1);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // block t's tiles and row t+1 are in; block t-1 is done
-      if (STAGES == 2) {
-        if (t + 1 < tb) {
-          n_next = staged(slot ^ 1);
-          fetch_tiles(slot ^ 1, n_next);
-          if (t + 2 < tb) fetch_row(t + 2, slot);
+      if constexpr (LOCAL) {
+        if (STAGES == 1) {
+          // the stage is free: block t-1 read its last tile before its last
+          // chunk's product barrier
+          n_cur = staged(slot);
+          fetch_tiles(slot, n_cur);
+          if (t + 1 < tb) fetch_row(t + 1, slot ^ 1);
+          cp_async_commit();
         }
-        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();  // block t's tiles and row t+1 are in; block t-1 is done
+        if (STAGES == 2) {
+          if (t + 1 < tb) {
+            n_next = staged(slot ^ 1);
+            fetch_tiles(slot ^ 1, n_next);
+            if (t + 2 < tb) fetch_row(t + 2, slot);
+          }
+          cp_async_commit();
+        }
       }
 #pragma unroll
       for (int k = 0; k < BT; ++k) acc[k] = 0.f;
@@ -308,7 +337,9 @@ __global__ void __launch_bounds__(1024) local_partials(
         if (val != 0.f) {
           const int c = static_cast<int>(cl[i]);
           float* dst = contrib + (size_t)i * BT * l + static_cast<int>(rw[i]);
-          if (c < lim) {
+          if constexpr (!LOCAL) {
+            mul_row<BT, true>(dst, l, val, x + (size_t)c * b + b0, bt);
+          } else if (c < lim) {
             mul_row<BT, false>(dst, l, val, tiles + c * bt, bt);
           } else {
             const int seg = seg_blk[(size_t)t * s_blk + c / l];
@@ -339,6 +370,9 @@ __global__ void __launch_bounds__(1024) local_partials(
       if (STAGES == 2) n_cur = n_next;
       ci = 0;
       ++t;
+      // resident: no block-top barrier, so the next block's first chunk
+      // waits here for the cleared buffer
+      if (!LOCAL && t < tb) __syncthreads();
     } else {
       ++ci;
       __syncthreads();  // the next chunk writes into the cleared buffer
@@ -347,10 +381,10 @@ __global__ void __launch_bounds__(1024) local_partials(
 }
 
 // y[w, j, c] = the stream-order sum of window w's block tiles part[t, j, c]:
-// acc = p[t0], then acc = __fadd_rn(acc, p[t]), as kernel 1 folds; 0 for a
-// window with no block.
+// acc = p[t0], then acc = __fadd_rn(acc, p[t]); 0 for a window with no
+// block.
 template <bool RAGGED>
-__global__ void __launch_bounds__(kFoldThreads) local_fold(
+__global__ void __launch_bounds__(kFoldThreads) spread_fold(
     const float* __restrict__ part, float* __restrict__ y,
     const int* __restrict__ block_starts, int bpw, int num_windows, int l,
     int b) {
@@ -377,22 +411,24 @@ __global__ void __launch_bounds__(kFoldThreads) local_fold(
   y[e] = acc;
 }
 
-// The launch of local_partials for one stream: chunk height, stage cap,
+// The launch of spread_partials for one stream: chunk height, stage cap,
 // shared memory, CTAs per SM and grid.
 struct Plan {
   int cc, cap, ctas_per_sm, grid_x, grid_y;
   size_t smem;
 };
 
-template <typename V, typename I, bool QUANT, int BT, int STAGES>
+template <typename V, typename I, bool QUANT, int BT, Gather G, int STAGES>
 cudaError_t plan_partials(int t_blk, int l, int c_blk, int b, Plan& p) {
   const size_t limit = max_shared_bytes();
   p.cc = std::min(c_blk, chunk_cycles<BT>());
-  p.cap = std::max(1, std::min(kMaxCap, kStageBytes / (l * BT * 4)));
+  p.cap = G == Gather::kResident
+              ? 0
+              : std::max(1, std::min(kMaxCap, kStageBytes / (l * BT * 4)));
   while (p.cc > 1 && smem_layout(l, BT, p.cc, p.cap, STAGES).total > limit) --p.cc;
   p.smem = smem_layout(l, BT, p.cc, p.cap, STAGES).total;
   if (p.smem > limit) return cudaErrorInvalidConfiguration;
-  auto kernel = local_partials<V, I, QUANT, BT, STAGES>;
+  auto kernel = spread_partials<V, I, QUANT, BT, G, STAGES>;
   cudaError_t err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.ctas_per_sm, kernel,
@@ -411,25 +447,26 @@ cudaError_t plan_partials(int t_blk, int l, int c_blk, int b, Plan& p) {
   return cudaSuccess;
 }
 
-template <typename V, typename I, bool QUANT, bool RAGGED, int BT, int STAGES>
-cudaError_t launch(const void* m, const void* col_loc, const void* row,
+template <typename V, typename I, bool QUANT, bool RAGGED, int BT, Gather G,
+          int STAGES>
+cudaError_t launch(const void* m, const void* cols, const void* row,
                    const int* seg_blk, const float* scale, const float* x,
                    float* y, float* part, const int* block_starts,
                    int num_windows, int t_blk, int bpw, int l, int c_blk,
                    int s_blk, int b, cudaStream_t stream) {
   Plan p;
   cudaError_t err =
-      plan_partials<V, I, QUANT, BT, STAGES>(t_blk, l, c_blk, b, p);
+      plan_partials<V, I, QUANT, BT, G, STAGES>(t_blk, l, c_blk, b, p);
   if (err != cudaSuccess) return err;
-  local_partials<V, I, QUANT, BT, STAGES>
+  spread_partials<V, I, QUANT, BT, G, STAGES>
       <<<dim3(p.grid_x, p.grid_y), l, p.smem, stream>>>(
-          static_cast<const V*>(m), static_cast<const I*>(col_loc),
+          static_cast<const V*>(m), static_cast<const I*>(cols),
           static_cast<const I*>(row), seg_blk, scale, x, part, t_blk, l, c_blk,
           s_blk, b, p.cc, p.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n = (size_t)num_windows * l * b;
-  local_fold<RAGGED>
+  spread_fold<RAGGED>
       <<<(unsigned)((n + kFoldThreads - 1) / kFoldThreads), kFoldThreads, 0,
          stream>>>(part, y, block_starts, bpw, num_windows, l, b);
   return cudaGetLastError();
@@ -437,18 +474,19 @@ cudaError_t launch(const void* m, const void* col_loc, const void* row,
 
 // Padded (RAGGED false: window w owns blocks w*bpw .. (w+1)*bpw) or ragged
 // (window w owns blocks block_starts[w] .. block_starts[w+1]) stream of
-// t_blk blocks; part is a (t_blk, l, b) f32 scratch, y is (W, l, b).  vdt
-// and idt: the dtype codes of gust::dispatch_dtypes.
-template <bool RAGGED, int STAGES>
-cudaError_t local_spread(const void* m, const void* col_loc, const void* row,
-                         const int* seg_blk, const float* scale,
-                         const float* x, float* y, float* part,
-                         const int* block_starts, int vdt, int idt,
-                         int num_windows, int t_blk, int bpw, int l, int c_blk,
-                         int s_blk, int b, void* stream) {
+// t_blk blocks; part is a (t_blk, l, b) f32 scratch, y is (W, l, b).
+// seg_blk and s_blk: the local gather's table (nullptr and 0 for the
+// resident one).  vdt and idt: the dtype codes of gust::dispatch_dtypes.
+template <bool RAGGED, Gather G, int STAGES>
+cudaError_t spread(const void* m, const void* cols, const void* row,
+                   const int* seg_blk, const float* scale, const float* x,
+                   float* y, float* part, const int* block_starts, int vdt,
+                   int idt, int num_windows, int t_blk, int bpw, int l,
+                   int c_blk, int s_blk, int b, void* stream) {
   if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || num_windows < 1 ||
-      t_blk < 1 || s_blk < 1 || !seg_blk || !part ||
-      (vdt == 2) != (scale != nullptr) || (RAGGED && !block_starts) ||
+      t_blk < 1 || !part || (vdt == 2) != (scale != nullptr) ||
+      (G == Gather::kLocal && (s_blk < 1 || !seg_blk)) ||
+      (RAGGED && !block_starts) ||
       (!RAGGED && (bpw < 1 || (long long)bpw * num_windows != t_blk))) {
     return cudaErrorInvalidValue;
   }
@@ -458,22 +496,23 @@ cudaError_t local_spread(const void* m, const void* col_loc, const void* row,
     using I = typename decltype(i)::type;
     constexpr bool Q = decltype(q)::value;
     if (b == 1) {
-      return launch<V, I, Q, RAGGED, 1, STAGES>(
-          m, col_loc, row, seg_blk, scale, x, y, part, block_starts,
+      return launch<V, I, Q, RAGGED, 1, G, STAGES>(
+          m, cols, row, seg_blk, scale, x, y, part, block_starts,
           num_windows, t_blk, bpw, l, c_blk, s_blk, b, s);
     }
-    return launch<V, I, Q, RAGGED, 8, STAGES>(
-        m, col_loc, row, seg_blk, scale, x, y, part, block_starts, num_windows,
+    return launch<V, I, Q, RAGGED, 8, G, STAGES>(
+        m, cols, row, seg_blk, scale, x, y, part, block_starts, num_windows,
         t_blk, bpw, l, c_blk, s_blk, b, s);
   });
 }
 
-// The launch local_spread makes for t_blk blocks of a stream with these
-// dtypes and l, c_blk, b on the current device: out[0..5] = CTAs per SM,
-// grid x, grid y, shared bytes per CTA, stage cap (tiles), cycles per chunk.
-template <int STAGES>
-cudaError_t local_spread_plan(int vdt, int idt, int t_blk, int l, int c_blk,
-                              int b, int* out) {
+// The launch spread makes for t_blk blocks of a stream with these dtypes
+// and l, c_blk, b on the current device: out[0..5] = CTAs per SM, grid x,
+// grid y, shared bytes per CTA, stage cap (tiles; 0 for the resident
+// gather), cycles per chunk.
+template <Gather G, int STAGES>
+cudaError_t spread_plan(int vdt, int idt, int t_blk, int l, int c_blk, int b,
+                        int* out) {
   if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || t_blk < 1 || !out) {
     return cudaErrorInvalidValue;
   }
@@ -483,8 +522,8 @@ cudaError_t local_spread_plan(int vdt, int idt, int t_blk, int l, int c_blk,
     constexpr bool Q = decltype(q)::value;
     Plan p;
     cudaError_t err =
-        b == 1 ? plan_partials<V, I, Q, 1, STAGES>(t_blk, l, c_blk, b, p)
-               : plan_partials<V, I, Q, 8, STAGES>(t_blk, l, c_blk, b, p);
+        b == 1 ? plan_partials<V, I, Q, 1, G, STAGES>(t_blk, l, c_blk, b, p)
+               : plan_partials<V, I, Q, 8, G, STAGES>(t_blk, l, c_blk, b, p);
     if (err == cudaSuccess) {
       const int vals[6] = {p.ctas_per_sm, p.grid_x, p.grid_y, (int)p.smem,
                            p.cap, p.cc};

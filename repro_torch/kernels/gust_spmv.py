@@ -4,22 +4,23 @@
   ``repro.kernels.gust_spmv.make_gust_spmv`` (and its int8 body
   ``_kernel_q``): per ``(c_blk, l)`` block of the padded stream, gather
   ``x[col]``, multiply by the value, and add into the window's ``(l, B)``
-  tile.
+  tile.  The blocks are spread over the card's CTAs and each window's
+  block tiles folded in stream order by a second kernel.
 * :func:`gust_spmv_local` (``csrc/gust_spmv_local.cu``) replaces
   ``make_gust_spmv_local``: x read through the pack-time segment table,
   each block's tiles staged in shared memory at the block's own top
-  (single-buffered); the blocks are spread over the card's CTAs and each
-  window's block tiles folded in stream order by a second kernel.
+  (single-buffered), spread and folded as :func:`gust_spmv`.
 * :func:`gust_spmv_db` (``csrc/gust_spmv_db.cu``) replaces
   ``make_gust_spmv_db``: the same product with the stream copied into
-  shared memory ahead of use (double-buffered).
+  shared memory ahead of use (double-buffered), one CTA per window.
 * :func:`gust_spmv_local_db` (``csrc/gust_spmv_local_db.cu``) replaces
   ``make_gust_spmv_local_db``: x read through the pack-time segment
-  table, each block's tiles staged one block ahead; the blocks are spread
-  over the card's CTAs and each window's block tiles folded in stream
-  order by a second kernel, as for :func:`gust_spmv_local`
-  (``csrc/gust_local_spread.cuh`` holds the code of both).
-  :func:`local_launch_plan` reports the launch either makes.
+  table, each block's tiles staged one block ahead, spread and folded as
+  :func:`gust_spmv`.
+
+``csrc/gust_spread.cuh`` holds the code of every kernel here but
+:func:`gust_spmv_db`'s, and of every ragged one but ``gust_spmv_ragged``'s;
+:func:`spread_launch_plan` reports the launch each of them makes.
 
 All are bound by memory: each stream slot is read once (value + 2 index
 bytes), plus the scales, x once (local: also the referenced prefix of
@@ -45,7 +46,7 @@ __all__ = [
     "gust_spmv_local",
     "gust_spmv_db",
     "gust_spmv_local_db",
-    "local_launch_plan",
+    "spread_launch_plan",
 ]
 
 #: Kernel launches made by :func:`gust_spmv` in this process.
@@ -244,7 +245,7 @@ def gust_spmv(
     y = run_kernel(
         "gust_spmv", "gust_spmv_padded", m_blocks, col_blocks, row_blocks,
         x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
-        scale_blk=scale_blk, blocks=bpw,
+        scale_blk=scale_blk, blocks=bpw, partials=True,
     )
     launches += 1
     return y
@@ -341,38 +342,49 @@ def gust_spmv_local_db(
     return y
 
 
-#: The library of the segment-local kernels of each pipeline.
-_LOCAL_LIBS = {"single": "gust_spmv_local", "double": "gust_spmv_local_db"}
+#: The library of the spread kernels of each (gather, pipeline): kernel 1,
+#: 7 (the resident ones; either layout's entry point reads this plan), 3/4
+#: and 6/8.
+_SPREAD_LIBS = {
+    ("resident", "single"): "gust_spmv",
+    ("resident", "double"): "gust_spmv_db",
+    ("local", "single"): "gust_spmv_local",
+    ("local", "double"): "gust_spmv_local_db",
+}
 
 
-def local_launch_plan(
+def spread_launch_plan(
     m_blocks: torch.Tensor,  # (T_blk*c_blk, l) values on the card
-    col_loc: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 block-local columns
+    cols: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 columns or col_loc
     x_padded: torch.Tensor,  # (S*l, B) float32
     *,
     l: int,
     c_blk: int,
-    pipeline: str,  # "single" (kernels 3/4) or "double" (kernels 6/8)
+    gather: str,  # "resident" or "local"
+    pipeline: str,  # "single" or "double"
 ) -> dict:
-    """The launch the segment-local kernels of ``pipeline`` make for this
+    """The launch the spread kernel of ``(gather, pipeline)`` makes for this
     stream on its card (either layout: the block kernel sees only the
     stream): CTAs per SM (from the occupancy calculator), the grid of the
     block kernel, its shared bytes per CTA, the x tiles staged per block
-    and the cycles per chunk, and ``partial_bytes``, the size of the
-    scratch of block tiles."""
+    (0 for the resident gather) and the cycles per chunk, and
+    ``partial_bytes``, the size of the scratch of block tiles."""
     import ctypes
 
     from ._build import load
 
-    if pipeline not in _LOCAL_LIBS:
-        raise ValueError(f"pipeline must be one of {sorted(_LOCAL_LIBS)}, got {pipeline!r}")
-    name = _LOCAL_LIBS[pipeline]
+    if (gather, pipeline) not in _SPREAD_LIBS:
+        raise ValueError(
+            f"(gather, pipeline) must be one of {sorted(_SPREAD_LIBS)}, got "
+            f"{(gather, pipeline)!r}"
+        )
+    name = _SPREAD_LIBS[gather, pipeline]
     b, t_blk = x_padded.shape[1], m_blocks.shape[0] // c_blk
     out = (ctypes.c_int * 6)()
     lib = load(name)
     with torch.cuda.device(m_blocks.device):
         err = getattr(lib, f"{name}_plan")(
-            _VALUE_CODES[m_blocks.dtype], _INDEX_CODES[col_loc.dtype], t_blk, l,
+            _VALUE_CODES[m_blocks.dtype], _INDEX_CODES[cols.dtype], t_blk, l,
             c_blk, b, out,
         )
     if err != 0:

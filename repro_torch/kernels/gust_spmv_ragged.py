@@ -11,18 +11,20 @@
   top (single-buffered), the blocks spread over the card's CTAs and each
   window's block tiles folded in stream order by a second kernel.
 * :func:`gust_spmv_ragged_db` (``csrc/gust_spmv_db.cu``) replaces
-  ``make_gust_spmv_ragged_db``: the same product with the stream copied
-  into shared memory ahead of use (double-buffered).
+  ``make_gust_spmv_ragged_db``: the same product with the next chunk of
+  the stream loaded while this one computes (double-buffered), the
+  blocks spread over the card's CTAs and each window's block tiles
+  folded in stream order by a second kernel.
 * :func:`gust_spmv_ragged_local_db` (``csrc/gust_spmv_local_db.cu``)
   replaces ``make_gust_spmv_ragged_local_db``: x read through the
   pack-time segment table, each block's tiles staged one block ahead,
   the blocks spread over the card's CTAs and each window's block tiles
   folded in stream order by a second kernel.
 
-The resident kernels give each window one CTA that walks exactly its
-block range; the segment-local ones fold each window's block range from
-their scratch.  Each needs ``block_starts``, none ``block_window``, and
-none uses atomics.  Bound by memory, as the padded kernels, at the
+:func:`gust_spmv_ragged` gives each window one CTA that walks exactly its
+block range; the others (``csrc/gust_spread.cuh``) fold each window's
+block range from their scratch.  Each needs ``block_starts``, none
+``block_window``, and none uses atomics.  Bound by memory, as the padded kernels, at the
 card's 3.35 TB/s.
 
 On a CPU tensor a wrapper runs the plain version
@@ -144,7 +146,7 @@ def gust_spmv_ragged_db(
     y = run_kernel(
         "gust_spmv_db", "gust_spmv_db_ragged", m_blocks, col_blocks,
         row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
-        scale_blk=scale_blk, blocks=block_starts,
+        scale_blk=scale_blk, blocks=block_starts, partials=True,
     )
     db_launches += 1
     return y

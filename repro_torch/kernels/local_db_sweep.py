@@ -1,50 +1,71 @@
-"""Time kernels 3/4 and 6/8 against variants of their shared source, and
-split their time.
+"""Time the kernels of the spread template against the designs they
+replaced and against variants of its source, and split their time.
 
-    python -m repro_torch.kernels.local_db_sweep [--iters 20]
+    python -m repro_torch.kernels.local_db_sweep [--iters 20] [--parent DIR]
 
-Kernels 3/4 (``csrc/gust_spmv_local.cu``, one x-tile stage) and 6/8
-(``csrc/gust_spmv_local_db.cu``, two) are instances of one template,
-``csrc/gust_local_spread.cuh``.  The script builds variants of that
-header, made by editing its text (each edit must apply, or the script
-stops), each with the sources of the pipelines it names, into
-``build/kernels/sweep_local_db/``.  Then on crankseg_2 at its published
-size (``load_balance=False``, ``l=256, c_blk=8``, both layouts; f32 and
-int8 at B=1 and B=8) it times with CUDA events (mean of ``--iters``
-after 2 warm-ups) kernels 5/7, and for each pipeline the kept kernel and
-each of its variants, the kept kernel twice (first and last) for the
-spread between calls.
+Kernels 1 (``csrc/gust_spmv.cu``) and 7 (``csrc/gust_spmv_db.cu``), the
+resident instance, and kernels 3/4 (``csrc/gust_spmv_local.cu``, one
+x-tile stage) and 6/8 (``csrc/gust_spmv_local_db.cu``, two), the
+segment-local ones, are instances of one template,
+``csrc/gust_spread.cuh``.  The script builds variants of that header,
+made by editing its text (each edit must apply, or the script stops),
+each with the sources of the libraries it names, into
+``build/kernels/sweep_local_db/``.  With ``--parent DIR``, a checkout of
+another commit (for example the parent's ``git archive`` unpacked under
+``build/``, which the copy to the card keeps), it also builds that
+checkout's sources of the same four libraries, so that its design of
+kernels 1/7 and 3/4/6/8 is timed beside this one on the same card.
 
-* Design variants, each held bitwise to kernel 1/2: ``cap_x2`` (kernels
-  3/4's one stage with the bytes of 6/8's two: 4 tiles at B=8 instead of
-  2, and 3 CTAs per SM instead of 4), ``serial_count`` (a
-  block's staged tiles counted by a serial scan of its table row, not a
-  warp ballot), ``regs_x2`` (a second set of slot registers, loaded
-  before the products instead of after them), ``prefetch_l2_2`` (a
-  ``prefetch.global.L2`` of the stream two blocks ahead), ``fold16`` (16
-  loads in flight in the fold, not 8), ``scalar_out`` / ``scalar_x`` /
-  ``scalar_tiles`` / ``scalar_rows`` (at B=8, a block tile's row written
-  to the scratch, a slot's x row read from x, from the staged tile, or
-  all three, 4 bytes at a time instead of 16).
+On crankseg_2 at its published size (``l=256, c_blk=8``, both layouts;
+f32 and int8 at B=1 and B=8) it times with CUDA events (mean of
+``--iters`` after 2 warm-ups):
+
+* on both schedules, kernel 1 (padded) or 7 (ragged), the
+  one-CTA-per-window kernel of the same layout that stays in the tree
+  (5 padded, 2 ragged), and the parent's kernel 1 or 7; on the padded
+  rows the variants built for kernel 1;
+* on the unbalanced schedule (where the default plan resolves the
+  segment-local gather), kernels 3/4 and 6/8, their variants and the
+  parent's builds.
+
+Each kept spread kernel and each parent kernel is timed again at the end
+of its row, for the spread between calls, and each kept spread kernel is
+split into its two kernels with ``torch.profiler`` (``spread_partials``,
+the block kernel, and ``spread_fold``).  Every kernel, and every variant
+marked bitwise, must equal kernel 5 / 2 bitwise on the same artifact.
+
+* Design variants: ``cap_x2`` (kernels 3/4's one stage with the bytes of
+  6/8's two: 4 tiles at B=8 instead of 2, and 3 CTAs per SM instead of
+  4), ``serial_count`` (a block's staged tiles counted by a serial scan
+  of its table row, not a warp ballot), ``regs_x2`` (a second set of slot
+  registers, loaded before the products instead of after them),
+  ``prefetch_l2_2`` (a ``prefetch.global.L2`` of the stream two blocks
+  ahead), ``fold16`` (16 loads in flight in the fold, not 8),
+  ``ctas_cap5`` (at most 5 CTAs per SM, where the occupancy calculator
+  allows kernel 1 six at f32 B=1),
+  ``scalar_out`` / ``scalar_x`` / ``scalar_tiles`` / ``scalar_rows`` (at
+  B=8, a block tile's row written to the scratch, a local slot's x row
+  read from x, from the staged tile, or all rows, 4 bytes at a time
+  instead of 16).
 * Diagnostics, wrong on purpose and timed only: ``diag_no_scratch``
   (block tiles not written), ``diag_no_tiles`` (nothing staged: every
-  slot reads x directly), ``diag_no_products`` (stream loads only).
+  local slot reads x directly), ``diag_no_products`` (stream loads only).
 
-It also splits each kept kernel's time into its two kernels with
-``torch.profiler`` (``local_partials``, the block kernel, and
-``local_fold``).  Needs a CUDA card; prints one JSON object per row and
-writes all of them to ``chiprun_out/local_db_sweep.json``.
+Needs a CUDA card; prints one JSON object per row and writes all of them
+to ``chiprun_out/local_db_sweep.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -53,12 +74,24 @@ from . import _build
 from . import gust_spmv as k_pad
 from . import gust_spmv_ragged as k_rag
 from .chunk_sweep import _ms
+from .gust_spmv import run_kernel, spread_launch_plan
 
 L, C_BLK = 256, 8
-#: The template both pipelines' sources include; the variants edit it.
-HEADER = "gust_local_spread.cuh"
-#: pipeline -> library (kernels 3/4, kernels 6/8).
+#: The template every spread kernel's source includes; the variants edit it.
+HEADER = "gust_spread.cuh"
+#: pipeline -> library of the segment-local kernels (3/4, 6/8).
 LIBS = {"single": "gust_spmv_local", "double": "gust_spmv_local_db"}
+#: The entry points of the parent's libraries that the sweep calls, with
+#: the argtypes of the one-CTA-per-window kernels 1 and 7 (no scratch);
+#: its segment-local entry points take what this tree's do.
+PARENT_SIGNATURES = {
+    "gust_spmv": {"gust_spmv_padded": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                  + [ctypes.c_void_p]},
+    "gust_spmv_db": {"gust_spmv_db_ragged": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p]},
+    **{lib: {f"{lib}_{layout}": _build.SIGNATURES[lib][f"{lib}_{layout}"]
+             for layout in ("padded", "ragged")} for lib in LIBS.values()},
+}
 
 _CAP_X2 = [("kStageBytes / (l * BT * 4)", "2 * kStageBytes / (l * BT * 4)")]
 _SERIAL_COUNT = [(
@@ -76,7 +109,7 @@ _REGS_X2 = [
   float s = 1.f, ns = 1.f;"""),
     ("if (QUANT) s = scale[t];", "if (QUANT) ns = scale[t];"),
     ("        v[i] = m[base", "        nv[i] = m[base"),
-    ("        cl[i] = col_loc[base", "        ncl[i] = col_loc[base"),
+    ("        cl[i] = cols[base", "        ncl[i] = cols[base"),
     ("        rw[i] = row[base", "        nrw[i] = row[base"),
     ("""    const int lim = n_cur * l;
 """, """    const int lim = n_cur * l;
@@ -99,7 +132,7 @@ _PREFETCH_L2_2 = [
       for (int k = 0; k < BT; ++k) acc[k] = 0.f;""", """      if (t + 2 < tb) {
         const size_t f = (size_t)(t + 2) * c_blk * l, n = (size_t)c_blk * l;
         const char* leaf[3] = {reinterpret_cast<const char*>(m + f),
-                               reinterpret_cast<const char*>(col_loc + f),
+                               reinterpret_cast<const char*>(cols + f),
                                reinterpret_cast<const char*>(row + f)};
         const size_t bytes[3] = {n * sizeof(V), n * sizeof(I), n * sizeof(I)};
         for (int q = 0; q < 3; ++q) {
@@ -128,18 +161,22 @@ _NO_SCRATCH = [("      store_row<BT>(part + ((size_t)t * l + j) * b + b0, bt, ac
                 """      if (acc[0] != acc[0])
         store_row<BT>(part + ((size_t)t * l + j) * b + b0, bt, acc);""")]
 _NO_TILES = [
-    ("""          n_next = staged(slot ^ 1);
-          fetch_tiles(slot ^ 1, n_next);""", "          n_next = 0;"),
+    ("""            n_next = staged(slot ^ 1);
+            fetch_tiles(slot ^ 1, n_next);""", "            n_next = 0;"),
     ("""    n_cur = staged(0);
     fetch_tiles(0, n_cur);""", "    n_cur = 0;"),
-    ("""        n_cur = staged(slot);
-        fetch_tiles(slot, n_cur);""", "        n_cur = 0;"),
+    ("""          n_cur = staged(slot);
+          fetch_tiles(slot, n_cur);""", "          n_cur = 0;"),
 ]
 _NO_PRODUCTS = [("""        const float val = load_value<QUANT>(v[i], s);
         if (val != 0.f) {""", """        const float val = load_value<QUANT>(v[i], s);
         if (val == 12345.f && static_cast<int>(cl[i]) == 7 &&
             static_cast<int>(rw[i]) == 3) {""")]
 
+_CTAS_CAP5 = [("""  if (p.ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
+""", """  if (p.ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
+  p.ctas_per_sm = std::min(p.ctas_per_sm, 5);
+""")]
 _SCALAR_ROWS = [("if constexpr (BT % 4 == 0)", "if constexpr (BT < 0)")]
 _SCALAR_OUT = [(
     "      store_row<BT>(part + ((size_t)t * l + j) * b + b0, bt, acc);",
@@ -161,21 +198,23 @@ _SCALAR_TILES = [(
             for (int k = 0; k < BT; ++k) {
               if (k < bt) dst[k * l] = __fmul_rn(val, tiles[c * bt + k]);
             }""")]
-BOTH = tuple(LIBS)
-#: name -> (text edits of HEADER, bitwise-checked, pipelines built)
+LOCAL = tuple(LIBS.values())
+#: name -> (text edits of HEADER, bitwise-checked, libraries built); a
+#: variant built for gust_spmv runs as kernel 1.
 VARIANTS = {
-    "cap_x2": (_CAP_X2, True, ("single",)),
-    "serial_count": (_SERIAL_COUNT, True, ("double",)),
-    "regs_x2": (_REGS_X2, True, ("double",)),
-    "prefetch_l2_2": (_PREFETCH_L2_2, True, BOTH),
-    "fold16": (_FOLD16, True, ("double",)),
-    "scalar_rows": (_SCALAR_ROWS, True, BOTH),
-    "scalar_out": (_SCALAR_OUT, True, BOTH),
-    "scalar_x": (_SCALAR_X, True, BOTH),
-    "scalar_tiles": (_SCALAR_TILES, True, BOTH),
-    "diag_no_scratch": (_NO_SCRATCH, False, BOTH),
-    "diag_no_tiles": (_NO_TILES, False, BOTH),
-    "diag_no_products": (_NO_PRODUCTS, False, BOTH),
+    "cap_x2": (_CAP_X2, True, ("gust_spmv_local",)),
+    "serial_count": (_SERIAL_COUNT, True, ("gust_spmv_local_db",)),
+    "regs_x2": (_REGS_X2, True, ("gust_spmv_local_db",)),
+    "prefetch_l2_2": (_PREFETCH_L2_2, True, LOCAL),
+    "fold16": (_FOLD16, True, ("gust_spmv", "gust_spmv_local_db")),
+    "ctas_cap5": (_CTAS_CAP5, True, ("gust_spmv",)),
+    "scalar_rows": (_SCALAR_ROWS, True, ("gust_spmv",) + LOCAL),
+    "scalar_out": (_SCALAR_OUT, True, LOCAL),
+    "scalar_x": (_SCALAR_X, True, LOCAL),
+    "scalar_tiles": (_SCALAR_TILES, True, LOCAL),
+    "diag_no_scratch": (_NO_SCRATCH, False, ("gust_spmv",) + LOCAL),
+    "diag_no_tiles": (_NO_TILES, False, LOCAL),
+    "diag_no_products": (_NO_PRODUCTS, False, ("gust_spmv",) + LOCAL),
 }
 
 
@@ -189,32 +228,52 @@ def edited_header(edits) -> str:
     return text
 
 
-def _build_variants():
-    """(name, pipeline) -> (ctypes library, ptxas lines with spills) of each
-    variant: the pipeline's source beside the edited header (a quoted
-    include finds it first), ``csrc/`` for the other headers."""
+def _spills(log):
+    return [ln.strip() for ln in log.splitlines()
+            if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+
+
+def _build_variants(parent):
+    """(name, library) -> (ctypes library, ptxas lines with spills) of each
+    variant (the library's source beside the edited header: a quoted
+    include finds it first; ``csrc/`` for the other headers), and with
+    ``parent`` (a checkout's root) ``("parent", library)`` for that
+    checkout's builds of kernels 1/7 and 3/4/6/8."""
     out_dir = _build.BUILD_DIR / "sweep_local_db"
-    procs = {}
-    for name, (edits, _, pipelines) in VARIANTS.items():
+    jobs = {}
+    for name, (edits, _, libs) in VARIANTS.items():
         vdir = out_dir / name
         vdir.mkdir(parents=True, exist_ok=True)
         (vdir / HEADER).write_text(edited_header(edits))
-        for pipeline in pipelines:
-            lib = LIBS[pipeline]
-            cu, so = vdir / _build.SOURCES[lib], vdir / f"lib{lib}.so"
+        for lib in libs:
+            cu = vdir / _build.SOURCES[lib]
             shutil.copyfile(_build.CSRC / _build.SOURCES[lib], cu)
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
-                   str(cu)]
-            procs[name, pipeline] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+            jobs[name, lib] = (cu, vdir / f"lib{lib}.so", ["-I", str(_build.CSRC)])
+    if parent is not None:
+        vdir = out_dir / "parent"
+        vdir.mkdir(parents=True, exist_ok=True)
+        csrc = Path(parent).resolve() / "repro_torch" / "kernels" / "csrc"
+        for lib in PARENT_SIGNATURES:
+            jobs["parent", lib] = (csrc / _build.SOURCES[lib], vdir / f"lib{lib}.so", [])
+    procs = {key: (subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *inc, "-o", str(so), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+        for key, (cu, so, inc) in jobs.items()}
     libs = {}
-    for (name, pipeline), (proc, so) in procs.items():
+    for (name, lib), (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name} ({pipeline}):\n{log}")
-        spills = [ln.strip() for ln in log.splitlines()
-                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-        libs[name, pipeline] = (_build.bind(so, LIBS[pipeline]), spills)
+            raise RuntimeError(f"nvcc failed for variant {name} ({lib}):\n{log}")
+        if name == "parent":
+            bound = ctypes.CDLL(str(so))
+            for fn, argtypes in PARENT_SIGNATURES[lib].items():
+                getattr(bound, fn).argtypes = argtypes
+                getattr(bound, fn).restype = ctypes.c_int
+            bound.gust_error_string.argtypes = [ctypes.c_int]
+            bound.gust_error_string.restype = ctypes.c_char_p
+        else:
+            bound = _build.bind(so, lib)
+        libs[name, lib] = (bound, _spills(log))
     return libs
 
 
@@ -222,13 +281,15 @@ def _profile_split(fn):
     """Device microseconds per call of the two kernels of one call."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
             fn()
         torch.cuda.synchronize()
     split = {}
     for evt in prof.key_averages():
-        for tag in ("local_partials", "local_fold"):
+        for tag in ("spread_partials", "spread_fold"):
             if tag in evt.key:
                 total = getattr(evt, "device_time_total", None)
                 if total is None:
@@ -237,9 +298,55 @@ def _profile_split(fn):
     return split
 
 
+def _swapped(lib, bound, fn):
+    """Call ``fn`` with library ``lib`` bound to ``bound``."""
+    kept = _build.load(lib)
+    _build._LIBS[lib] = bound
+    try:
+        return fn()
+    finally:
+        _build._LIBS[lib] = kept
+
+
+def _kernels(art, xp, kw):
+    """name -> (library, wrapper call) of the kernels timed on ``art``:
+    ``resident`` (kernel 1 or 7), ``old`` (5 or 2), ``single`` / ``double``
+    (3/4, 6/8), and ``parent`` (the parent's kernel 1 or 7, called through
+    its own entry point, without a scratch)."""
+    if hasattr(art, "block_starts"):
+        blocks = (art.block_window, art.block_starts)
+        stream = (art.m_blk, art.col_blk, art.row_blk)
+        local = (art.m_blk, art.col_loc, art.row_blk, art.seg_blk)
+        return {
+            "resident": ("gust_spmv_db", lambda: k_rag.gust_spmv_ragged_db(
+                *stream, *blocks, xp, **kw)),
+            "old": ("gust_spmv", lambda: k_rag.gust_spmv_ragged(*stream, *blocks, xp, **kw)),
+            "single": (LIBS["single"], lambda: k_rag.gust_spmv_ragged_local(
+                *local, *blocks, xp, **kw)),
+            "double": (LIBS["double"], lambda: k_rag.gust_spmv_ragged_local_db(
+                *local, *blocks, xp, **kw)),
+            "parent": ("gust_spmv_db", lambda: run_kernel(
+                "gust_spmv_db", "gust_spmv_db_ragged", *stream, xp,
+                blocks=art.block_starts, **kw)),
+        }
+    stream = (art.m_blk, art.col_blk, art.row_blk)
+    local = (art.m_blk, art.col_loc, art.row_blk, art.seg_blk)
+    bpw = art.m_blk.shape[0] // (art.num_windows * art.c_blk)
+    return {
+        "resident": ("gust_spmv", lambda: k_pad.gust_spmv(*stream, xp, **kw)),
+        "old": ("gust_spmv_db", lambda: k_pad.gust_spmv_db(*stream, xp, **kw)),
+        "single": (LIBS["single"], lambda: k_pad.gust_spmv_local(*local, xp, **kw)),
+        "double": (LIBS["double"], lambda: k_pad.gust_spmv_local_db(*local, xp, **kw)),
+        "parent": ("gust_spmv", lambda: run_kernel(
+            "gust_spmv", "gust_spmv_padded", *stream, xp, blocks=bpw, **kw)),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--parent", default=None,
+                    help="root of another checkout whose kernels 1/7 and 3/4/6/8 to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("local_db_sweep: needs a CUDA device", file=sys.stderr)
@@ -255,74 +362,78 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _build.build([*LIBS.values(), "gust_spmv", "gust_spmv_db"])
-    variants = _build_variants()
+    variants = _build_variants(args.parent)
     build_s = time.perf_counter() - t0
-    kept = {lib: _build.load(lib) for lib in LIBS.values()}
     coo = make_real_world_surrogate(REAL_WORLD_SUITE[0], scale=1.0, seed=0)
     n = coo.shape[1]
     cache = ScheduleCache()
-    cache.schedule(coo, L, load_balance=False)  # before any tensor touches the card
+    for lb in (True, False):  # before any tensor touches the card
+        cache.schedule(coo, L, load_balance=lb)
     rng = np.random.default_rng(0)
     xs = {b: _prep_x(torch.from_numpy(rng.standard_normal((n, b)).astype(np.float32)).cuda(),
                      n, L) for b in (1, 8)}
     rows = []
-    for layout in ("padded", "ragged"):
-        for vdt, b in (("float32", 1), ("int8", 1), ("float32", 8), ("int8", 8)):
-            cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout=layout, value_dtype=vdt,
-                                         load_balance=False)
-            art = repro_torch.plan(coo, cfg, cache=cache, device="cuda").artifact
-            kw = dict(num_windows=art.num_windows, l=art.l, c_blk=art.c_blk,
-                      scale_blk=art.scale_blk)
-            xp = xs[b]
-            if layout == "ragged":
-                blocks = (art.block_window, art.block_starts)
-                yard = lambda: k_rag.gust_spmv_ragged(  # noqa: E731
-                    art.m_blk, art.col_blk, art.row_blk, *blocks, xp, **kw)
-                resident = lambda: k_rag.gust_spmv_ragged_db(  # noqa: E731
-                    art.m_blk, art.col_blk, art.row_blk, *blocks, xp, **kw)
-                local = {p: lambda fn=fn: fn(  # noqa: E731
-                    art.m_blk, art.col_loc, art.row_blk, art.seg_blk, *blocks, xp, **kw)
-                    for p, fn in (("single", k_rag.gust_spmv_ragged_local),
-                                  ("double", k_rag.gust_spmv_ragged_local_db))}
-            else:
-                yard = lambda: k_pad.gust_spmv(  # noqa: E731
-                    art.m_blk, art.col_blk, art.row_blk, xp, **kw)
-                resident = lambda: k_pad.gust_spmv_db(  # noqa: E731
-                    art.m_blk, art.col_blk, art.row_blk, xp, **kw)
-                local = {p: lambda fn=fn: fn(  # noqa: E731
-                    art.m_blk, art.col_loc, art.row_blk, art.seg_blk, xp, **kw)
-                    for p, fn in (("single", k_pad.gust_spmv_local),
-                                  ("double", k_pad.gust_spmv_local_db))}
-            want = yard()
-            row = {"layout": layout, "value_dtype": vdt, "B": b,
-                   "resident_db_ms": _ms(resident, args.iters)}
-            for pipeline, run in local.items():
-                lib = LIBS[pipeline]
-                if not torch.equal(run(), want):
-                    raise AssertionError(f"{layout} {vdt} B={b}: the kept {pipeline} kernel "
-                                         "differs bitwise from kernel 1/2")
-                row[f"{pipeline}_ms"] = _ms(run, args.iters)
-                row.update({f"{pipeline}_{k}": v for k, v in _profile_split(run).items()})
-                for (name, vp), (vlib, _) in variants.items():
-                    if vp != pipeline:
-                        continue
-                    _build._LIBS[lib] = vlib
-                    if VARIANTS[name][1] and not torch.equal(run(), want):
-                        raise AssertionError(f"variant {name} ({pipeline}): differs bitwise "
-                                             "from kernel 1/2")
-                    row[f"{pipeline}_{name}_ms"] = _ms(run, args.iters)
-                _build._LIBS[lib] = kept[lib]
-                row[f"{pipeline}_again_ms"] = _ms(run, args.iters)
-            rows.append(row)
-            print(json.dumps(row), flush=True)
-    report = {"nvidia_smi": smi, "build_s": build_s, "rows": rows,
-              "spilling": {f"{name}/{p}": spills
-                           for (name, p), (_, spills) in variants.items()}}
+    for lb in (True, False):
+        for layout in ("padded", "ragged"):
+            for vdt, b in (("float32", 1), ("int8", 1), ("float32", 8), ("int8", 8)):
+                cfg = repro_torch.PlanConfig(l=L, c_blk=C_BLK, layout=layout,
+                                             value_dtype=vdt, load_balance=lb)
+                art = repro_torch.plan(coo, cfg, cache=cache, device="cuda").artifact
+                kw = dict(num_windows=art.num_windows, l=art.l, c_blk=art.c_blk,
+                          scale_blk=art.scale_blk)
+                row = {"load_balance": lb, "layout": layout, "value_dtype": vdt, "B": b}
+                rows.append(_time_row(row, _kernels(art, xs[b], kw), art, xs[b],
+                                      variants, args.iters))
+                print(json.dumps(row), flush=True)
+    report = {"nvidia_smi": smi, "build_s": build_s, "parent": args.parent, "rows": rows,
+              "spilling": {f"{name}/{lib}": spills
+                           for (name, lib), (_, spills) in variants.items()}}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "local_db_sweep.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps(report))
     return 0
+
+
+def _time_row(row, kernels, art, xp, variants, iters):
+    """Fill ``row`` with the times of one artifact's kernels (see the
+    module's note); raises if one differs bitwise from kernel 5 / 2."""
+    tag = f"load_balance={row['load_balance']} {row['layout']} {row['value_dtype']} B={row['B']}"
+    want = kernels["old"][1]()
+    row["old_kernel"] = 5 if row["layout"] == "padded" else 2
+    row["old_ms"] = _ms(kernels["old"][1], iters)
+    families = ["resident"] + ([] if row["load_balance"] else ["single", "double"])
+    plans = {lib: key for key, lib in k_pad._SPREAD_LIBS.items()}
+    for fam in families:
+        lib, run = kernels[fam]
+        if not torch.equal(run(), want):
+            raise AssertionError(f"{tag}: the kept {fam} kernel differs bitwise from "
+                                 f"kernel {row['old_kernel']}")
+        row[f"{fam}_ms"] = _ms(run, iters)
+        row.update({f"{fam}_{k}": v for k, v in _profile_split(run).items()})
+        gather, pipeline = plans[lib]
+        plan = spread_launch_plan(art.m_blk, art.col_loc if gather == "local" else art.col_blk,
+                                  xp, l=art.l, c_blk=art.c_blk, gather=gather,
+                                  pipeline=pipeline)
+        row[f"{fam}_ctas_per_sm"], row[f"{fam}_grid"] = plan["ctas_per_sm"], plan["grid_x"]
+        parent = variants.get(("parent", lib))
+        if parent is not None:
+            call = kernels["parent"][1] if fam == "resident" else run
+            if not torch.equal(_swapped(lib, parent[0], call), want):
+                raise AssertionError(f"{tag}: the parent's {fam} kernel differs bitwise "
+                                     f"from kernel {row['old_kernel']}")
+            row[f"parent_{fam}_ms"] = _swapped(lib, parent[0], lambda: _ms(call, iters))
+        for (name, vlib), (bound, _) in variants.items():
+            if vlib != lib or name == "parent":
+                continue
+            if VARIANTS[name][1] and not torch.equal(_swapped(lib, bound, run), want):
+                raise AssertionError(f"{tag}: variant {name} ({lib}) differs bitwise from "
+                                     f"kernel {row['old_kernel']}")
+            row[f"{fam}_{name}_ms"] = _swapped(lib, bound, lambda: _ms(run, iters))
+        row[f"{fam}_again_ms"] = _ms(run, iters)
+        if parent is not None:
+            row[f"parent_{fam}_again_ms"] = _swapped(lib, parent[0], lambda: _ms(call, iters))
+    return row
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ small-integer values, to the dense product; the Buffer Filler bitwise to
 ``x[col]``.  Kernels 3/4 and 6/8, which spread a window's blocks over
 the card's CTAs, are also run where CTAs hold several blocks, a window
 spans many CTAs, a block references more x tiles than their stage holds,
-and a window is empty.  An infinite x at a column that only padding slots
+and a window is empty; so are kernels 1 and 7, the resident instance of
+the same template, which must also equal the one-CTA-per-window kernels
+5 and 2 that stay in the tree.  An infinite x at a column that only padding slots
 point at leaves every kernel's rows finite and equal to the plain
 version's.
 """
@@ -533,7 +535,7 @@ def _empty_window(seed):
 #: Matrices of the spread cases: name -> (function that makes it, l).
 SPREAD_MATRICES = {
     "heavy256": (lambda: _heavy_window(0, 256, 16, 2000, 900, 60), 256),
-    "heavy128": (lambda: _heavy_window(1, 128, 24, 1500, 700, 40), 128),
+    "heavy128": (lambda: _heavy_window(1, 128, 48, 1500, 700, 40), 128),
     "many_segments_a": (lambda: _coo(_dense(7, 64, 400, 0.1)), 4),
     "many_segments_b": (lambda: _coo(_dense(8, 64, 600, 0.1)), 4),
     "empty_window": (lambda: _empty_window(5), 32),
@@ -560,6 +562,26 @@ def _run_local(pipeline, art, xp):
     return _run_local_single(art, xp) if pipeline == "single" else _run_db(art, xp, local=True)
 
 
+def _spread_case(case, layout, device):
+    """One spread case: (its spec, the artifact on the card and on the CPU,
+    x padded on the card and on the CPU, T_blk, each window's blocks)."""
+    matrix, c_blk, b, vdt, idt, what = SPREAD_CASES[case]
+    build, l = SPREAD_MATRICES[matrix]
+    if matrix not in _SPREAD_SCHEDULES:
+        _SPREAD_SCHEDULES[matrix] = schedule(build(), l, load_balance=False, workers=1)
+    sched = _SPREAD_SCHEDULES[matrix]
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    art_gpu = pack(sched, c_blk, vdt, idt, device=device)
+    art_cpu = pack(sched, c_blk, vdt, idt, device="cpu")
+    n = sched.shape[1]
+    x = torch.from_numpy(np.random.default_rng(b).standard_normal((n, b)).astype(np.float32))
+    xp_cpu = _prep_x(x, n, l)
+    t_blk = art_cpu.m_blk.shape[0] // c_blk
+    blocks_of = (np.diff(art_cpu.block_starts.numpy()) if layout == "ragged"
+                 else np.full(art_cpu.num_windows, t_blk // art_cpu.num_windows))
+    return art_gpu, art_cpu, xp_cpu.to(device), xp_cpu, t_blk, blocks_of
+
+
 @pytest.mark.parametrize("pipeline", ["single", "double"])
 @pytest.mark.parametrize("layout", ["padded", "ragged"])
 @pytest.mark.parametrize("case", sorted(SPREAD_CASES))
@@ -573,25 +595,13 @@ def test_local_db_spread_over_ctas(cuda, case, layout, pipeline):
     ragged window is empty (one all-padding block) and a padded window is
     mostly all-padding blocks, at an odd l, at l=1024, in every value and
     index type and at B = 1, 3 and 8."""
-    matrix, c_blk, b, vdt, idt, what = SPREAD_CASES[case]
-    build, l = SPREAD_MATRICES[matrix]
-    if matrix not in _SPREAD_SCHEDULES:
-        _SPREAD_SCHEDULES[matrix] = schedule(build(), l, load_balance=False, workers=1)
-    sched = _SPREAD_SCHEDULES[matrix]
-    pack = pack_ragged if layout == "ragged" else pack_schedule
-    art_gpu = pack(sched, c_blk, vdt, idt, device=cuda)
-    art_cpu = pack(sched, c_blk, vdt, idt, device="cpu")
-    n = sched.shape[1]
-    x = torch.from_numpy(np.random.default_rng(b).standard_normal((n, b)).astype(np.float32))
-    xp_cpu = _prep_x(x, n, l)
-    xp = xp_cpu.to(cuda)
-    t_blk = art_cpu.m_blk.shape[0] // c_blk
-    launch = k_pad.local_launch_plan(art_gpu.m_blk, art_gpu.col_loc, xp, l=l, c_blk=c_blk,
-                                     pipeline=pipeline)
+    _, c_blk, _, _, _, what = SPREAD_CASES[case]
+    art_gpu, art_cpu, xp, xp_cpu, t_blk, blocks_of = _spread_case(case, layout, cuda)
+    l = art_cpu.l
+    launch = k_pad.spread_launch_plan(art_gpu.m_blk, art_gpu.col_loc, xp, l=l, c_blk=c_blk,
+                                      gather="local", pipeline=pipeline)
     seg = art_cpu.seg_blk.numpy()
     tiles = 1 + (seg[:, 1:] > seg[:, :-1]).sum(axis=1)
-    blocks_of = (np.diff(art_cpu.block_starts.numpy()) if layout == "ragged"
-                 else np.full(art_cpu.num_windows, t_blk // art_cpu.num_windows))
     if what in ("blocks_per_cta", "l1024"):
         assert launch["grid_x"] < t_blk / 2  # CTAs run several blocks each
     if what == "blocks_per_cta" and layout == "ragged":
@@ -616,3 +626,46 @@ def test_local_db_spread_over_ctas(cuda, case, layout, pipeline):
     other = "double" if pipeline == "single" else "single"
     assert torch.equal(y, _run_local(other, art_gpu, xp))
     assert torch.equal(y.cpu(), _run_local(pipeline, art_cpu, xp_cpu))
+
+
+#: Kernel -> (layout, pipeline) of the resident spread kernels.
+_RESIDENT_SPREAD = {1: ("padded", "single"), 7: ("ragged", "double")}
+
+
+@pytest.mark.parametrize("kernel", sorted(_RESIDENT_SPREAD))
+@pytest.mark.parametrize(
+    "case", sorted(c for c, spec in SPREAD_CASES.items() if spec[5] != "over_cap"))
+def test_resident_spread_over_ctas(cuda, case, kernel):
+    """Kernels 1 (padded) and 7 (ragged), the resident instance of the
+    spread template, spread the stream's blocks over the card's CTAs
+    (several blocks to a CTA, window 0 over many CTAs) and fold each
+    window's block tiles in stream order: an empty ragged window gives
+    zero rows, and at an odd l, at l=1024, in every value and index type
+    and at B = 1, 3 and 8 the result is bitwise equal to the
+    one-CTA-per-window kernel of the other pipeline (5 or 2) on the same
+    artifact and of the other layout on its artifact, to the segment-local
+    kernels 3/4 and 6/8, and to the plain version on the CPU."""
+    _, c_blk, _, _, _, what = SPREAD_CASES[case]
+    layout, pipeline = _RESIDENT_SPREAD[kernel]
+    art_gpu, art_cpu, xp, xp_cpu, t_blk, blocks_of = _spread_case(case, layout, cuda)
+    launch = k_pad.spread_launch_plan(art_gpu.m_blk, art_gpu.col_blk, xp, l=art_cpu.l,
+                                      c_blk=c_blk, gather="resident", pipeline=pipeline)
+    assert launch["stage_tiles"] == 0
+    if what in ("blocks_per_cta", "l1024"):
+        assert launch["grid_x"] < t_blk / 2  # CTAs run several blocks each
+    if what == "blocks_per_cta" and layout == "ragged":
+        assert blocks_of[0] > 5 * np.median(blocks_of[1:])
+        assert blocks_of[0] > 4 * t_blk / launch["grid_x"]  # window 0 spans many CTAs
+    counter, attr = (k_pad, "launches") if kernel == 1 else (k_rag, "db_launches")
+    before = getattr(counter, attr)
+    y = _run(art_gpu, xp) if kernel == 1 else _run_db(art_gpu, xp, local=False)
+    torch.cuda.synchronize()
+    assert getattr(counter, attr) == before + 1
+    if what == "empty_window" and layout == "ragged":
+        assert blocks_of[1] == 1 and not bool(y[1].any())
+    assert torch.equal(y, _run_db(art_gpu, xp, local=False) if kernel == 1 else _run(art_gpu, xp))
+    other = _spread_case(case, "ragged" if kernel == 1 else "padded", cuda)[0]
+    assert torch.equal(y, _run(other, xp) if kernel == 1 else _run_db(other, xp, local=False))
+    assert torch.equal(y, _run_local_single(art_gpu, xp))
+    assert torch.equal(y, _run_db(art_gpu, xp, local=True))
+    assert torch.equal(y.cpu(), _run(art_cpu, xp_cpu))

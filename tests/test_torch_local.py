@@ -155,35 +155,36 @@ def test_local_plain_takes_unordered_segment_tables(layout, vdt):
 
 def test_local_db_sweep_edits_apply_to_the_source():
     """``python -m repro_torch.kernels.local_db_sweep`` builds its variants
-    of kernels 3/4 and 6/8 by editing their shared template
-    ``csrc/gust_local_spread.cuh``; every edit must still find its text,
-    and change it, and each pipeline a variant is built for must include
-    that template."""
+    of the spread kernels (1 and 3/4, 6/8) by editing their shared template
+    ``csrc/gust_spread.cuh``; every edit must still find its text, and
+    change it, and each library a variant is built for must include that
+    template."""
     from repro_torch.kernels import _build, local_db_sweep
 
     src = (_build.CSRC / local_db_sweep.HEADER).read_text()
-    for name, (edits, _, pipelines) in local_db_sweep.VARIANTS.items():
+    for name, (edits, _, libs) in local_db_sweep.VARIANTS.items():
         text = src
         for old, new in edits:
             assert old in text, name
             text = text.replace(old, new)
         assert text != src, name
         assert local_db_sweep.edited_header(edits) == text, name
-        for pipeline in pipelines:
-            lib = local_db_sweep.LIBS[pipeline]
+        for lib in libs:
             cu = (_build.CSRC / _build.SOURCES[lib]).read_text()
-            assert f'#include "{local_db_sweep.HEADER}"' in cu, (name, pipeline)
+            assert f'#include "{local_db_sweep.HEADER}"' in cu, (name, lib)
 
 
 def test_local_launch_plan_takes_only_a_pipeline_of_the_local_kernels():
-    """``local_launch_plan`` reads the launch of kernels 3/4
-    (``pipeline="single"``) or 6/8 (``"double"``); any other pipeline is
-    refused before a library is built."""
+    """``spread_launch_plan`` reads the launch of kernel 1 or 7
+    (``gather="resident"``) or of kernels 3/4 or 6/8 (``"local"``), of
+    ``pipeline="single"`` or ``"double"``; any other gather or pipeline
+    is refused before a library is built."""
     import repro_torch.kernels.gust_spmv as k_pad
 
     m = torch.zeros(8, 4)
     col = torch.zeros(8, 4, dtype=torch.int32)
-    for pipeline in ("auto", "resident", ""):
+    for gather, pipeline in (("local", "auto"), ("local", "resident"), ("local", ""),
+                             ("auto", "single"), ("resident", "auto"), ("", "double")):
         with pytest.raises(ValueError, match="pipeline"):
-            k_pad.local_launch_plan(m, col, torch.zeros(8, 1), l=4, c_blk=2,
-                                    pipeline=pipeline)
+            k_pad.spread_launch_plan(m, col, torch.zeros(8, 1), l=4, c_blk=2,
+                                     gather=gather, pipeline=pipeline)

@@ -41,10 +41,13 @@ Checks, each fatal:
     ``|kernel - plain| <= 1e-5 * (|M|·|x|)`` (sums are reordered: the
     plain version's ``index_add_`` uses atomics on the card); at B=1
     bitwise against the plain version run on the CPU (the kernel's own
-    order); every kernel bitwise against the one-CTA-per-window kernel of
-    its layout that stays in the tree (kernel 5 padded, 2 ragged) on the
-    same artifact, and each single-buffered local kernel also against the
-    double-buffered local one;
+    order); at B=8 each column k bitwise against the same kernel's B=1
+    result on ``x[:, k]``, so that every B=8 result is held, through
+    B=1, to the CPU plain version; every kernel bitwise against the
+    resident single-buffered kernel of its layout (kernel 1 padded, 2
+    ragged) on the same artifact, so single == double (1 == 5, 2 == 7)
+    and resident == local (3/6 == 1, 4/8 == 2), and each single-buffered
+    local kernel also against the double-buffered local one;
   * ``gather_fill`` bitwise against its plain version and ``x[col]``;
   * ``gust_spgemm`` on G bitwise against its plain version on the card
     (0/1 values: exact arithmetic), and on a float-valued copy of G
@@ -64,17 +67,15 @@ Checks, each fatal:
     ragged; ``pagerank(G)`` converged and within 2e-5 in L1 of scipy's
     float64 iteration run to its fixed point; ``feature_propagation``
     within ``1e-4 * (|Â|·|Â|·|H|)`` per element of scipy in float64;
-  * every instance of the spread template ``gust_spread.cuh`` (kernels 1,
-    3/4, 6/8 and 7) builds without a spill (ptxas): the libraries
-    ``gust_spmv``, ``gust_spmv_local`` and ``gust_spmv_local_db`` whole,
-    and in ``gust_spmv_db`` every function of the template, matched by
-    name (kernel 5 there, the first design, is not held to it).
+  * every instance of the spread template ``gust_spread.cuh`` (kernels
+    1-8) builds without a spill (ptxas): the four SpMV libraries whole.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
-bytes; the spread kernels 1, 3/4, 6/8 and 7 also with their CTAs per SM,
-grid and ``partial_bytes``, the scratch of block tiles that their fold
-reads),
+bytes; the SpMV kernels 1-8, all spread over the card's CTAs, also with
+their CTAs per SM, grid, stream stages (2 where kernels 5/7 take their
+slots through the bulk-copy ring) and ``partial_bytes``, the scratch of
+block tiles that their fold reads),
 SpGEMM's wall time split (condensing B, kernel, reorder, compaction on
 the card, host copy), and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -123,26 +124,28 @@ KERNELS = {
     "gust_spmv_ragged_local_db": ("ragged", "local", "gust_spmv_local_db.cu",
                                   "src/repro/kernels/gust_spmv_ragged.py:430"),
 }
-#: The one-CTA-per-window kernel of each layout that stays in the tree
-#: (kernel 5 padded, 2 ragged): the bitwise yardstick of every other
-#: kernel of its layout.
-YARDSTICK = {"padded": "gust_spmv_db", "ragged": "gust_spmv_ragged"}
+#: The resident single-buffered kernel of each layout (kernel 1 padded, 2
+#: ragged): the bitwise yardstick of every other kernel of its layout on
+#: the same artifact.  It is itself held bitwise to the plain version on
+#: the CPU at B=1, and at B=8 column by column to its own B=1 results.
+YARDSTICK = {"padded": "gust_spmv", "ragged": "gust_spmv_ragged"}
 #: The single-buffered local kernels are also held bitwise to the
 #: double-buffered local kernel of their layout.
 LOCAL_TWIN = {"gust_spmv_local": "gust_spmv_local_db",
               "gust_spmv_ragged_local": "gust_spmv_ragged_local_db"}
-#: The kernels that spread a window's blocks over the card's CTAs and fold
-#: their (l, B) tiles from a scratch, with the pipeline of their launch
-#: plan (the gather is KERNELS'): each of their rows also prints the
-#: launch (CTAs per SM, grid) and the scratch's size, ``partial_bytes``.
-SPREAD = {"gust_spmv": "single", "gust_spmv_ragged_db": "double",
+#: The pipeline of each SpMV kernel's launch plan (the gather is
+#: KERNELS'): every one spreads a window's blocks over the card's CTAs and
+#: folds their (l, B) tiles from a scratch, and each of its rows also
+#: prints the launch (CTAs per SM, grid, stream stages) and the scratch's
+#: size, ``partial_bytes``.
+SPREAD = {"gust_spmv": "single", "gust_spmv_ragged": "single",
+          "gust_spmv_db": "double", "gust_spmv_ragged_db": "double",
           "gust_spmv_local": "single", "gust_spmv_ragged_local": "single",
           "gust_spmv_local_db": "double", "gust_spmv_ragged_local_db": "double"}
 #: Library -> the part of a function's name that holds it to no spill
-#: (ptxas): "" for every function of the library, "spread_" for the
-#: spread template's.
+#: (ptxas): "" for every function of the library.
 NO_SPILL = {"gust_spmv": "", "gust_spmv_local": "", "gust_spmv_local_db": "",
-            "gust_spmv_db": "spread_"}
+            "gust_spmv_db": ""}
 #: The kernels off the SpMV path: name -> (source, TPU kernel it replaces).
 OTHER_KERNELS = {
     "gather_fill": ("gather_fill.cu", "src/repro/kernels/gather_fill.py:57"),
@@ -438,6 +441,14 @@ def main() -> int:
                                 f"{tag}: differs bitwise from {LOCAL_TWIN[name]} "
                                 "on the same artifact")
                         row["bitwise_vs_" + LOCAL_TWIN[name]] = True
+                    if b > 1:  # each column as the same kernel gives it at B=1
+                        for k in range(b):
+                            y_1 = kernel(*args, xp[:, k:k + 1].contiguous(), **kw)
+                            if not torch.equal(y_k[:, :, k:k + 1], y_1):
+                                raise AssertionError(
+                                    f"{tag}: column {k} differs bitwise from the same "
+                                    "kernel at B=1")
+                        row["bitwise_columns_vs_b1"] = True
                     if b == 1:  # on the CPU the plain version sums in the kernel's order
                         key = (lb, layout, vdt, gather)
                         if key not in cpu_plain:
@@ -458,10 +469,9 @@ def main() -> int:
                         bytes_and_ops(name, art, xp, b, coo.nnz),
                     ))
                     row["x_tile_bytes"] = x_tile_bytes(name, art, b)
-                    if name in SPREAD:
-                        row.update(spread_launch_plan(art.m_blk, args[1], xp, l=art.l,
-                                                      c_blk=art.c_blk, gather=gather,
-                                                      pipeline=SPREAD[name]))
+                    row.update(spread_launch_plan(art.m_blk, args[1], art.row_blk, xp,
+                                                  l=art.l, c_blk=art.c_blk, gather=gather,
+                                                  pipeline=SPREAD[name]))
                     log(f"kernel {tag}: max |kernel - plain| = {row['max_abs_err']:.3e}; "
                         + ", ".join(k for k, val in row.items()
                                     if k.startswith("bitwise") and val))
@@ -579,7 +589,8 @@ def main() -> int:
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
             f"library {lib}"
             + "".join(f", {k} {row[k]}" for k in ("x_tile_bytes", "b_plane_bytes",
-                                                  "partial_bytes", "ctas_per_sm")
+                                                  "partial_bytes", "ctas_per_sm",
+                                                  "stream_stages")
                       if row.get(k) is not None)
             + (f", grid ({row['grid_x']}, {row['grid_y']})" if "grid_x" in row else ""))
     report["variants"] = variants
@@ -605,7 +616,7 @@ def main() -> int:
         if "bound_ms_at_power_limit" in head:
             entry["bound_ms_at_power_limit"] = head["bound_ms_at_power_limit"]
         entry.update({k: head[k] for k in ("ctas_per_sm", "grid_x", "grid_y",
-                                           "partial_bytes") if k in head})
+                                           "stream_stages", "partial_bytes") if k in head})
         kernels.append(entry)
     report["kernels"] = kernels
 

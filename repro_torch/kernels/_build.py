@@ -48,8 +48,22 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 #: The launch plan entry point of every library built on
-#: ``csrc/gust_spread.cuh``: vdt, idt, T, l, c_blk, b, out[6].
-_PLAN = [_I] * 6 + [_P]
+#: ``csrc/gust_spread.cuh``: m, cols, row, vdt, idt, T, l, c_blk, b, out[7].
+_PLAN = [_P] * 3 + [_I] * 6 + [_P]
+
+
+def _resident_spread(prefix: str) -> Dict[str, list]:
+    """The entry points of a library built on ``csrc/gust_spread.cuh``
+    with the resident gather."""
+    return {
+        # m, col, row, scale, x, y, partials, vdt, idt, W, T,
+        # blocks_per_window, l, c_blk, b, stream
+        f"{prefix}_padded": [_P] * 7 + [_I] * 8 + [_P],
+        # m, col, row, scale, x, y, partials, block_starts, vdt, idt, W, T,
+        # l, c_blk, b, stream
+        f"{prefix}_ragged": [_P] * 8 + [_I] * 7 + [_P],
+        f"{prefix}_plan": _PLAN,
+    }
 
 
 def _local_spread(prefix: str) -> Dict[str, list]:
@@ -68,15 +82,7 @@ def _local_spread(prefix: str) -> Dict[str, list]:
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the launch's cudaError_t).
 SIGNATURES = {
-    "gust_spmv": {
-        # m, col, row, scale, x, y, partials, vdt, idt, W, T,
-        # blocks_per_window, l, c_blk, b, stream (on gust_spread.cuh)
-        "gust_spmv_padded": [_P] * 7 + [_I] * 8 + [_P],
-        # m, col, row, scale, x, y, block_starts, vdt, idt, W, l, c_blk, b,
-        # stream
-        "gust_spmv_ragged": [_P] * 7 + [_I] * 6 + [_P],
-        "gust_spmv_plan": _PLAN,
-    },
+    "gust_spmv": _resident_spread("gust_spmv"),
     "gust_spmv_local": _local_spread("gust_spmv_local"),
     "gust_spgemm": {
         # m, col, row, block_starts, b_vals, b_cols, lengths, y, vdt, idt, W,
@@ -87,15 +93,7 @@ SIGNATURES = {
         # col, x, out, idt, slots, b, stream
         "gather_fill": [_P] * 3 + [_I, _L, _I, _P],
     },
-    "gust_spmv_db": {
-        # m, col, row, scale, x, y, vdt, idt, W, blocks_per_window, l,
-        # c_blk, b, stream
-        "gust_spmv_db_padded": [_P] * 6 + [_I] * 7 + [_P],
-        # m, col, row, scale, x, y, partials, block_starts, vdt, idt, W, T,
-        # l, c_blk, b, stream (on gust_spread.cuh)
-        "gust_spmv_db_ragged": [_P] * 8 + [_I] * 7 + [_P],
-        "gust_spmv_db_plan": _PLAN,
-    },
+    "gust_spmv_db": _resident_spread("gust_spmv_db"),
     "gust_spmv_local_db": _local_spread("gust_spmv_local_db"),
 }
 

@@ -1,7 +1,7 @@
 // Pieces that every GUST SpMV source shares: the value load (with the int8
-// dequant), the cp.async copies and shared-memory opt-in of the
-// double-buffered and segment-local kernels and the mapping from the
-// wrappers' dtype codes to kernel types.
+// dequant), the cp.async copies, the mbarrier and bulk-copy (TMA)
+// primitives and shared-memory opt-in of the spread kernels, and the
+// mapping from the wrappers' dtype codes to kernel types.
 // The bitwise contracts between the sources (single == double, resident ==
 // local) rest on both being the same everywhere, so they live only here.
 
@@ -60,6 +60,71 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarrier and 1-D bulk copy (the Tensor Memory Accelerator without a
+// tensor map), as the PTX ISA defines them for sm_90.  A CTA launched
+// without a cluster is a cluster of one, so its shared::cta addresses are
+// valid shared::cluster destinations.
+
+// Initialise the mbarrier at bar (8-byte aligned, shared) for `count`
+// arrivals per phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make this thread's mbarrier inits visible to the async proxy (the bulk
+// copies that complete on them); a CTA barrier then publishes them to the
+// other threads.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive once on bar and add `bytes` to the transactions its current phase
+// waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        "  .reg .pred p;\n"
+        "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "  selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// device memory at src to shared memory at dst, completing as transactions
+// on bar.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Order this CTA's earlier generic-proxy accesses of shared memory (made
+// visible to this thread by a CTA barrier) before its later async-proxy
+// writes there: a stage that threads have read may then be refilled.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The most dynamic shared memory a CTA of the current device may opt in to.

@@ -50,7 +50,7 @@ int gust_spmv_local_padded(const void* m, const void* col_loc, const void* row,
                            int idt, int num_windows, int t_blk,
                            int blocks_per_window, int l, int c_blk, int s_blk,
                            int b, void* stream) {
-  return spread<false, Gather::kLocal, 1>(
+  return spread<false, Gather::kLocal, 1, 0>(
       m, col_loc, row, seg_blk, scale, x, y, part, nullptr, vdt, idt,
       num_windows, t_blk, blocks_per_window, l, c_blk, s_blk, b, stream);
 }
@@ -63,15 +63,17 @@ int gust_spmv_local_ragged(const void* m, const void* col_loc, const void* row,
                            const int* block_starts, int vdt, int idt,
                            int num_windows, int t_blk, int l, int c_blk,
                            int s_blk, int b, void* stream) {
-  return spread<true, Gather::kLocal, 1>(
+  return spread<true, Gather::kLocal, 1, 0>(
       m, col_loc, row, seg_blk, scale, x, y, part, block_starts, vdt, idt,
       num_windows, t_blk, 0, l, c_blk, s_blk, b, stream);
 }
 
 // The launch either entry point makes: see spread_plan.
-int gust_spmv_local_plan(int vdt, int idt, int t_blk, int l, int c_blk, int b,
-                         int* out) {
-  return spread_plan<Gather::kLocal, 1>(vdt, idt, t_blk, l, c_blk, b, out);
+int gust_spmv_local_plan(const void* m, const void* col_loc,
+                         const void* row, int vdt, int idt,
+                         int t_blk, int l, int c_blk, int b, int* out) {
+  return spread_plan<Gather::kLocal, 1, 0>(m, col_loc, row, vdt, idt, t_blk,
+                                           l, c_blk, b, out);
 }
 
 const char* gust_error_string(int err) {

@@ -1,9 +1,13 @@
 // GUST SpMV spread over the card: the block kernel, the in-order fold, the
-// launch plan and the dtype dispatch that kernels 1, 3, 4, 6, 7 and 8
-// share, templated on the gather and the number of x-tile stages:
-//   resident (Gather::kResident, no stage): a slot reads x[col] directly;
-//     kernel 1 (gust_spmv.cu, padded) and kernel 7 (gust_spmv_db.cu,
-//     ragged).
+// launch plan and the dtype dispatch of every SpMV kernel of the port,
+// templated on the gather, the number of x-tile stages and the number of
+// stream stages:
+//   resident (Gather::kResident, no x-tile stage): a slot reads x[col]
+//     directly; kernels 1 and 2 (gust_spmv.cu, padded and ragged; the
+//     next chunk's slots prefetched into registers) and kernels 5 and 7
+//     (gust_spmv_db.cu, padded and ragged; the slots come through a ring
+//     of two stream stages in shared memory, filled by bulk copies, where
+//     the leaves allow it, else as kernels 1/2).
 //   segment-local (Gather::kLocal): a slot reads x through its block's
 //     segment table, the slot at block-local address col_loc of block t
 //     taking x[seg_blk[t, col_loc / l] * l + col_loc % l]; one x-tile
@@ -18,11 +22,12 @@
 // tile.  Each (c_blk, l) block is summed cycle by cycle into a zeroed
 // (l, B) tile (products and sums rounded with the _rn intrinsics, slots
 // whose value is 0 skipped), then the window's block tiles are folded in
-// stream order: acc = p[t0], acc = __fadd_rn(acc, p[t]).  That is the
-// association of the one-CTA-per-window kernels 2 (gust_spmv.cu) and 5
-// (gust_spmv_db.cu), so on one artifact, for finite x, every instance
-// equals them and each other bitwise, padded equals ragged, and at B=1
-// they equal the plain version run on the CPU.
+// stream order: acc = p[t0], acc = __fadd_rn(acc, p[t]).  That association
+// is defined here alone, and every instance keeps it, so on one artifact,
+// for finite x, every kernel equals every other bitwise (single ==
+// double, resident == local, padded == ragged), and at B=1 each equals the
+// plain version run on the CPU (repro_torch/kernels/ref.py), which adds in
+// the same order.
 //
 // Design.  A block's tile depends on nothing outside the block, so the
 // blocks need not run one window to a CTA.
@@ -69,21 +74,53 @@
 //      cycle no two real slots share a row), then thread j adds row j's
 //      entries cycle by cycle into its register tile and clears them.  A
 //      cycle that has no slot on a row leaves +0 there, and adding +0 to a
-//      sum that started at +0 changes no bit.  The next chunk's (value,
-//      column, row) slots, the next block's first ones included, are
-//      loaded into registers as soon as this chunk's products are out,
-//      before the barrier, so they are in flight while the chunk sums.
-//      The local instances pass the second barrier at a block's top (the
-//      stage barrier of 2); the resident one after every chunk.
+//      sum that started at +0 changes no bit.  The local instances pass
+//      the second barrier at a block's top (the stage barrier of 2); the
+//      resident one after every chunk.
+//   5. Where a chunk's (value, column, row) slots come from:
+//        RING == 0: each thread loads the next chunk's slots, the next
+//        block's first ones included, into registers as soon as this
+//        chunk's products are out, before the barrier, so they are in
+//        flight while the chunk sums (4-byte loads, one per leaf, slot and
+//        thread).
+//        RING == 2 (resident only, at B > 1): a chunk's rows of the three
+//        leaves are one contiguous byte range of each, and a CTA's chunks
+//        follow one another in the stream.  Stage u % 2 of a ring in
+//        shared memory holds chunk u of the CTA's run, with an mbarrier of
+//        its own: one thread arms the barrier with the chunk's bytes and
+//        asks for the three rows with cp.async.bulk, which complete on
+//        it; the CTA waits on the stage's phase (parity u / 2 % 2, tracked
+//        from the run's chunk count, so any number of blocks and windows
+//        may pass) and thread j reads element j of each row where it uses
+//        it (no bank conflict, and no copy of the chunk in registers).
+//        Right after the chunk's product barrier, by which every thread
+//        has read the stage, the same thread fences the async proxy and
+//        refills the stage with chunk u + 2, so the ring needs no barrier
+//        of its own, and nothing is asked for past the run's last chunk.
+//        A bulk copy needs 16-byte aligned addresses and sizes: the ring
+//        runs where l * sizeof(leaf) % 16 == 0 for the three leaves and
+//        their base pointers are 16-byte aligned (then every chunk,
+//        short last chunks too, is whole 16-byte runs), else the same
+//        entry point runs RING == 0; the launch plan reports which
+//        (stream_stages).  At B=1 the entry points run RING == 0 too:
+//        there the ring's stages (48 KB a CTA at l=256, f32) take the
+//        shared memory that otherwise serves as L1 for x (0.26 MB at B=1
+//        on crankseg_2), and the ring was slower than the register
+//        prefetch on the card; at B=8 x does not fit in L1 either way and
+//        the ring is faster (PERF.md; python -m
+//        repro_torch.kernels.local_db_sweep, variants ring_b1,
+//        stream_registers, ring_bytes).
 // Shared memory per CTA: the (kc, B, l) product buffer; a local CTA also
 // holds STAGES stages of `cap` x tiles of (l, B) f32 and the two table
-// rows, sized from l, B and the cap, never from S_blk.  A stage fills
-// kStageBytes, so the cap is 16 tiles at l=256 and B=1 and 2 at B=8 for
-// either local instance; one stage with the bytes of two (4 tiles at B=8)
-// was 11-13% slower on the card at B=8, its larger CTA leaving 3 CTAs per
-// SM instead of 4 (python -m repro_torch.kernels.local_db_sweep, variant
-// cap_x2).  kc is 8 cycles at B=1, 4 at B>1.  A resident CTA takes 8 KB at
-// l=256 and B=1, 32 KB at B=8.
+// rows, sized from l, B and the cap, never from S_blk; a ring CTA holds two
+// stream stages of kc rows of each leaf and their mbarriers.  An x-tile
+// stage fills kStageBytes, so the cap is 16 tiles at l=256 and B=1 and 2
+// at B=8 for either local instance; one stage with the bytes of two (4
+// tiles at B=8) was 11-13% slower on the card at B=8, its larger CTA
+// leaving 3 CTAs per SM instead of 4 (python -m
+// repro_torch.kernels.local_db_sweep, variant cap_x2).  kc is 8 cycles at
+// B=1, 4 at B>1.  A resident CTA takes 8 KB at l=256 and B=1, 32 KB at
+// B=8; the ring adds 2 x 12 KB at B=8 for f32 values and int32 indices.
 //
 // Bound.  Memory: each stream slot read once (value + column + row bytes),
 // the scales, x once (local: also the referenced prefix of each seg_blk
@@ -103,12 +140,18 @@ namespace {
 
 using gust::align16;
 using gust::allow_smem;
+using gust::bulk_copy_g2s;
 using gust::cp_async16;
 using gust::cp_async4;
 using gust::cp_async_commit;
 using gust::cp_async_wait;
+using gust::fence_mbarrier_init;
+using gust::fence_proxy_async_shared;
 using gust::load_value;
 using gust::max_shared_bytes;
+using gust::mbar_arrive_expect_tx;
+using gust::mbar_init;
+using gust::mbar_wait;
 
 // Where a slot's x value comes from: x[col] (resident) or x through the
 // block's segment table (local).
@@ -172,28 +215,57 @@ __device__ __forceinline__ void store_row(float* p, int bt,
 }
 
 // Shared-memory layout of spread_partials, in bytes (a resident CTA has
-// no stage and no ring: cap == stages == 0).
+// no x-tile stage and no table ring: cap == stages == 0; only a ring
+// instance has stream stages: ring == 2, with ev and ei the bytes of a
+// value and an index).
 struct Smem {
-  size_t stage;    // one stage: cap tiles of (l, BT) f32
+  size_t stage;    // one x-tile stage: cap tiles of (l, BT) f32
   size_t contrib;  // offset of the (kc, BT, l) f32 product buffer
   size_t ring;     // offset of the two cap-entry table rows
+  size_t stream;   // offset of the stream stages
+  size_t cols_at;  // offsets, in a stream stage, of its column and row rows
+  size_t rows_at;  //   (its value rows start it)
+  size_t slots;    // one stream stage: kc rows of each leaf
+  size_t bars;     // offset of the stream stages' mbarriers
   size_t total;
 };
 
 __host__ __device__ __forceinline__ Smem smem_layout(int l, int bt, int cc,
-                                                     int cap, int stages) {
+                                                     int cap, int stages,
+                                                     int ring, size_t ev,
+                                                     size_t ei) {
   Smem s;
   s.stage = align16((size_t)cap * l * bt * sizeof(float));
   s.contrib = stages * s.stage;
   s.ring = s.contrib + align16((size_t)cc * bt * l * sizeof(float));
-  s.total = s.ring + align16((size_t)2 * cap * sizeof(int));
+  s.stream = s.ring + align16((size_t)2 * cap * sizeof(int));
+  s.cols_at = align16((size_t)cc * l * ev);
+  s.rows_at = s.cols_at + align16((size_t)cc * l * ei);
+  s.slots = ring ? s.rows_at + align16((size_t)cc * l * ei) : 0;
+  s.bars = s.stream + ring * s.slots;
+  s.total = s.bars + ring * sizeof(uint64_t);
   return s;
+}
+
+// Whether a stream with these leaves can come through the bulk-copy ring:
+// every row of each leaf a whole number of 16-byte runs, every base
+// pointer 16-byte aligned.
+template <typename V, typename I>
+bool ring_fits(int l, const void* m, const void* cols, const void* row) {
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return (size_t)l * sizeof(V) % 16 == 0 && (size_t)l * sizeof(I) % 16 == 0 &&
+         aligned(m) && aligned(cols) && aligned(row);
 }
 
 // cols: the resident gather's columns of x, or the local gather's
 // block-local columns (col_loc) with their table seg_blk; a resident
-// instance takes seg_blk == nullptr, s_blk == cap == 0.
-template <typename V, typename I, bool QUANT, int BT, Gather G, int STAGES>
+// instance takes seg_blk == nullptr, s_blk == cap == 0.  RING: stream
+// stages (0: register prefetch; 2: the bulk-copy ring, resident only, for
+// leaves that ring_fits).
+template <typename V, typename I, bool QUANT, int BT, Gather G, int STAGES,
+          int RING>
 __global__ void __launch_bounds__(1024) spread_partials(
     const V* __restrict__ m, const I* __restrict__ cols,
     const I* __restrict__ row, const int* __restrict__ seg_blk,
@@ -204,11 +276,15 @@ __global__ void __launch_bounds__(1024) spread_partials(
   static_assert(LOCAL ? STAGES == 1 || STAGES == 2 : STAGES == 0,
                 "one or two x-tile stages for the local gather, none for "
                 "the resident one");
+  static_assert(RING == 0 || (RING == 2 && !LOCAL),
+                "a stream ring of two stages, for the resident gather only");
   constexpr int KC = chunk_cycles<BT>();
+  constexpr int NR = RING > 0 ? RING : 1;  // stream stages, as a divisor
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem lay = smem_layout(l, BT, cc, cap, STAGES);
+  const Smem lay = smem_layout(l, BT, cc, cap, STAGES, RING, sizeof(V), sizeof(I));
   float* contrib = reinterpret_cast<float*>(smem + lay.contrib);  // [cycle][column][row]
   int* ring = reinterpret_cast<int*>(smem + lay.ring);            // [slot][cap]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);  // [stream stage]
   const int j = threadIdx.x, nt = blockDim.x;
   const int b0 = blockIdx.y * BT;
   const int bt = min(BT, b - b0);
@@ -220,6 +296,8 @@ __global__ void __launch_bounds__(1024) spread_partials(
   // one column tile whose rows are 16-byte runs: x tiles copy 16 bytes at a time
   const bool vec = bt == b && tile_f % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int nchunk = (c_blk + cc - 1) / cc;  // chunks per block
+  const int units = (tb - ta) * nchunk;      // chunks of this CTA's run
 
   auto stage_of = [&](int slot) {
     return reinterpret_cast<float*>(smem + (STAGES == 2 ? slot : 0) * lay.stage);
@@ -262,6 +340,21 @@ __global__ void __launch_bounds__(1024) spread_partials(
       }
     }
   };
+  // Stream stage u % RING, which holds chunk u of the run (RING > 0).
+  auto slots_of = [&](int u) { return smem + lay.stream + (u % NR) * lay.slots; };
+  // One thread asks for chunk u's rows of the three leaves.
+  auto issue = [&](int u) {
+    const int t = ta + u / nchunk, c0 = (u % nchunk) * cc;
+    const int ncc = min(cc, c_blk - c0);
+    const size_t first = ((size_t)t * c_blk + c0) * l;
+    const unsigned nv = ncc * l * sizeof(V), ni = ncc * l * sizeof(I);
+    unsigned char* st = slots_of(u);
+    uint64_t* bar = bars + u % NR;
+    mbar_arrive_expect_tx(bar, nv + 2 * ni);
+    bulk_copy_g2s(st, m + first, nv, bar);
+    bulk_copy_g2s(st + lay.cols_at, cols + first, ni, bar);
+    bulk_copy_g2s(st + lay.rows_at, row + first, ni, bar);
+  };
 
   // This thread's slots of one chunk, and the chunk's block scale.
   V v[KC];
@@ -280,12 +373,33 @@ __global__ void __launch_bounds__(1024) spread_partials(
       }
     }
   };
+  // With the ring, chunk u's rows in stream stage u % RING, read where
+  // they are used (no copy in registers), once the stage's copies are in.
+  const V* sv = nullptr;
+  const I* sc = nullptr;
+  const I* sr = nullptr;
+  auto take_chunk = [&](int u, int t) {
+    mbar_wait(bars + u % NR, (u / NR) & 1);
+    const unsigned char* st = slots_of(u);
+    sv = reinterpret_cast<const V*>(st);
+    sc = reinterpret_cast<const I*>(st + lay.cols_at);
+    sr = reinterpret_cast<const I*>(st + lay.rows_at);
+    if (QUANT) s = scale[t];
+  };
+  // Slot i of the chunk: value, column, adder row.
+  auto slot_v = [&](int i) { return RING > 0 ? sv[i * l + j] : v[i]; };
+  auto slot_c = [&](int i) { return static_cast<int>(RING > 0 ? sc[i * l + j] : cl[i]); };
+  auto slot_r = [&](int i) { return static_cast<int>(RING > 0 ? sr[i * l + j] : rw[i]); };
 
   for (int e = j; e < cc * BT * l; e += nt) contrib[e] = 0.f;
   if constexpr (LOCAL) {
     fetch_row(ta, 0);
     cp_async_commit();
     cp_async_wait<0>();
+  }
+  if (RING > 0 && j == 0) {
+    for (int q = 0; q < RING; ++q) mbar_init(bars + q, 1);
+    fence_mbarrier_init();
   }
   __syncthreads();
   int n_cur = 0, n_next = 0;
@@ -295,12 +409,17 @@ __global__ void __launch_bounds__(1024) spread_partials(
     if (ta + 1 < tb) fetch_row(ta + 1, 1);
     cp_async_commit();
   }
-  load_chunk(ta, 0);
+  if constexpr (RING > 0) {
+    if (j == 0) {
+      for (int u = 0; u < RING && u < units; ++u) issue(u);
+    }
+  } else {
+    load_chunk(ta, 0);
+  }
 
-  const int nchunk = (c_blk + cc - 1) / cc;
   float acc[BT];
   int t = ta, ci = 0;
-  while (t < tb) {
+  for (int u = 0; t < tb; ++u) {
     const int slot = (t - ta) & 1;
     if (ci == 0) {
       if constexpr (LOCAL) {
@@ -328,15 +447,16 @@ __global__ void __launch_bounds__(1024) spread_partials(
     }
     const int c0 = ci * cc;
     const int ncc = min(cc, c_blk - c0);
+    if constexpr (RING > 0) take_chunk(u, t);
     const float* tiles = stage_of(slot);
     const int lim = n_cur * l;
 #pragma unroll
     for (int i = 0; i < KC; ++i) {
       if (i < ncc) {
-        const float val = load_value<QUANT>(v[i], s);
+        const float val = load_value<QUANT>(slot_v(i), s);
         if (val != 0.f) {
-          const int c = static_cast<int>(cl[i]);
-          float* dst = contrib + (size_t)i * BT * l + static_cast<int>(rw[i]);
+          const int c = slot_c(i);
+          float* dst = contrib + (size_t)i * BT * l + slot_r(i);
           if constexpr (!LOCAL) {
             mul_row<BT, true>(dst, l, val, x + (size_t)c * b + b0, bt);
           } else if (c < lim) {
@@ -348,10 +468,19 @@ __global__ void __launch_bounds__(1024) spread_partials(
         }
       }
     }
-    // the next chunk's slots fly through the barrier and the sums
     const bool last = ci + 1 == nchunk;
-    if (!last || t + 1 < tb) load_chunk(last ? t + 1 : t, last ? 0 : c0 + cc);
+    if constexpr (RING == 0) {
+      // the next chunk's slots fly through the barrier and the sums
+      if (!last || t + 1 < tb) load_chunk(last ? t + 1 : t, last ? 0 : c0 + cc);
+    }
     __syncthreads();  // every product of the chunk is in the buffer
+    if constexpr (RING > 0) {
+      // every thread has read stage u: refill it with chunk u + RING
+      if (j == 0 && u + RING < units) {
+        fence_proxy_async_shared();
+        issue(u + RING);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < KC; ++i) {
       if (i < ncc) {
@@ -412,23 +541,28 @@ __global__ void __launch_bounds__(kFoldThreads) spread_fold(
 }
 
 // The launch of spread_partials for one stream: chunk height, stage cap,
-// shared memory, CTAs per SM and grid.
+// stream stages, shared memory, CTAs per SM and grid.
 struct Plan {
-  int cc, cap, ctas_per_sm, grid_x, grid_y;
+  int cc, cap, ring, ctas_per_sm, grid_x, grid_y;
   size_t smem;
 };
 
-template <typename V, typename I, bool QUANT, int BT, Gather G, int STAGES>
+template <typename V, typename I, bool QUANT, int BT, Gather G, int STAGES,
+          int RING>
 cudaError_t plan_partials(int t_blk, int l, int c_blk, int b, Plan& p) {
   const size_t limit = max_shared_bytes();
+  auto bytes = [&](int cc) {
+    return smem_layout(l, BT, cc, p.cap, STAGES, RING, sizeof(V), sizeof(I)).total;
+  };
+  p.ring = RING;
   p.cc = std::min(c_blk, chunk_cycles<BT>());
   p.cap = G == Gather::kResident
               ? 0
               : std::max(1, std::min(kMaxCap, kStageBytes / (l * BT * 4)));
-  while (p.cc > 1 && smem_layout(l, BT, p.cc, p.cap, STAGES).total > limit) --p.cc;
-  p.smem = smem_layout(l, BT, p.cc, p.cap, STAGES).total;
+  while (p.cc > 1 && bytes(p.cc) > limit) --p.cc;
+  p.smem = bytes(p.cc);
   if (p.smem > limit) return cudaErrorInvalidConfiguration;
-  auto kernel = spread_partials<V, I, QUANT, BT, G, STAGES>;
+  auto kernel = spread_partials<V, I, QUANT, BT, G, STAGES, RING>;
   cudaError_t err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.ctas_per_sm, kernel,
@@ -447,22 +581,44 @@ cudaError_t plan_partials(int t_blk, int l, int c_blk, int b, Plan& p) {
   return cudaSuccess;
 }
 
+// Whether spread<..., RING> has a ring instance at this column tile: at
+// B > 1 only (see the note, item 5).
+template <int BT, int RING>
+constexpr bool kRingAt = RING > 0 && BT > 1;
+
+// The plan of the instance that spread<..., RING> runs for these leaves:
+// the ring where kRingAt and ring_fits, else the register prefetch.
+template <typename V, typename I, bool QUANT, int BT, Gather G, int STAGES,
+          int RING>
+cudaError_t plan_for(const void* m, const void* cols, const void* row,
+                     int t_blk, int l, int c_blk, int b, Plan& p) {
+  if constexpr (kRingAt<BT, RING>) {
+    if (ring_fits<V, I>(l, m, cols, row)) {
+      return plan_partials<V, I, QUANT, BT, G, STAGES, RING>(t_blk, l, c_blk, b, p);
+    }
+  }
+  return plan_partials<V, I, QUANT, BT, G, STAGES, 0>(t_blk, l, c_blk, b, p);
+}
+
 template <typename V, typename I, bool QUANT, bool RAGGED, int BT, Gather G,
-          int STAGES>
+          int STAGES, int RING>
 cudaError_t launch(const void* m, const void* cols, const void* row,
                    const int* seg_blk, const float* scale, const float* x,
                    float* y, float* part, const int* block_starts,
                    int num_windows, int t_blk, int bpw, int l, int c_blk,
                    int s_blk, int b, cudaStream_t stream) {
   Plan p;
-  cudaError_t err =
-      plan_partials<V, I, QUANT, BT, G, STAGES>(t_blk, l, c_blk, b, p);
+  cudaError_t err = plan_for<V, I, QUANT, BT, G, STAGES, RING>(
+      m, cols, row, t_blk, l, c_blk, b, p);
   if (err != cudaSuccess) return err;
-  spread_partials<V, I, QUANT, BT, G, STAGES>
-      <<<dim3(p.grid_x, p.grid_y), l, p.smem, stream>>>(
-          static_cast<const V*>(m), static_cast<const I*>(cols),
-          static_cast<const I*>(row), seg_blk, scale, x, part, t_blk, l, c_blk,
-          s_blk, b, p.cc, p.cap);
+  auto kernel = spread_partials<V, I, QUANT, BT, G, STAGES, 0>;
+  if constexpr (kRingAt<BT, RING>) {
+    if (p.ring > 0) kernel = spread_partials<V, I, QUANT, BT, G, STAGES, RING>;
+  }
+  kernel<<<dim3(p.grid_x, p.grid_y), l, p.smem, stream>>>(
+      static_cast<const V*>(m), static_cast<const I*>(cols),
+      static_cast<const I*>(row), seg_blk, scale, x, part, t_blk, l, c_blk,
+      s_blk, b, p.cc, p.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n = (size_t)num_windows * l * b;
@@ -477,7 +633,9 @@ cudaError_t launch(const void* m, const void* cols, const void* row,
 // t_blk blocks; part is a (t_blk, l, b) f32 scratch, y is (W, l, b).
 // seg_blk and s_blk: the local gather's table (nullptr and 0 for the
 // resident one).  vdt and idt: the dtype codes of gust::dispatch_dtypes.
-template <bool RAGGED, Gather G, int STAGES>
+// RING: the stream stages of the resident gather at B > 1 where the leaves
+// allow them (kRingAt, ring_fits), else 0.
+template <bool RAGGED, Gather G, int STAGES, int RING>
 cudaError_t spread(const void* m, const void* cols, const void* row,
                    const int* seg_blk, const float* scale, const float* x,
                    float* y, float* part, const int* block_starts, int vdt,
@@ -496,22 +654,24 @@ cudaError_t spread(const void* m, const void* cols, const void* row,
     using I = typename decltype(i)::type;
     constexpr bool Q = decltype(q)::value;
     if (b == 1) {
-      return launch<V, I, Q, RAGGED, 1, G, STAGES>(
+      return launch<V, I, Q, RAGGED, 1, G, STAGES, RING>(
           m, cols, row, seg_blk, scale, x, y, part, block_starts,
           num_windows, t_blk, bpw, l, c_blk, s_blk, b, s);
     }
-    return launch<V, I, Q, RAGGED, 8, G, STAGES>(
+    return launch<V, I, Q, RAGGED, 8, G, STAGES, RING>(
         m, cols, row, seg_blk, scale, x, y, part, block_starts, num_windows,
         t_blk, bpw, l, c_blk, s_blk, b, s);
   });
 }
 
-// The launch spread makes for t_blk blocks of a stream with these dtypes
-// and l, c_blk, b on the current device: out[0..5] = CTAs per SM, grid x,
-// grid y, shared bytes per CTA, stage cap (tiles; 0 for the resident
-// gather), cycles per chunk.
-template <Gather G, int STAGES>
-cudaError_t spread_plan(int vdt, int idt, int t_blk, int l, int c_blk, int b,
+// The launch spread<..., G, STAGES, RING> makes for t_blk blocks of a
+// stream with these leaves and dtypes and l, c_blk, b on the current
+// device: out[0..6] = CTAs per SM, grid x, grid y, shared bytes per CTA,
+// stage cap (tiles; 0 for the resident gather), cycles per chunk, stream
+// stages (2: the bulk-copy ring; 0: register prefetch).
+template <Gather G, int STAGES, int RING>
+cudaError_t spread_plan(const void* m, const void* cols, const void* row,
+                        int vdt, int idt, int t_blk, int l, int c_blk, int b,
                         int* out) {
   if (l < 1 || l > 1024 || c_blk < 1 || b < 1 || t_blk < 1 || !out) {
     return cudaErrorInvalidValue;
@@ -522,12 +682,14 @@ cudaError_t spread_plan(int vdt, int idt, int t_blk, int l, int c_blk, int b,
     constexpr bool Q = decltype(q)::value;
     Plan p;
     cudaError_t err =
-        b == 1 ? plan_partials<V, I, Q, 1, G, STAGES>(t_blk, l, c_blk, b, p)
-               : plan_partials<V, I, Q, 8, G, STAGES>(t_blk, l, c_blk, b, p);
+        b == 1 ? plan_for<V, I, Q, 1, G, STAGES, RING>(m, cols, row, t_blk, l,
+                                                       c_blk, b, p)
+               : plan_for<V, I, Q, 8, G, STAGES, RING>(m, cols, row, t_blk, l,
+                                                       c_blk, b, p);
     if (err == cudaSuccess) {
-      const int vals[6] = {p.ctas_per_sm, p.grid_x, p.grid_y, (int)p.smem,
-                           p.cap, p.cc};
-      std::copy(vals, vals + 6, out);
+      const int vals[7] = {p.ctas_per_sm, p.grid_x, p.grid_y, (int)p.smem,
+                           p.cap, p.cc, p.ring};
+      std::copy(vals, vals + 7, out);
     }
     return err;
   });

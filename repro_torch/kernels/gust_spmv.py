@@ -11,16 +11,19 @@
   each block's tiles staged in shared memory at the block's own top
   (single-buffered), spread and folded as :func:`gust_spmv`.
 * :func:`gust_spmv_db` (``csrc/gust_spmv_db.cu``) replaces
-  ``make_gust_spmv_db``: the same product with the stream copied into
-  shared memory ahead of use (double-buffered), one CTA per window.
+  ``make_gust_spmv_db``: the same product with the stream's slots copied
+  into a ring of two shared-memory stages ahead of use (double-buffered:
+  bulk copies at B > 1 where the leaves' rows are whole 16-byte runs,
+  else :func:`gust_spmv`'s register prefetch), spread and folded as
+  :func:`gust_spmv`.
 * :func:`gust_spmv_local_db` (``csrc/gust_spmv_local_db.cu``) replaces
   ``make_gust_spmv_local_db``: x read through the pack-time segment
   table, each block's tiles staged one block ahead, spread and folded as
   :func:`gust_spmv`.
 
-``csrc/gust_spread.cuh`` holds the code of every kernel here but
-:func:`gust_spmv_db`'s, and of every ragged one but ``gust_spmv_ragged``'s;
-:func:`spread_launch_plan` reports the launch each of them makes.
+``csrc/gust_spread.cuh`` holds the code of every kernel here and of
+every ragged one; :func:`spread_launch_plan` reports the launch each of
+them makes.
 
 All are bound by memory: each stream slot is read once (value + 2 index
 bytes), plus the scales, x once (local: also the referenced prefix of
@@ -305,7 +308,7 @@ def gust_spmv_db(
     y = run_kernel(
         "gust_spmv_db", "gust_spmv_db_padded", m_blocks, col_blocks,
         row_blocks, x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
-        scale_blk=scale_blk, blocks=bpw,
+        scale_blk=scale_blk, blocks=bpw, partials=True,
     )
     db_launches += 1
     return y
@@ -342,9 +345,9 @@ def gust_spmv_local_db(
     return y
 
 
-#: The library of the spread kernels of each (gather, pipeline): kernel 1,
-#: 7 (the resident ones; either layout's entry point reads this plan), 3/4
-#: and 6/8.
+#: The library of the spread kernels of each (gather, pipeline): kernels
+#: 1/2, 5/7 (the resident ones), 3/4 and 6/8; either layout's entry point
+#: reads its library's plan.
 _SPREAD_LIBS = {
     ("resident", "single"): "gust_spmv",
     ("resident", "double"): "gust_spmv_db",
@@ -356,6 +359,7 @@ _SPREAD_LIBS = {
 def spread_launch_plan(
     m_blocks: torch.Tensor,  # (T_blk*c_blk, l) values on the card
     cols: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 columns or col_loc
+    row_blocks: torch.Tensor,  # (T_blk*c_blk, l) int32/int16 adder index
     x_padded: torch.Tensor,  # (S*l, B) float32
     *,
     l: int,
@@ -367,7 +371,10 @@ def spread_launch_plan(
     stream on its card (either layout: the block kernel sees only the
     stream): CTAs per SM (from the occupancy calculator), the grid of the
     block kernel, its shared bytes per CTA, the x tiles staged per block
-    (0 for the resident gather) and the cycles per chunk, and
+    (0 for the resident gather), the cycles per chunk and the stream
+    stages (2: the slots come through the bulk-copy ring, which the
+    resident double-buffered kernels 5/7 take at B > 1 where the leaves'
+    rows are whole 16-byte runs; 0: register prefetch), and
     ``partial_bytes``, the size of the scratch of block tiles."""
     import ctypes
 
@@ -380,17 +387,19 @@ def spread_launch_plan(
         )
     name = _SPREAD_LIBS[gather, pipeline]
     b, t_blk = x_padded.shape[1], m_blocks.shape[0] // c_blk
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     lib = load(name)
     with torch.cuda.device(m_blocks.device):
         err = getattr(lib, f"{name}_plan")(
+            m_blocks.data_ptr(), cols.data_ptr(), row_blocks.data_ptr(),
             _VALUE_CODES[m_blocks.dtype], _INDEX_CODES[cols.dtype], t_blk, l,
             c_blk, b, out,
         )
     if err != 0:
         msg = lib.gust_error_string(err).decode()
         raise RuntimeError(f"{name}_plan failed: {msg} (cudaError {err})")
-    keys = ("ctas_per_sm", "grid_x", "grid_y", "smem_bytes", "stage_tiles", "chunk_cycles")
+    keys = ("ctas_per_sm", "grid_x", "grid_y", "smem_bytes", "stage_tiles",
+            "chunk_cycles", "stream_stages")
     plan = dict(zip(keys, out))
     plan["partial_bytes"] = t_blk * l * b * 4
     return plan

@@ -4,27 +4,30 @@
   kernel ``repro.kernels.gust_spmv_ragged.make_gust_spmv_ragged`` (and
   its int8 body ``_kernel_q``): the padded kernel's math over the ragged
   stream, where window ``w`` owns blocks
-  ``block_starts[w]:block_starts[w+1]``.
+  ``block_starts[w]:block_starts[w+1]``, the blocks spread over the
+  card's CTAs and each window's block tiles folded in stream order by a
+  second kernel.
 * :func:`gust_spmv_ragged_local` (``csrc/gust_spmv_local.cu``) replaces
   ``make_gust_spmv_ragged_local``: x read through the pack-time segment
   table, each block's tiles staged in shared memory at the block's own
   top (single-buffered), the blocks spread over the card's CTAs and each
   window's block tiles folded in stream order by a second kernel.
 * :func:`gust_spmv_ragged_db` (``csrc/gust_spmv_db.cu``) replaces
-  ``make_gust_spmv_ragged_db``: the same product with the next chunk of
-  the stream loaded while this one computes (double-buffered), the
-  blocks spread over the card's CTAs and each window's block tiles
-  folded in stream order by a second kernel.
+  ``make_gust_spmv_ragged_db``: the same product with the next chunks of
+  the stream copied into a ring of two shared-memory stages while this
+  one computes (double-buffered: bulk copies at B > 1 where the leaves'
+  rows are whole 16-byte runs, else the register prefetch of
+  :func:`gust_spmv_ragged`), the blocks spread over the card's CTAs and
+  each window's block tiles folded in stream order by a second kernel.
 * :func:`gust_spmv_ragged_local_db` (``csrc/gust_spmv_local_db.cu``)
   replaces ``make_gust_spmv_ragged_local_db``: x read through the
   pack-time segment table, each block's tiles staged one block ahead,
   the blocks spread over the card's CTAs and each window's block tiles
   folded in stream order by a second kernel.
 
-:func:`gust_spmv_ragged` gives each window one CTA that walks exactly its
-block range; the others (``csrc/gust_spread.cuh``) fold each window's
-block range from their scratch.  Each needs ``block_starts``, none
-``block_window``, and none uses atomics.  Bound by memory, as the padded kernels, at the
+All four (``csrc/gust_spread.cuh``) fold each window's block range from
+their scratch.  Each needs ``block_starts``, none ``block_window``, and
+none uses atomics.  Bound by memory, as the padded kernels, at the
 card's 3.35 TB/s.
 
 On a CPU tensor a wrapper runs the plain version
@@ -84,7 +87,7 @@ def gust_spmv_ragged(
     y = run_kernel(
         "gust_spmv", "gust_spmv_ragged", m_blocks, col_blocks, row_blocks,
         x_padded, num_windows=num_windows, l=l, c_blk=c_blk,
-        scale_blk=scale_blk, blocks=block_starts,
+        scale_blk=scale_blk, blocks=block_starts, partials=True,
     )
     launches += 1
     return y

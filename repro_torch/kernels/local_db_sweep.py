@@ -3,41 +3,53 @@ replaced and against variants of its source, and split their time.
 
     python -m repro_torch.kernels.local_db_sweep [--iters 20] [--parent DIR]
 
-Kernels 1 (``csrc/gust_spmv.cu``) and 7 (``csrc/gust_spmv_db.cu``), the
-resident instance, and kernels 3/4 (``csrc/gust_spmv_local.cu``, one
-x-tile stage) and 6/8 (``csrc/gust_spmv_local_db.cu``, two), the
-segment-local ones, are instances of one template,
-``csrc/gust_spread.cuh``.  The script builds variants of that header,
-made by editing its text (each edit must apply, or the script stops),
-each with the sources of the libraries it names, into
-``build/kernels/sweep_local_db/``.  With ``--parent DIR``, a checkout of
-another commit (for example the parent's ``git archive`` unpacked under
-``build/``, which the copy to the card keeps), it also builds that
-checkout's sources of the same four libraries, so that its design of
-kernels 1/7 and 3/4/6/8 is timed beside this one on the same card.
+Every SpMV kernel of the port is an instance of one template,
+``csrc/gust_spread.cuh``: kernels 1/2 (``csrc/gust_spmv.cu``, resident,
+register prefetch), 5/7 (``csrc/gust_spmv_db.cu``, resident, the
+bulk-copy stream ring), 3/4 (``csrc/gust_spmv_local.cu``, segment-local,
+one x-tile stage) and 6/8 (``csrc/gust_spmv_local_db.cu``, two).  The
+script builds variants of that header, made by editing its text (each
+edit must apply, or the script stops), each with the sources of the
+libraries it names, into ``build/kernels/sweep_local_db/``.  With
+``--parent DIR``, a checkout of another commit (for example the parent's
+``git archive`` unpacked under ``build/``, which the copy to the card
+keeps), it also builds that checkout's sources of the same four
+libraries, so that its design of every SpMV kernel is timed beside this
+one on the same card; its entry points are called with the arguments of
+the design before this one (``PARENT_SIGNATURES``: kernels 2 and 5 there
+run one CTA per window and take no scratch).
 
 On crankseg_2 at its published size (``l=256, c_blk=8``, both layouts;
 f32 and int8 at B=1 and B=8) it times with CUDA events (mean of
 ``--iters`` after 2 warm-ups):
 
-* on both schedules, kernel 1 (padded) or 7 (ragged), the
-  one-CTA-per-window kernel of the same layout that stays in the tree
-  (5 padded, 2 ragged), and the parent's kernel 1 or 7; on the padded
-  rows the variants built for kernel 1;
+* on both schedules, the resident kernels of the layout: 1 and 5
+  (padded) or 2 and 7 (ragged), each beside the parent's build of the
+  same kernel and the variants built for its library;
 * on the unbalanced schedule (where the default plan resolves the
-  segment-local gather), kernels 3/4 and 6/8, their variants and the
-  parent's builds.
+  segment-local gather), also kernels 3/4 and 6/8, their variants and
+  the parent's builds.
 
-Each kept spread kernel and each parent kernel is timed again at the end
-of its row, for the spread between calls, and each kept spread kernel is
-split into its two kernels with ``torch.profiler`` (``spread_partials``,
-the block kernel, and ``spread_fold``).  Every kernel, and every variant
-marked bitwise, must equal kernel 5 / 2 bitwise on the same artifact.
+Each kernel and each parent kernel is timed again at the end of its row,
+for the spread between calls; each kernel is split into its two kernels
+with ``torch.profiler`` (``spread_partials``, the block kernel, and
+``spread_fold``), and its launch plan (CTAs per SM, grid, stream stages)
+is recorded.  Every kernel, every parent kernel and every variant marked
+bitwise must equal this tree's kernel 1 (padded) or 2 (ragged) bitwise on
+the same artifact.
 
-* Design variants: ``cap_x2`` (kernels 3/4's one stage with the bytes of
-  6/8's two: 4 tiles at B=8 instead of 2, and 3 CTAs per SM instead of
-  4), ``serial_count`` (a block's staged tiles counted by a serial scan
-  of its table row, not a warp ballot), ``regs_x2`` (a second set of slot
+* Design variants: ``stream_registers`` (kernels 5/7 with the stream
+  ring off at B > 1 too: the register prefetch of kernels 1/2, in the
+  same library), ``ring_b1`` (kernels 5/7 with the ring at B=1 too),
+  ``ring_bytes`` (kernels 1/2 holding the shared memory of the ring
+  without using it, so their CTAs per SM and L1 are the ring's),
+  ``half_chunk`` (kernels 5/7 with chunks of 4 cycles at B=1 and 2 at
+  B=8, not 8 and 4: at l=256 a ring CTA then takes 28 KB, not 56, and
+  more CTAs fit on an SM, for twice the barriers per block),
+  ``cap_x2`` (kernels 3/4's one stage with the bytes of 6/8's two: 4
+  tiles at B=8 instead of 2, and 3 CTAs per SM instead of 4),
+  ``serial_count`` (a block's staged tiles counted by a serial scan of
+  its table row, not a warp ballot), ``regs_x2`` (a second set of slot
   registers, loaded before the products instead of after them),
   ``prefetch_l2_2`` (a ``prefetch.global.L2`` of the stream two blocks
   ahead), ``fold16`` (16 loads in flight in the fold, not 8),
@@ -73,7 +85,6 @@ import torch
 from . import _build
 from . import gust_spmv as k_pad
 from . import gust_spmv_ragged as k_rag
-from .chunk_sweep import _ms
 from .gust_spmv import run_kernel, spread_launch_plan
 
 L, C_BLK = 256, 8
@@ -81,17 +92,32 @@ L, C_BLK = 256, 8
 HEADER = "gust_spread.cuh"
 #: pipeline -> library of the segment-local kernels (3/4, 6/8).
 LIBS = {"single": "gust_spmv_local", "double": "gust_spmv_local_db"}
-#: The entry points of the parent's libraries that the sweep calls, with
-#: the argtypes of the one-CTA-per-window kernels 1 and 7 (no scratch);
-#: its segment-local entry points take what this tree's do.
+#: The entry points of the parent's libraries that the sweep calls: those
+#: of kernels 2 and 5 with the argtypes of their one-CTA-per-window design
+#: (no scratch, no block count), the others as this tree's.
 PARENT_SIGNATURES = {
-    "gust_spmv": {"gust_spmv_padded": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                  + [ctypes.c_void_p]},
-    "gust_spmv_db": {"gust_spmv_db_ragged": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                     + [ctypes.c_void_p]},
+    "gust_spmv": {
+        "gust_spmv_padded": _build.SIGNATURES["gust_spmv"]["gust_spmv_padded"],
+        # m, col, row, scale, x, y, block_starts, vdt, idt, W, l, c_blk, b, stream
+        "gust_spmv_ragged": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    },
+    "gust_spmv_db": {
+        # m, col, row, scale, x, y, vdt, idt, W, blocks_per_window, l, c_blk, b, stream
+        "gust_spmv_db_padded": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        "gust_spmv_db_ragged": _build.SIGNATURES["gust_spmv_db"]["gust_spmv_db_ragged"],
+    },
     **{lib: {f"{lib}_{layout}": _build.SIGNATURES[lib][f"{lib}_{layout}"]
              for layout in ("padded", "ragged")} for lib in LIBS.values()},
 }
+#: (layout, family) of the parent's kernels that take no scratch.
+PARENT_NO_SCRATCH = {("ragged", "single"), ("padded", "double")}
+
+_STREAM_REGISTERS = [("    if (ring_fits<V, I>(l, m, cols, row)) {", "    if (false) {")]
+_RING_B1 = [("constexpr bool kRingAt = RING > 0 && BT > 1;", "constexpr bool kRingAt = RING > 0;")]
+_RING_BYTES = [(
+    "    return smem_layout(l, BT, cc, p.cap, STAGES, RING, sizeof(V), sizeof(I)).total;",
+    "    return smem_layout(l, BT, cc, p.cap, STAGES, 2, sizeof(V), sizeof(I)).total;")]
+_HALF_CHUNK = [("  return BT == 1 ? 8 : 4;", "  return BT == 1 ? 4 : 2;")]
 
 _CAP_X2 = [("kStageBytes / (l * BT * 4)", "2 * kStageBytes / (l * BT * 4)")]
 _SERIAL_COUNT = [(
@@ -124,7 +150,10 @@ _REGS_X2 = [
     if (!last || t + 1 < tb) load_chunk(last ? t + 1 : t, last ? 0 : c0 + cc);
 """),
     ("""    const bool last = ci + 1 == nchunk;
-    if (!last || t + 1 < tb) load_chunk(last ? t + 1 : t, last ? 0 : c0 + cc);
+    if constexpr (RING == 0) {
+      // the next chunk's slots fly through the barrier and the sums
+      if (!last || t + 1 < tb) load_chunk(last ? t + 1 : t, last ? 0 : c0 + cc);
+    }
     __syncthreads();""", """    __syncthreads();"""),
 ]
 _PREFETCH_L2_2 = [
@@ -168,10 +197,9 @@ _NO_TILES = [
     ("""          n_cur = staged(slot);
           fetch_tiles(slot, n_cur);""", "          n_cur = 0;"),
 ]
-_NO_PRODUCTS = [("""        const float val = load_value<QUANT>(v[i], s);
-        if (val != 0.f) {""", """        const float val = load_value<QUANT>(v[i], s);
-        if (val == 12345.f && static_cast<int>(cl[i]) == 7 &&
-            static_cast<int>(rw[i]) == 3) {""")]
+_NO_PRODUCTS = [("""        const float val = load_value<QUANT>(slot_v(i), s);
+        if (val != 0.f) {""", """        const float val = load_value<QUANT>(slot_v(i), s);
+        if (val == 12345.f && slot_c(i) == 7 && slot_r(i) == 3) {""")]
 
 _CTAS_CAP5 = [("""  if (p.ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
 """, """  if (p.ctas_per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -202,6 +230,10 @@ LOCAL = tuple(LIBS.values())
 #: name -> (text edits of HEADER, bitwise-checked, libraries built); a
 #: variant built for gust_spmv runs as kernel 1.
 VARIANTS = {
+    "stream_registers": (_STREAM_REGISTERS, True, ("gust_spmv_db",)),
+    "ring_b1": (_RING_B1, True, ("gust_spmv_db",)),
+    "ring_bytes": (_RING_BYTES, True, ("gust_spmv",)),
+    "half_chunk": (_HALF_CHUNK, True, ("gust_spmv_db",)),
     "cap_x2": (_CAP_X2, True, ("gust_spmv_local",)),
     "serial_count": (_SERIAL_COUNT, True, ("gust_spmv_local_db",)),
     "regs_x2": (_REGS_X2, True, ("gust_spmv_local_db",)),
@@ -212,10 +244,24 @@ VARIANTS = {
     "scalar_out": (_SCALAR_OUT, True, LOCAL),
     "scalar_x": (_SCALAR_X, True, LOCAL),
     "scalar_tiles": (_SCALAR_TILES, True, LOCAL),
-    "diag_no_scratch": (_NO_SCRATCH, False, ("gust_spmv",) + LOCAL),
+    "diag_no_scratch": (_NO_SCRATCH, False, ("gust_spmv", "gust_spmv_db") + LOCAL),
     "diag_no_tiles": (_NO_TILES, False, LOCAL),
-    "diag_no_products": (_NO_PRODUCTS, False, ("gust_spmv",) + LOCAL),
+    "diag_no_products": (_NO_PRODUCTS, False, ("gust_spmv", "gust_spmv_db") + LOCAL),
 }
+
+
+def _ms(fn, iters):
+    """Mean milliseconds of ``fn`` per call over ``iters`` calls after 2
+    warm-ups, from CUDA events on the current stream."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def edited_header(edits) -> str:
@@ -238,7 +284,7 @@ def _build_variants(parent):
     variant (the library's source beside the edited header: a quoted
     include finds it first; ``csrc/`` for the other headers), and with
     ``parent`` (a checkout's root) ``("parent", library)`` for that
-    checkout's builds of kernels 1/7 and 3/4/6/8."""
+    checkout's builds of the four SpMV libraries."""
     out_dir = _build.BUILD_DIR / "sweep_local_db"
     jobs = {}
     for name, (edits, _, libs) in VARIANTS.items():
@@ -309,44 +355,49 @@ def _swapped(lib, bound, fn):
 
 
 def _kernels(art, xp, kw):
-    """name -> (library, wrapper call) of the kernels timed on ``art``:
-    ``resident`` (kernel 1 or 7), ``old`` (5 or 2), ``single`` / ``double``
-    (3/4, 6/8), and ``parent`` (the parent's kernel 1 or 7, called through
-    its own entry point, without a scratch)."""
-    if hasattr(art, "block_starts"):
-        blocks = (art.block_window, art.block_starts)
-        stream = (art.m_blk, art.col_blk, art.row_blk)
-        local = (art.m_blk, art.col_loc, art.row_blk, art.seg_blk)
-        return {
-            "resident": ("gust_spmv_db", lambda: k_rag.gust_spmv_ragged_db(
-                *stream, *blocks, xp, **kw)),
-            "old": ("gust_spmv", lambda: k_rag.gust_spmv_ragged(*stream, *blocks, xp, **kw)),
-            "single": (LIBS["single"], lambda: k_rag.gust_spmv_ragged_local(
-                *local, *blocks, xp, **kw)),
-            "double": (LIBS["double"], lambda: k_rag.gust_spmv_ragged_local_db(
-                *local, *blocks, xp, **kw)),
-            "parent": ("gust_spmv_db", lambda: run_kernel(
-                "gust_spmv_db", "gust_spmv_db_ragged", *stream, xp,
-                blocks=art.block_starts, **kw)),
-        }
+    """family -> (library, wrapper call, call of the parent's build) of the
+    kernels timed on ``art``: ``single`` / ``double`` (kernels 1 / 5 on a
+    padded artifact, 2 / 7 on a ragged one) and ``local_single`` /
+    ``local_double`` (3/4, 6/8).  The parent's kernels 2 and 5 are called
+    through their own entry points, without a scratch; its others take
+    this tree's arguments."""
     stream = (art.m_blk, art.col_blk, art.row_blk)
     local = (art.m_blk, art.col_loc, art.row_blk, art.seg_blk)
-    bpw = art.m_blk.shape[0] // (art.num_windows * art.c_blk)
-    return {
-        "resident": ("gust_spmv", lambda: k_pad.gust_spmv(*stream, xp, **kw)),
-        "old": ("gust_spmv_db", lambda: k_pad.gust_spmv_db(*stream, xp, **kw)),
-        "single": (LIBS["single"], lambda: k_pad.gust_spmv_local(*local, xp, **kw)),
-        "double": (LIBS["double"], lambda: k_pad.gust_spmv_local_db(*local, xp, **kw)),
-        "parent": ("gust_spmv", lambda: run_kernel(
-            "gust_spmv", "gust_spmv_padded", *stream, xp, blocks=bpw, **kw)),
-    }
+    if hasattr(art, "block_starts"):
+        blocks = (art.block_window, art.block_starts)
+        calls = {
+            "single": ("gust_spmv", lambda: k_rag.gust_spmv_ragged(*stream, *blocks, xp, **kw)),
+            "double": ("gust_spmv_db", lambda: k_rag.gust_spmv_ragged_db(
+                *stream, *blocks, xp, **kw)),
+            "local_single": (LIBS["single"], lambda: k_rag.gust_spmv_ragged_local(
+                *local, *blocks, xp, **kw)),
+            "local_double": (LIBS["double"], lambda: k_rag.gust_spmv_ragged_local_db(
+                *local, *blocks, xp, **kw)),
+        }
+        old = lambda: run_kernel("gust_spmv", "gust_spmv_ragged", *stream, xp,
+                                 blocks=art.block_starts, **kw)
+        layout = "ragged"
+    else:
+        bpw = art.m_blk.shape[0] // (art.num_windows * art.c_blk)
+        calls = {
+            "single": ("gust_spmv", lambda: k_pad.gust_spmv(*stream, xp, **kw)),
+            "double": ("gust_spmv_db", lambda: k_pad.gust_spmv_db(*stream, xp, **kw)),
+            "local_single": (LIBS["single"], lambda: k_pad.gust_spmv_local(*local, xp, **kw)),
+            "local_double": (LIBS["double"], lambda: k_pad.gust_spmv_local_db(
+                *local, xp, **kw)),
+        }
+        old = lambda: run_kernel("gust_spmv_db", "gust_spmv_db_padded", *stream, xp,
+                                 blocks=bpw, **kw)
+        layout = "padded"
+    return {fam: (lib, run, old if (layout, fam) in PARENT_NO_SCRATCH else run)
+            for fam, (lib, run) in calls.items()}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--parent", default=None,
-                    help="root of another checkout whose kernels 1/7 and 3/4/6/8 to time")
+                    help="root of another checkout whose SpMV kernels to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("local_db_sweep: needs a CUDA device", file=sys.stderr)
@@ -397,42 +448,42 @@ def main(argv=None) -> int:
 
 def _time_row(row, kernels, art, xp, variants, iters):
     """Fill ``row`` with the times of one artifact's kernels (see the
-    module's note); raises if one differs bitwise from kernel 5 / 2."""
+    module's note); raises if one differs bitwise from kernel 1 / 2."""
     tag = f"load_balance={row['load_balance']} {row['layout']} {row['value_dtype']} B={row['B']}"
-    want = kernels["old"][1]()
-    row["old_kernel"] = 5 if row["layout"] == "padded" else 2
-    row["old_ms"] = _ms(kernels["old"][1], iters)
-    families = ["resident"] + ([] if row["load_balance"] else ["single", "double"])
+    want = kernels["single"][1]()
+    yard = 1 if row["layout"] == "padded" else 2
+    families = ["single", "double"] + ([] if row["load_balance"] else
+                                       ["local_single", "local_double"])
     plans = {lib: key for key, lib in k_pad._SPREAD_LIBS.items()}
     for fam in families:
-        lib, run = kernels[fam]
+        lib, run, run_parent = kernels[fam]
         if not torch.equal(run(), want):
-            raise AssertionError(f"{tag}: the kept {fam} kernel differs bitwise from "
-                                 f"kernel {row['old_kernel']}")
+            raise AssertionError(f"{tag}: the {fam} kernel differs bitwise from kernel {yard}")
         row[f"{fam}_ms"] = _ms(run, iters)
         row.update({f"{fam}_{k}": v for k, v in _profile_split(run).items()})
         gather, pipeline = plans[lib]
         plan = spread_launch_plan(art.m_blk, art.col_loc if gather == "local" else art.col_blk,
-                                  xp, l=art.l, c_blk=art.c_blk, gather=gather,
+                                  art.row_blk, xp, l=art.l, c_blk=art.c_blk, gather=gather,
                                   pipeline=pipeline)
-        row[f"{fam}_ctas_per_sm"], row[f"{fam}_grid"] = plan["ctas_per_sm"], plan["grid_x"]
+        for key in ("ctas_per_sm", "grid_x", "stream_stages"):
+            row[f"{fam}_{key}"] = plan[key]
         parent = variants.get(("parent", lib))
         if parent is not None:
-            call = kernels["parent"][1] if fam == "resident" else run
-            if not torch.equal(_swapped(lib, parent[0], call), want):
+            if not torch.equal(_swapped(lib, parent[0], run_parent), want):
                 raise AssertionError(f"{tag}: the parent's {fam} kernel differs bitwise "
-                                     f"from kernel {row['old_kernel']}")
-            row[f"parent_{fam}_ms"] = _swapped(lib, parent[0], lambda: _ms(call, iters))
+                                     f"from kernel {yard}")
+            row[f"parent_{fam}_ms"] = _swapped(lib, parent[0], lambda: _ms(run_parent, iters))
         for (name, vlib), (bound, _) in variants.items():
             if vlib != lib or name == "parent":
                 continue
             if VARIANTS[name][1] and not torch.equal(_swapped(lib, bound, run), want):
                 raise AssertionError(f"{tag}: variant {name} ({lib}) differs bitwise from "
-                                     f"kernel {row['old_kernel']}")
+                                     f"kernel {yard}")
             row[f"{fam}_{name}_ms"] = _swapped(lib, bound, lambda: _ms(run, iters))
         row[f"{fam}_again_ms"] = _ms(run, iters)
         if parent is not None:
-            row[f"parent_{fam}_again_ms"] = _swapped(lib, parent[0], lambda: _ms(call, iters))
+            row[f"parent_{fam}_again_ms"] = _swapped(lib, parent[0],
+                                                     lambda: _ms(run_parent, iters))
     return row
 
 

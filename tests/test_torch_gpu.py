@@ -11,17 +11,21 @@ so its order varies) the tolerance is ``rtol=1e-5, atol=1e-5``; against
 the plain version run on the CPU (the kernel's own order) the results
 must be bitwise equal.  The double-buffered and segment-local kernels
 must also equal the single-buffered resident kernel of their layout
-bitwise on the same artifact (``torch.equal``, which takes +0 == -0).
-The SpGEMM kernel is held bitwise to its plain version on the CPU and, on
-small-integer values, to the dense product; the Buffer Filler bitwise to
-``x[col]``.  Kernels 3/4 and 6/8, which spread a window's blocks over
-the card's CTAs, are also run where CTAs hold several blocks, a window
-spans many CTAs, a block references more x tiles than their stage holds,
-and a window is empty; so are kernels 1 and 7, the resident instance of
-the same template, which must also equal the one-CTA-per-window kernels
-5 and 2 that stay in the tree.  An infinite x at a column that only padding slots
-point at leaves every kernel's rows finite and equal to the plain
-version's.
+(kernel 1 padded, 2 ragged) bitwise on the same artifact
+(``torch.equal``, which takes +0 == -0); kernels 1/2 are held to the
+plain version on the CPU and to the other pipeline (5/7).  Every SpMV
+kernel is an instance of one template that spreads the stream's blocks
+over the card's CTAs: kernels 3/4 and 6/8 are also run where CTAs hold
+several blocks, a window spans many CTAs, a block references more x
+tiles than their stage holds, and a window is empty; so are the resident
+kernels 1, 2, 5 and 7, with kernels 5/7's bulk-copy stream ring where a
+CTA's run holds fewer chunks than the ring has stages, where a block's
+last chunk is short, in int8 and int16, and where a leaf's alignment
+turns the ring off.  The SpGEMM kernel is held bitwise to its plain
+version on the CPU and, on small-integer values, to the dense product;
+the Buffer Filler bitwise to ``x[col]``.  An infinite x at a column that
+only padding slots point at leaves every kernel's rows finite and equal
+to the plain version's.
 """
 
 import dataclasses
@@ -93,7 +97,8 @@ def _plain(art, xp):
 
 
 def _run_db(art, xp, local):
-    """Kernel 5/7 (resident) or 6/8 (segment-local) on one artifact."""
+    """Kernel 5/7 (resident, the bulk-copy stream ring at B > 1 where the
+    leaves allow it) or 6/8 (segment-local) on one artifact."""
     kw = dict(num_windows=art.num_windows, l=art.l, c_blk=art.c_blk,
               scale_blk=art.scale_blk)
     if hasattr(art, "block_starts"):
@@ -177,10 +182,11 @@ def test_kernel_matches_plain(cuda, layout, vdt, idt, case):
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_db_kernel_matches_plain_and_single(cuda, local, layout, vdt, idt, case):
     """Kernels 5-8: against the plain version (card: tolerance; CPU:
-    bitwise) and bitwise against kernel 1/2 on the same artifact.  CASES
-    hold an l of 12 (rows of 12 int8/int16 values are not 16-byte
-    aligned), c_blk above the 8-cycle chunk, and B across two column
-    tiles."""
+    bitwise, the yardstick at B=1) and bitwise against kernel 1/2, the
+    resident single-buffered kernel, on the same artifact.  CASES hold an
+    l of 12 (rows of 12 int8/int16 values are not 16-byte runs: kernels
+    5/7 run without their stream ring), c_blk above the 8-cycle chunk,
+    and B across two column tiles."""
     m, n, l, c_blk, b = CASES[case]
     sched = schedule(_coo(_dense(case, m, n, 0.05)), l)
     pack = pack_ragged if layout == "ragged" else pack_schedule
@@ -535,24 +541,30 @@ def _empty_window(seed):
 #: Matrices of the spread cases: name -> (function that makes it, l).
 SPREAD_MATRICES = {
     "heavy256": (lambda: _heavy_window(0, 256, 16, 2000, 900, 60), 256),
-    "heavy128": (lambda: _heavy_window(1, 128, 48, 1500, 700, 40), 128),
+    "heavy128": (lambda: _heavy_window(1, 128, 96, 1500, 700, 40), 128),
     "many_segments_a": (lambda: _coo(_dense(7, 64, 400, 0.1)), 4),
     "many_segments_b": (lambda: _coo(_dense(8, 64, 600, 0.1)), 4),
     "empty_window": (lambda: _empty_window(5), 32),
     "odd_l": (lambda: _coo(_dense(6, 150, 200, 0.05)), 7),
     "l1024": (lambda: _coo(_dense(9, 2048, 3000, 0.01)), 1024),
+    "few_blocks": (lambda: _coo(_dense(10, 96, 120, 0.08)), 32),
 }
 #: name -> (matrix, c_blk, B, values, indices, what it exercises)
 SPREAD_CASES = {
     "heavy_window_b1": ("heavy256", 1, 1, "float32", "int32", "blocks_per_cta"),
     "heavy_window_b8_bf16_int16": ("heavy256", 1, 8, "bfloat16", "int16", "blocks_per_cta"),
     "heavy_window_b3_int8": ("heavy128", 1, 3, "int8", "int32", "blocks_per_cta"),
+    "heavy_window_b8_int8_int16": ("heavy256", 1, 8, "int8", "int16", "blocks_per_cta"),
     "over_cap_b8": ("many_segments_a", 8, 8, "float32", "int32", "over_cap"),
     "over_cap_b1_int8_int16": ("many_segments_b", 8, 1, "int8", "int16", "over_cap"),
     "empty_window_b3_int8": ("empty_window", 4, 3, "int8", "int32", "empty_window"),
     "odd_l_b3_bf16_int16": ("odd_l", 3, 3, "bfloat16", "int16", "odd_l"),
     "l1024_b1": ("l1024", 4, 1, "float32", "int32", "l1024"),
     "l1024_b8_int8": ("l1024", 4, 8, "int8", "int32", "l1024"),
+    "few_chunks_b8": ("few_blocks", 4, 8, "float32", "int32", "few_chunks"),
+    "c_blk3_b8_int8_int16": ("heavy256", 3, 8, "int8", "int16", "short_block"),
+    "c_blk6_b8": ("heavy256", 6, 8, "float32", "int32", "short_chunk"),
+    "c_blk12_b1_bf16": ("heavy256", 12, 1, "bfloat16", "int32", "short_chunk"),
 }
 _SPREAD_SCHEDULES = {}
 
@@ -588,8 +600,9 @@ def _spread_case(case, layout, device):
 def test_local_db_spread_over_ctas(cuda, case, layout, pipeline):
     """Kernels 3/4 (one x-tile stage) and 6/8 (two) spread the stream's
     blocks over the card's CTAs and fold each window's block tiles in
-    stream order: bitwise equal to kernels 1/2, to the kernels of the other
-    pipeline on the same artifact and to the plain version on the CPU,
+    stream order: bitwise equal to kernels 1/2 (the resident
+    single-buffered kernels), to the kernels of the other pipeline on the
+    same artifact and to the plain version on the CPU,
     where each CTA holds several blocks and window 0 spans many CTAs,
     where a block references more x tiles than the stage holds, where a
     ragged window is empty (one all-padding block) and a padded window is
@@ -598,8 +611,9 @@ def test_local_db_spread_over_ctas(cuda, case, layout, pipeline):
     _, c_blk, _, _, _, what = SPREAD_CASES[case]
     art_gpu, art_cpu, xp, xp_cpu, t_blk, blocks_of = _spread_case(case, layout, cuda)
     l = art_cpu.l
-    launch = k_pad.spread_launch_plan(art_gpu.m_blk, art_gpu.col_loc, xp, l=l, c_blk=c_blk,
-                                      gather="local", pipeline=pipeline)
+    launch = k_pad.spread_launch_plan(art_gpu.m_blk, art_gpu.col_loc, art_gpu.row_blk, xp,
+                                      l=l, c_blk=c_blk, gather="local", pipeline=pipeline)
+    assert launch["stream_stages"] == 0
     seg = art_cpu.seg_blk.numpy()
     tiles = 1 + (seg[:, 1:] > seg[:, :-1]).sum(axis=1)
     if what in ("blocks_per_cta", "l1024"):
@@ -629,43 +643,102 @@ def test_local_db_spread_over_ctas(cuda, case, layout, pipeline):
 
 
 #: Kernel -> (layout, pipeline) of the resident spread kernels.
-_RESIDENT_SPREAD = {1: ("padded", "single"), 7: ("ragged", "double")}
+_RESIDENT_SPREAD = {1: ("padded", "single"), 2: ("ragged", "single"),
+                    5: ("padded", "double"), 7: ("ragged", "double")}
+
+
+def _run_resident(pipeline, art, xp):
+    """Kernel 1/2 (``"single"``) or 5/7 (``"double"``) on one artifact."""
+    return _run(art, xp) if pipeline == "single" else _run_db(art, xp, local=False)
+
+
+def _ring_fits(art, b):
+    """Whether kernels 5/7 take the bulk-copy ring: at B > 1, where the
+    leaves' rows are whole 16-byte runs (beside the base pointers'
+    alignment, which the packer's tensors have)."""
+    return b > 1 and all(art.l * t.element_size() % 16 == 0
+                         for t in (art.m_blk, art.col_blk, art.row_blk))
 
 
 @pytest.mark.parametrize("kernel", sorted(_RESIDENT_SPREAD))
 @pytest.mark.parametrize(
     "case", sorted(c for c, spec in SPREAD_CASES.items() if spec[5] != "over_cap"))
 def test_resident_spread_over_ctas(cuda, case, kernel):
-    """Kernels 1 (padded) and 7 (ragged), the resident instance of the
-    spread template, spread the stream's blocks over the card's CTAs
-    (several blocks to a CTA, window 0 over many CTAs) and fold each
-    window's block tiles in stream order: an empty ragged window gives
-    zero rows, and at an odd l, at l=1024, in every value and index type
-    and at B = 1, 3 and 8 the result is bitwise equal to the
-    one-CTA-per-window kernel of the other pipeline (5 or 2) on the same
-    artifact and of the other layout on its artifact, to the segment-local
-    kernels 3/4 and 6/8, and to the plain version on the CPU."""
-    _, c_blk, _, _, _, what = SPREAD_CASES[case]
+    """Kernels 1, 2 (register prefetch), 5 and 7 (the bulk-copy stream
+    ring at B > 1 where the leaves' rows are 16-byte runs), the resident
+    instances
+    of the spread template, spread the stream's blocks over the card's
+    CTAs (several blocks to a CTA, window 0 over many CTAs; or one block
+    of one chunk to a CTA, fewer chunks than the ring's two stages) and
+    fold each window's block tiles in stream order: an empty ragged window
+    gives zero rows, and at an odd l, at l=1024, with a block's last chunk
+    short, in every value and index type and at B = 1, 3 and 8 the result
+    is bitwise equal to the plain version on the CPU (the yardstick), to
+    the kernel of the other pipeline on the same artifact, to the kernel
+    of the same pipeline and the other layout on its artifact, and to the
+    segment-local kernels 3/4 and 6/8."""
+    _, c_blk, b, _, _, what = SPREAD_CASES[case]
     layout, pipeline = _RESIDENT_SPREAD[kernel]
     art_gpu, art_cpu, xp, xp_cpu, t_blk, blocks_of = _spread_case(case, layout, cuda)
-    launch = k_pad.spread_launch_plan(art_gpu.m_blk, art_gpu.col_blk, xp, l=art_cpu.l,
-                                      c_blk=c_blk, gather="resident", pipeline=pipeline)
+    l = art_cpu.l
+    launch = k_pad.spread_launch_plan(art_gpu.m_blk, art_gpu.col_blk, art_gpu.row_blk, xp,
+                                      l=l, c_blk=c_blk, gather="resident", pipeline=pipeline)
     assert launch["stage_tiles"] == 0
+    ring = pipeline == "double" and _ring_fits(art_gpu, b)
+    assert launch["stream_stages"] == (2 if ring else 0)
+    if l in (256, 1024):
+        assert launch["stream_stages"] == (2 if pipeline == "double" and b > 1 else 0)
+    if what == "odd_l":
+        assert launch["stream_stages"] == 0
     if what in ("blocks_per_cta", "l1024"):
         assert launch["grid_x"] < t_blk / 2  # CTAs run several blocks each
     if what == "blocks_per_cta" and layout == "ragged":
         assert blocks_of[0] > 5 * np.median(blocks_of[1:])
         assert blocks_of[0] > 4 * t_blk / launch["grid_x"]  # window 0 spans many CTAs
-    counter, attr = (k_pad, "launches") if kernel == 1 else (k_rag, "db_launches")
+    if what == "few_chunks":  # one block of one chunk per CTA: fewer chunks than stages
+        assert launch["grid_x"] == t_blk and launch["chunk_cycles"] >= c_blk
+    if what == "short_chunk":  # a block's last chunk holds fewer cycles than the others
+        assert c_blk > launch["chunk_cycles"] and c_blk % launch["chunk_cycles"]
+    counter = k_pad if layout == "padded" else k_rag
+    attr = "launches" if pipeline == "single" else "db_launches"
     before = getattr(counter, attr)
-    y = _run(art_gpu, xp) if kernel == 1 else _run_db(art_gpu, xp, local=False)
+    y = _run_resident(pipeline, art_gpu, xp)
     torch.cuda.synchronize()
     assert getattr(counter, attr) == before + 1
     if what == "empty_window" and layout == "ragged":
         assert blocks_of[1] == 1 and not bool(y[1].any())
-    assert torch.equal(y, _run_db(art_gpu, xp, local=False) if kernel == 1 else _run(art_gpu, xp))
-    other = _spread_case(case, "ragged" if kernel == 1 else "padded", cuda)[0]
-    assert torch.equal(y, _run(other, xp) if kernel == 1 else _run_db(other, xp, local=False))
+    assert torch.equal(y.cpu(), _run(art_cpu, xp_cpu))
+    other = "double" if pipeline == "single" else "single"
+    assert torch.equal(y, _run_resident(other, art_gpu, xp))
+    art_other = _spread_case(case, "ragged" if layout == "padded" else "padded", cuda)[0]
+    assert torch.equal(y, _run_resident(pipeline, art_other, xp))
     assert torch.equal(y, _run_local_single(art_gpu, xp))
     assert torch.equal(y, _run_db(art_gpu, xp, local=True))
-    assert torch.equal(y.cpu(), _run(art_cpu, xp_cpu))
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("case", ["c_blk6_b8", "heavy_window_b8_int8_int16"])
+def test_stream_ring_follows_the_leaves_alignment(cuda, layout, case):
+    """Kernels 5/7 take the bulk-copy ring only where every leaf's base
+    pointer is 16-byte aligned: a value leaf moved one element off its
+    alignment (the same values, contiguous) turns the ring off in the
+    launch plan and in the launch, and the result keeps its bits (the
+    plain version on the CPU, and kernel 1/2 on the same artifact)."""
+    art_gpu, art_cpu, xp, xp_cpu, _, _ = _spread_case(case, layout, cuda)
+    flat = torch.empty(art_gpu.m_blk.numel() + 1, dtype=art_gpu.m_blk.dtype, device=cuda)
+    flat[1:].copy_(art_gpu.m_blk.flatten())
+    shifted = dataclasses.replace(art_gpu, m_blk=flat[1:].view(art_gpu.m_blk.shape))
+    assert shifted.m_blk.is_contiguous() and shifted.m_blk.data_ptr() % 16
+    plans = [k_pad.spread_launch_plan(a.m_blk, a.col_blk, a.row_blk, xp, l=a.l, c_blk=a.c_blk,
+                                      gather="resident", pipeline="double")
+             for a in (art_gpu, shifted)]
+    assert [p["stream_stages"] for p in plans] == [2, 0]
+    counter = k_pad if layout == "padded" else k_rag
+    before = counter.db_launches
+    y_ring = _run_db(art_gpu, xp, local=False)
+    y_regs = _run_db(shifted, xp, local=False)
+    torch.cuda.synchronize()
+    assert counter.db_launches == before + 2
+    assert torch.equal(y_ring, y_regs)
+    assert torch.equal(y_ring, _run(art_gpu, xp))
+    assert torch.equal(y_ring.cpu(), _run(art_cpu, xp_cpu))

@@ -155,10 +155,14 @@ def test_local_plain_takes_unordered_segment_tables(layout, vdt):
 
 def test_local_db_sweep_edits_apply_to_the_source():
     """``python -m repro_torch.kernels.local_db_sweep`` builds its variants
-    of the spread kernels (1 and 3/4, 6/8) by editing their shared template
-    ``csrc/gust_spread.cuh``; every edit must still find its text, and
-    change it, and each library a variant is built for must include that
-    template."""
+    of the spread kernels (1/2, 5/7, 3/4, 6/8) by editing their shared
+    template ``csrc/gust_spread.cuh``; every edit must still find its
+    text, and change it, and each library a variant is built for must
+    include that template.  ``stream_registers`` builds kernels 5/7 with
+    the bulk-copy ring's condition edited out (so the register prefetch
+    of kernels 1/2 runs in their library), ``ring_b1`` with the ring at
+    B=1 too, ``ring_bytes`` builds kernels 1/2 holding the ring's shared
+    memory, and the diagnostics reach kernels 5/7 too."""
     from repro_torch.kernels import _build, local_db_sweep
 
     src = (_build.CSRC / local_db_sweep.HEADER).read_text()
@@ -172,10 +176,22 @@ def test_local_db_sweep_edits_apply_to_the_source():
         for lib in libs:
             cu = (_build.CSRC / _build.SOURCES[lib]).read_text()
             assert f'#include "{local_db_sweep.HEADER}"' in cu, (name, lib)
+    edits, bitwise, libs = local_db_sweep.VARIANTS["stream_registers"]
+    assert bitwise and libs == ("gust_spmv_db",)
+    assert "ring_fits<V, I>(" in src
+    assert "ring_fits<V, I>(" not in local_db_sweep.edited_header(edits)
+    edits, bitwise, libs = local_db_sweep.VARIANTS["ring_b1"]
+    assert bitwise and libs == ("gust_spmv_db",)
+    assert "BT > 1" in src and "BT > 1" not in local_db_sweep.edited_header(edits)
+    assert local_db_sweep.VARIANTS["ring_bytes"][1:] == (True, ("gust_spmv",))
+    for name in ("diag_no_products", "diag_no_scratch"):
+        assert "gust_spmv_db" in local_db_sweep.VARIANTS[name][2], name
+    assert set(local_db_sweep.PARENT_SIGNATURES) == {
+        "gust_spmv", "gust_spmv_db", *local_db_sweep.LIBS.values()}
 
 
 def test_local_launch_plan_takes_only_a_pipeline_of_the_local_kernels():
-    """``spread_launch_plan`` reads the launch of kernel 1 or 7
+    """``spread_launch_plan`` reads the launch of kernels 1/2 or 5/7
     (``gather="resident"``) or of kernels 3/4 or 6/8 (``"local"``), of
     ``pipeline="single"`` or ``"double"``; any other gather or pipeline
     is refused before a library is built."""
@@ -186,5 +202,5 @@ def test_local_launch_plan_takes_only_a_pipeline_of_the_local_kernels():
     for gather, pipeline in (("local", "auto"), ("local", "resident"), ("local", ""),
                              ("auto", "single"), ("resident", "auto"), ("", "double")):
         with pytest.raises(ValueError, match="pipeline"):
-            k_pad.spread_launch_plan(m, col, torch.zeros(8, 1), l=4, c_blk=2,
+            k_pad.spread_launch_plan(m, col, col, torch.zeros(8, 1), l=4, c_blk=2,
                                      gather=gather, pipeline=pipeline)

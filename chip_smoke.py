@@ -49,10 +49,10 @@ Checks, each fatal:
     and resident == local (3/6 == 1, 4/8 == 2), and each single-buffered
     local kernel also against the double-buffered local one;
   * ``gather_fill`` bitwise against its plain version and ``x[col]``;
-  * ``gust_spgemm`` on G bitwise against its plain version on the card
-    (0/1 values: exact arithmetic), and on a float-valued copy of G
-    (standard normal values, seed 0) within ``1e-5 * (|A|·|B|)`` per
-    element;
+  * ``gust_spgemm`` on G, with B by row offsets as the SpGEMM path gives
+    it, bitwise against its plain version on the card (0/1 values: exact
+    arithmetic), and on a float-valued copy of G (standard normal values,
+    seed 0) within ``1e-5 * (|A|·|B|)`` per element;
   * the default plans resolve the gather named above;
   * each path launched each of its kernels (counts > 0);
   * the SpMV results against scipy in float64, per row
@@ -62,22 +62,26 @@ Checks, each fatal:
     bitwise on the load-balanced schedule, and == the local single plans
     on the unbalanced one;
   * ``triangle_count(G)`` == 583,750 == scipy's ``(G·G ⊙ G).sum() / 6``
-    in the same run; ``spgemm`` canonical and bitwise equal to the dense
+    in the same run, over a ``G·G`` of 138,116,226 nonzeros; ``spgemm`` canonical and bitwise equal to the dense
     ``G·G`` (``torch.matmul``, TF32 off) on both layouts, padded ==
     ragged; ``pagerank(G)`` converged and within 2e-5 in L1 of scipy's
     float64 iteration run to its fixed point; ``feature_propagation``
     within ``1e-4 * (|Â|·|Â|·|H|)`` per element of scipy in float64;
-  * every instance of the spread template ``gust_spread.cuh`` (kernels
-    1-8) builds without a spill (ptxas): the four SpMV libraries whole.
+  * no function of any library spills (ptxas): the four SpMV libraries,
+    ``gust_spgemm`` and ``gather_fill``.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
 bytes; the SpMV kernels 1-8, all spread over the card's CTAs, also with
 their CTAs per SM, grid, stream stages (2 where kernels 5/7 take their
 slots through the bulk-copy ring) and ``partial_bytes``, the scratch of
-block tiles that their fold reads),
-SpGEMM's wall time split (condensing B, kernel, reorder, compaction on
-the card, host copy), and as its last line
+block tiles that their fold reads; kernel 9 with its tile width ``n_t``,
+the grid of its row-tile kernel, its pre-pass and row-tile device times
+(``torch.profiler``), its longest unit and the median over its CTAs of
+each CTA's longest unit, and the longest slot-loading and product phases
+of a unit, in clock cycles),
+SpGEMM's wall time split (B's row offsets built on the card, kernel,
+reorder, compaction on the card, host copy), and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 """
@@ -145,7 +149,7 @@ SPREAD = {"gust_spmv": "single", "gust_spmv_ragged": "single",
 #: Library -> the part of a function's name that holds it to no spill
 #: (ptxas): "" for every function of the library.
 NO_SPILL = {"gust_spmv": "", "gust_spmv_local": "", "gust_spmv_local_db": "",
-            "gust_spmv_db": ""}
+            "gust_spmv_db": "", "gust_spgemm": "", "gather_fill": ""}
 #: The kernels off the SpMV path: name -> (source, TPU kernel it replaces).
 OTHER_KERNELS = {
     "gather_fill": ("gather_fill.cu", "src/repro/kernels/gather_fill.py:57"),
@@ -154,6 +158,7 @@ OTHER_KERNELS = {
 #: The SpGEMM graph G: the symmetric 0/1 pattern, without self-loops, of
 #: synth_power_law(N, density, seed=0) (the paper's synthetic size).
 G_N, G_DENSITY, G_EDGES, G_TRIANGLES = 16384, 1e-3, 377_508, 583_750
+G_GG_NNZ = 138_116_226  # nonzeros of G·G
 G_FEATURES = 64
 TOL_SPGEMM = 1e-5
 #: Which schedules each kernel's phase runs on (load_balance values): the
@@ -168,18 +173,9 @@ def log(msg):
 
 def cuda_ms(fn, iters, warmup=2):
     """Mean milliseconds of ``fn`` per call on the current stream."""
-    import torch
+    from repro_torch.kernels._sweep import ms
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return ms(fn, iters, warmup)
 
 
 def wrappers():
@@ -588,9 +584,13 @@ def main() -> int:
             f"{row['value_dtype']} B={row['B']}: kernel {row['ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
             f"library {lib}"
-            + "".join(f", {k} {row[k]}" for k in ("x_tile_bytes", "b_plane_bytes",
-                                                  "partial_bytes", "ctas_per_sm",
-                                                  "stream_stages")
+            + "".join(f", {k} {row[k]}" for k in ("x_tile_bytes", "partial_bytes",
+                                                  "ctas_per_sm", "stream_stages", "n_t",
+                                                  "grid", "prepass_ms", "row_tiles_ms",
+                                                  "longest_unit_cycles",
+                                                  "median_cta_longest_unit_cycles",
+                                                  "longest_load_cycles",
+                                                  "longest_products_cycles")
                       if row.get(k) is not None)
             + (f", grid ({row['grid_x']}, {row['grid_y']})" if "grid_x" in row else ""))
     report["variants"] = variants
@@ -616,7 +616,12 @@ def main() -> int:
         if "bound_ms_at_power_limit" in head:
             entry["bound_ms_at_power_limit"] = head["bound_ms_at_power_limit"]
         entry.update({k: head[k] for k in ("ctas_per_sm", "grid_x", "grid_y",
-                                           "stream_stages", "partial_bytes") if k in head})
+                                           "stream_stages", "partial_bytes", "n_t", "grid",
+                                           "prepass_ms", "row_tiles_ms",
+                                           "longest_unit_cycles",
+                                           "median_cta_longest_unit_cycles",
+                                           "longest_load_cycles",
+                                           "longest_products_cycles") if k in head})
         kernels.append(entry)
     report["kernels"] = kernels
 
@@ -678,9 +683,10 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
     import repro_torch
     import repro_torch.kernels.ref as plain
     from repro_torch.core.formats import COOMatrix
-    from repro_torch.core.spgemm import _stream_view, condense_rows, row_windows
+    from repro_torch.core.spgemm import _stream_view, row_offsets, row_windows
     from repro_torch.graph import feature_propagation, pagerank, triangle_count
-    from repro_torch.kernels.gust_spgemm import gust_spgemm
+    from repro_torch.kernels.gust_spgemm import gust_spgemm, spgemm_launch_plan
+    from repro_torch.kernels.spgemm_sweep import kernel9_split
 
     t0 = time.perf_counter()
     G = g_graph()
@@ -692,23 +698,23 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
     default_layout = repro_torch.plan(G, repro_torch.PlanConfig(l=L), device="cuda").layout
     for p in gplans.values():
         p.artifact
-    cond = condense_rows(G, L, device="cuda")
+    offs = row_offsets(G, L, device="cuda")
     torch.cuda.synchronize()
     sched = gplans["ragged"].sched
     cost = gplans[default_layout].spgemm_cost(G)
     info = {
-        "nodes": n, "edges": G.nnz, "k_max": cond.k_max, "windows": sched.num_windows,
+        "nodes": n, "edges": G.nnz, "k_max": cost.k_max, "windows": sched.num_windows,
         "c_max": int(sched.colors_per_window.max()), "products": cost.products,
         "slots": {k: p.artifact.streamed_slots for k, p in gplans.items()},
-        "condensed_b_bytes": cond.condensed_bytes, "default_layout": default_layout,
-        "setup_s": time.perf_counter() - t0,
+        "condensed_b_bytes": cost.b_condensed_bytes, "b_offsets_bytes": offs.nbytes,
+        "default_layout": default_layout, "setup_s": time.perf_counter() - t0,
     }
     report["G"] = info
-    log(f"G: {n} nodes, {G.nnz} edges, k_max {cond.k_max}, {sched.num_windows} windows, "
+    log(f"G: {n} nodes, {G.nnz} edges, k_max {cost.k_max}, {sched.num_windows} windows, "
         f"C_max {info['c_max']}, {cost.products} partial products, slots "
-        f"{info['slots']}, condensed B {cond.condensed_bytes} bytes; default "
-        f"PlanConfig(l={L}) resolves layout {default_layout!r}; set-up "
-        f"{info['setup_s']:.1f} s")
+        f"{info['slots']}, B by row offsets {offs.nbytes} bytes (condensed planes "
+        f"{cost.b_condensed_bytes}, not built); default PlanConfig(l={L}) resolves layout "
+        f"{default_layout!r}; set-up {info['setup_s']:.1f} s")
 
     # -- kernel phase: kernel 9 against its plain version -------------------------
     gcsr = torch.sparse_csr_tensor(
@@ -717,7 +723,7 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
         check_invariants=False)
     rng = np.random.default_rng(0)
     gfloat = COOMatrix(G.shape, G.rows, G.cols, rng.standard_normal(G.nnz).astype(np.float32))
-    cond_f = condense_rows(gfloat, L, device="cuda")
+    offs_f = row_offsets(gfloat, L, device="cuda")
     fcsr = torch.sparse_csr_tensor(gcsr.crow_indices(), gcsr.col_indices(),
                                    torch.from_numpy(gfloat.vals).cuda(), G.shape,
                                    check_invariants=False)
@@ -726,14 +732,16 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
         _, _, bs = _stream_view(art)
         window = row_windows(bs, art.c_blk)
         kw = dict(num_windows=art.num_windows, l=L, n_out=n)
-        cases = [("0/1", art.m_blk, cond, gcsr)]
+        cases = [("0/1", art.m_blk, offs, gcsr)]
         if layout == default_layout:
-            cases.append(("normal", revalue(art, window, G, gfloat.vals), cond_f, fcsr))
-        for values, m_blk, cb, lib_csr in cases:
-            args = (bs, m_blk, art.col_blk, art.row_blk, cb.vals, cb.cols)
-            pargs = (m_blk, art.col_blk, art.row_blk, window, cb.vals, cb.cols)
-            y_k = gust_spgemm(*args, **kw, c_blk=art.c_blk)
-            y_p = plain.gust_spgemm_ref(*pargs, **kw)
+            cases.append(("normal", revalue(art, window, G, gfloat.vals), offs_f, fcsr))
+        for values, m_blk, ob, lib_csr in cases:
+            args = (bs, m_blk, art.col_blk, art.row_blk, ob.vals, ob.cols)
+            pargs = (m_blk, art.col_blk, art.row_blk, window, ob.vals, ob.cols)
+            kkw = dict(kw, c_blk=art.c_blk, b_ptr=ob.ptr, real_slots=G.nnz)
+            pkw = dict(kw, b_ptr=ob.ptr)
+            y_k = gust_spgemm(*args, **kkw)
+            y_p = plain.gust_spgemm_ref(*pargs, **pkw)
             torch.cuda.synchronize()
             tag = f"gust_spgemm {layout} {values}"
             if not bool(torch.isfinite(y_k).all()):
@@ -745,7 +753,7 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
                                          f"(max abs err {err:.3e})")
             else:
                 mag = plain.gust_spgemm_ref(m_blk.abs(), art.col_blk, art.row_blk, window,
-                                            cb.vals.abs(), cb.cols, **kw)
+                                            ob.vals.abs(), ob.cols, **pkw)
                 if bool(((y_k - y_p).abs() > TOL_SPGEMM * mag).any()):
                     raise AssertionError(f"{tag}: off its plain version beyond "
                                          f"{TOL_SPGEMM} * (|A|·|B|) (max abs err {err:.3e})")
@@ -758,10 +766,16 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
             if values == "0/1":
                 row["bitwise_vs_plain"] = True
             variants.append(row)
-            moved = spgemm_bytes(art, m_blk, bs, cb, n)
-            row["b_plane_bytes"] = cb.condensed_bytes
-            timed.append((row, functools.partial(gust_spgemm, *args, **kw, c_blk=art.c_blk),
-                          functools.partial(plain.gust_spgemm_ref, *pargs, **kw),
+            moved = spgemm_bytes(art, m_blk, bs, ob, n)
+            run = functools.partial(gust_spgemm, *args, **kkw)
+            stats = {}
+            gust_spgemm(*args, **kkw, stats=stats)
+            row.update(spgemm_launch_plan(torch.device("cuda")))
+            per_cta = sorted(stats.pop("cta_longest_unit_cycles"))
+            row.update(stats, median_cta_longest_unit_cycles=per_cta[len(per_cta) // 2],
+                       shortest_cta_longest_unit_cycles=per_cta[0])
+            row.update(kernel9_split(run))
+            timed.append((row, run, functools.partial(plain.gust_spgemm_ref, *pargs, **pkw),
                           functools.partial(torch.sparse.mm, lib_csr, lib_csr),
                           (moved, 2 * cost.products)))
             log(f"kernel {tag}: max |kernel - plain| = {err:.3e}"
@@ -800,9 +814,12 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
     if tc.triangles != want_tri or tc.triangles != G_TRIANGLES:
         raise AssertionError(f"triangle_count(G) = {tc.triangles}; scipy {want_tri}, "
                              f"expected {G_TRIANGLES}")
+    if tc.spgemm_nnz != G_GG_NNZ:
+        raise AssertionError(f"triangle_count(G) saw {tc.spgemm_nnz} nonzeros in G·G, "
+                             f"not {G_GG_NNZ}")
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    gd = torch.zeros(G.shape, dtype=torch.float32, device=cond.vals.device)
+    gd = torch.zeros(G.shape, dtype=torch.float32, device=gcsr.device)
     gd[torch.from_numpy(G.rows).cuda(), torch.from_numpy(G.cols).cuda()] = 1.0
     gg = gd @ gd
     torch.backends.cuda.matmul.allow_tf32 = prev_tf32
@@ -844,18 +861,17 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
     log(f"SpGEMM path agrees: {tc.triangles} triangles (scipy {want_tri}); "
         f"spgemm == dense G·G bitwise on both layouts, padded == ragged; pagerank L1 "
         f"{pr_l1:.3e} to scipy; feature_propagation max abs err {h_err.max():.3e}")
-    return {"G": G, "plan": gplans[default_layout], "cond": cond, "info": info}
+    return {"G": G, "plan": gplans[default_layout], "info": info}
 
 
-def spgemm_bytes(art, m_blk, block_starts, cond, n_out):
+def spgemm_bytes(art, m_blk, block_starts, offs, n_out):
     """What one SpGEMM must move: A's stream and ``block_starts`` read
     once, B's real entries read once (value and column, 8 bytes each) plus
-    one 32-byte sector per condensed row to find its end, the (W, l, n_out)
-    output written once.  The rows' padding to ``k_max`` is a cost of the
-    format, printed apart as ``b_plane_bytes``, not part of the bound."""
+    one 32-byte sector per row to find its end, the (W, l, n_out) output
+    written once."""
     stream = sum(t.numel() * t.element_size()
                  for t in (m_blk, art.col_blk, art.row_blk, block_starts))
-    b_real = int((cond.vals != 0).sum()) * 8 + cond.r_rows * 32
+    b_real = int((offs.vals != 0).sum()) * 8 + offs.r_rows * 32
     return stream + b_real + art.num_windows * art.l * n_out * 4
 
 
@@ -879,14 +895,14 @@ def revalue(art, window, G, vals):
 
 
 def spgemm_wall_split(report, gemm):
-    """SpGEMM's wall time on G split into the port's own steps: condensing
-    B (host + copy), the kernel (with the memset and row-length pre-pass),
-    the reorder into original rows, the compaction on the card and the
-    copy to the host."""
+    """SpGEMM's wall time on G split into the port's own steps: B's row
+    offsets (copy of the COO and the build on the card), the kernel (with
+    its pre-pass), the reorder into original rows, the compaction on the
+    card and the copy to the host."""
     import torch
 
-    from repro_torch.core.spgemm import (compact, condense_rows, float_artifact,
-                                         to_host, to_original_rows, window_product)
+    from repro_torch.core.spgemm import (compact, float_artifact, row_offsets, to_host,
+                                         to_original_rows, window_product)
 
     G, p = gemm["G"], gemm["plan"]
     art = float_artifact(p)
@@ -899,9 +915,9 @@ def spgemm_wall_split(report, gemm):
 
     torch.cuda.synchronize()
     start = t0 = time.perf_counter()
-    cond = condense_rows(G, art.l, device=art.device)
-    t0 = mark("condense_ms", t0)
-    y = window_product(art, cond, G.shape[1])
+    offs = row_offsets(G, art.l, device=art.device)
+    t0 = mark("b_offsets_ms", t0)
+    y = window_product(art, offs, G.shape[1], real_slots=p.sched.nnz)
     t0 = mark("kernel_ms", t0)
     dense = to_original_rows(art, y, G.shape[0])
     t0 = mark("reorder_ms", t0)

@@ -360,12 +360,32 @@ def _extended_row_perm(sched: GustSchedule) -> np.ndarray:
     return row_perm
 
 
-def _stream_leaves(m_b, c_b, l, c_blk, value_dtype, index_dtype, device):
+def _check_index_range(idt: torch.dtype, n_cols: int, col_loc: np.ndarray) -> None:
+    """Raise when an int16 index leaf cannot hold the largest column
+    (``n_cols - 1``) or the largest block-local column: the cast would
+    wrap, and a kernel would then read outside x.  The reference's packer
+    wraps without a word; the port refuses at pack time."""
+    if idt != torch.int16:
+        return
+    top = torch.iinfo(torch.int16).max
+    largest_loc = int(col_loc.max()) if col_loc.size else 0
+    for what, largest in (("column", n_cols - 1), ("col_loc", largest_loc)):
+        if largest > top:
+            raise ValueError(
+                f"index_dtype='int16' cannot hold the largest {what} {largest} "
+                f"(int16 stops at {top}): pack with index_dtype='int32'"
+            )
+
+
+def _stream_leaves(m_b, c_b, l, c_blk, value_dtype, index_dtype, device, n_cols):
     """Leaves shared by both layouts: values (quantized when int8), column
-    and row streams' gather tables, and the per-block scales."""
+    and row streams' gather tables, and the per-block scales.  Raises
+    before any leaf is made when the index dtype cannot hold a column of
+    the ``n_cols``-column matrix."""
     vdt = _lookup(VALUE_DTYPES, value_dtype, "value")
     idt = _lookup(INDEX_DTYPES, index_dtype, "index")
     seg_blk, col_loc, s_blk = _local_gather_tables(c_b, l, c_blk)
+    _check_index_range(idt, n_cols, col_loc)
     scale = None
     if vdt == torch.int8:
         m_b, scale = _quantize_stream(m_b, c_blk)
@@ -392,7 +412,7 @@ def pack_schedule(
     m_b, c_b, r_b, c_pad, fusable = pack_blocks(sched, c_blk)
     row_perm = _extended_row_perm(sched)
     m_t, c_t, seg_t, loc_t, s_blk, scale, idt = _stream_leaves(
-        m_b, c_b, l, c_blk, value_dtype, index_dtype, device
+        m_b, c_b, l, c_blk, value_dtype, index_dtype, device, sched.shape[1]
     )
     return PackedSchedule(
         m_blk=m_t,
@@ -471,7 +491,7 @@ def pack_ragged(
     block_window = np.repeat(np.arange(W, dtype=np.int32), bpw)
     row_perm = _extended_row_perm(sched)
     m_t, c_t, seg_t, loc_t, s_blk, scale, idt = _stream_leaves(
-        m_b, c_b, l, c_blk, value_dtype, index_dtype, device
+        m_b, c_b, l, c_blk, value_dtype, index_dtype, device, sched.shape[1]
     )
     return RaggedSchedule(
         m_blk=m_t,

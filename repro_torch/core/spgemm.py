@@ -4,10 +4,14 @@ Counterpart of ``repro.core.spgemm``.  Plan A is scheduled once into a
 stream of conflict-free ``(c_blk, l)`` multiply blocks; for SpGEMM each
 slot ``(a = A[i, j], row, col = j)`` gathers a **row of B** where SpMV
 gathers ``x[j]`` (SpArch's streamed outer products), and the per-window
-accumulator tile becomes ``(l, n_out)``.  B is carried in the
-condensed-row format (:func:`condense_rows`): every row padded to
-``k_max`` ``(value, column)`` pairs, so the streamed B bytes scale with
-``nnz(B)`` (``R·k_max·8``) instead of the densified ``R·n_out·4``.
+accumulator tile becomes ``(l, n_out)``.  B reaches the kernel by row
+offsets (:func:`row_offsets`, built on the plan's device from the COO:
+its real entries row by row, 8 bytes each), so the B bytes scale with
+``nnz(B)``, not with the densified ``R·n_out·4`` nor with the
+reference's condensed-row planes (:func:`condense_rows`, every row padded
+to ``k_max`` pairs: 919 MB for a power-law graph of 16,384 nodes), which
+the kernel also takes.  Row ``j`` of the offsets is the real prefix of
+row ``j`` of the planes, bit for bit.
 
 The plan's device picks the path: on the card the CUDA kernel
 (:func:`repro_torch.kernels.gust_spgemm.gust_spgemm`), on the CPU its
@@ -30,7 +34,7 @@ float tolerance (their summation orders differ).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +45,8 @@ from .packing import RaggedSchedule, resolve_device
 __all__ = [
     "CondensedB",
     "condense_rows",
+    "RowOffsetsB",
+    "row_offsets",
     "SpgemmCost",
     "spgemm_cost",
     "spgemm",
@@ -113,6 +119,64 @@ def condense_rows(b: COOMatrix, l: int, device="cuda") -> CondensedB:
         k_max=k_max,
         r_rows=r_rows,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class RowOffsetsB:
+    """B by row offsets: row ``j`` is entries ``ptr[j]:ptr[j+1]`` of
+    ``vals``/``cols`` (its merged entries, columns ascending), for
+    ``r_rows = ceil(k / l) * l`` rows as :class:`CondensedB` has (the rows
+    past ``k`` are empty)."""
+
+    ptr: torch.Tensor  # (r_rows + 1,) int64
+    vals: torch.Tensor  # (nnz,) f32
+    cols: torch.Tensor  # (nnz,) int32
+    r_rows: int
+
+    @property
+    def nbytes(self) -> int:
+        return int((self.r_rows + 1) * 8 + self.vals.numel() * (4 + 4))
+
+
+def row_offsets(b: COOMatrix, l: int, device="cuda") -> RowOffsetsB:
+    """B by row offsets for a length-``l`` plan, built on ``device`` from
+    the COO: the rows of :func:`condense_rows`'s planes without their
+    padding, bit for bit.
+
+    A stable sort on ``row * n + col`` puts each row's entries in column
+    order and keeps a cell's duplicates in their order in ``b``, which is
+    their order in ``b.sorted_by_row()``; the duplicates are then summed
+    in f32 from +0 in that order, as ``condense_rows``'s ``np.add.at``
+    sums them (a sum of 0 stays an entry there and here).  Pass ``t`` adds
+    the ``t``-th term of every cell that has one: with the cells ordered
+    by their count of terms, most first, those are a prefix, so the passes
+    together touch each entry once."""
+    device = resolve_device(device)
+    k, n = b.shape
+    r_rows = max(-(-k // l), 1) * l
+    ptr = torch.zeros(r_rows + 1, dtype=torch.int64, device=device)
+    if b.nnz == 0:
+        return RowOffsetsB(ptr=ptr, vals=torch.zeros(0, dtype=torch.float32, device=device),
+                           cols=torch.zeros(0, dtype=torch.int32, device=device),
+                           r_rows=r_rows)
+    rows, cols, vals = (torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
+                        for a, dt in ((b.rows, np.int64), (b.cols, np.int64),
+                                      (b.vals, np.float32)))
+    key, order = torch.sort(rows * n + cols, stable=True)
+    cells, terms = torch.unique_consecutive(key, return_counts=True)
+    first = torch.cumsum(terms, 0) - terms
+    vals = vals[order]
+    most, by_terms = torch.sort(terms, descending=True, stable=True)
+    first = first[by_terms]
+    # cells with more than t terms, for every t below the most terms of a cell
+    having = torch.bincount(most).flip(0).cumsum(0).flip(0)[1:].tolist()
+    acc_by_terms = torch.zeros(cells.numel(), dtype=torch.float32, device=device)
+    for t, live in enumerate(having):
+        acc_by_terms[:live] += vals[first[:live] + t]
+    acc = torch.empty_like(acc_by_terms)
+    acc[by_terms] = acc_by_terms
+    torch.cumsum(torch.bincount(cells // n, minlength=r_rows), 0, out=ptr[1:])
+    return RowOffsetsB(ptr=ptr, vals=acc, cols=(cells % n).to(torch.int32), r_rows=r_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,14 +339,18 @@ def float_artifact(plan_a):
     return art
 
 
-def window_product(art, cond: CondensedB, n_out: int) -> torch.Tensor:
+def window_product(art, b: Union[RowOffsetsB, CondensedB], n_out: int,
+                   real_slots=None) -> torch.Tensor:
     """The ``(W, l, n_out)`` f32 window accumulators of ``A @ B`` over
-    A's stream ``art`` and B's condensed planes ``cond``."""
+    A's stream ``art`` and B by row offsets or as condensed planes;
+    ``real_slots`` (at least A's nonzeros) sizes the kernel's copy of A's
+    real slots."""
     from ..kernels.gust_spgemm import gust_spgemm
 
     _, _, bs = _stream_view(art)
     return gust_spgemm(
-        bs, art.m_blk, art.col_blk, art.row_blk, cond.vals, cond.cols,
+        bs, art.m_blk, art.col_blk, art.row_blk, b.vals, b.cols,
+        b_ptr=b.ptr if isinstance(b, RowOffsetsB) else None, real_slots=real_slots,
         num_windows=art.num_windows, l=art.l, n_out=n_out, c_blk=art.c_blk,
     )
 
@@ -306,8 +374,9 @@ def spgemm_dense(plan_a, other) -> torch.Tensor:
     b = _as_coo(other)
     m, _, n_out = _check_shapes(plan_a, b)
     art = float_artifact(plan_a)
-    cond = condense_rows(b, art.l, device=art.device)
-    return to_original_rows(art, window_product(art, cond, n_out), m)
+    offsets = row_offsets(b, art.l, device=art.device)
+    y = window_product(art, offsets, n_out, real_slots=plan_a.sched.nnz)
+    return to_original_rows(art, y, m)
 
 
 def compact(c_dense: torch.Tensor):

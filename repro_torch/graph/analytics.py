@@ -4,9 +4,9 @@ Counterpart of ``repro.graph.analytics``, with the reference's signatures
 plus ``device`` (default ``"cuda"``), forwarded to every ``plan()``.
 The workloads are plan-amortized: PageRank schedules the transition
 matrix once and runs tens of ``spmv`` iterations against it; triangle
-counting is one :meth:`GustPlan.spgemm` (``A·A``) masked by A's own
-pattern; GNN feature propagation schedules the normalized adjacency once
-and applies it per layer through ``spmm``.
+counting is one SpGEMM (``A·A``, kept dense on the plan's device) read
+at A's own edges there; GNN feature propagation schedules the normalized
+adjacency once and applies it per layer through ``spmm``.
 
 The adjacency handling:
 
@@ -34,6 +34,7 @@ import torch
 
 from ..core.formats import COOMatrix, coo_from_dense
 from ..core.plan import PlanConfig, plan
+from ..core.spgemm import spgemm_dense
 
 __all__ = [
     "PageRankResult",
@@ -166,14 +167,17 @@ class TriangleCountResult:
 def triangle_count(
     adj, *, config: Optional[PlanConfig] = None, device="cuda"
 ) -> TriangleCountResult:
-    """Count triangles via ``A·A`` masked by ``A``: one
-    :meth:`GustPlan.spgemm` plus a host-side mask.
+    """Count triangles via ``A·A`` masked by ``A``: the SpGEMM kernel's
+    dense ``A·A`` on the plan's device, read there at A's edges; only the
+    per-node sums and the product's nonzero count cross to the host.
 
     ``adj`` is read as an undirected simple graph: the pattern is
     binarized, symmetrized and stripped of self-loops first.  With A the
     resulting 0/1 symmetric adjacency, ``(A·A)[i, j]`` counts the common
     neighbours of ``i`` and ``j``; restricted to actual edges and summed
-    it counts each triangle 6 times (3 edges × 2 directions)."""
+    it counts each triangle 6 times (3 edges × 2 directions).
+    ``spgemm_nnz`` is the nonzero count of ``A·A``, the ``nnz`` of
+    :meth:`GustPlan.spgemm`'s result."""
     A = _pattern(_as_adjacency(adj), symmetrize=True, drop_diagonal=True)
     n = A.shape[0]
     if A.nnz == 0:
@@ -182,19 +186,16 @@ def triangle_count(
             _degrees=np.zeros(n, np.int64),
         )
     p = plan(A, config, device=device)
-    AA = p.spgemm(A)
-    # mask A·A by A's pattern on (row, col) keys
-    edge_keys = A.rows * np.int64(n) + A.cols
-    prod_keys = AA.rows * np.int64(n) + AA.cols
-    on_edge = np.isin(prod_keys, edge_keys)
-    masked_vals = AA.vals[on_edge]
-    per_node = np.zeros(n, np.int64)
-    np.add.at(per_node, AA.rows[on_edge],
-              np.rint(masked_vals).astype(np.int64))
-    per_node //= 2  # each triangle at vertex i closes 2 of i's edge slots
+    AA = spgemm_dense(p, A)
+    rows = torch.from_numpy(A.rows).to(AA.device)
+    on_edge = torch.round(AA[rows, torch.from_numpy(A.cols).to(AA.device)]).long()
+    per_node = torch.zeros(n, dtype=torch.int64, device=AA.device)
+    per_node.index_add_(0, rows, on_edge)
+    # each triangle at vertex i closes 2 of i's edge slots
+    per_node = per_node.cpu().numpy() // 2
     total = int(per_node.sum()) // 3
     return TriangleCountResult(
-        total, per_node, AA.nnz, _degrees=A.row_nnz(),
+        total, per_node, int(torch.count_nonzero(AA)), _degrees=A.row_nnz(),
     )
 
 

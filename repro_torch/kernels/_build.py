@@ -85,9 +85,13 @@ SIGNATURES = {
     "gust_spmv": _resident_spread("gust_spmv"),
     "gust_spmv_local": _local_spread("gust_spmv_local"),
     "gust_spgemm": {
-        # m, col, row, block_starts, b_vals, b_cols, lengths, y, vdt, idt, W,
-        # l, c_blk, r_rows, k_max, n_out, stream
-        "gust_spgemm": [_P] * 8 + [_I] * 8 + [_P],
+        # m, col, row, block_starts, b_vals, b_cols, b_ptr, work, y, stats,
+        # vdt, idt, W, l, c_blk, rows, r_rows, k_max, n_out, slots, stream
+        "gust_spgemm": [_P] * 10 + [_I] * 9 + [_L, _P],
+        # W, l, c_blk, rows, r_rows, n_out, slots, bytes[1]
+        "gust_spgemm_workspace": [_I, _I, _I, _L, _I, _I, _L, _P],
+        # out[5]
+        "gust_spgemm_plan": [_P],
     },
     "gather_fill": {
         # col, x, out, idt, slots, b, stream

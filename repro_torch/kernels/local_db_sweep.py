@@ -85,6 +85,7 @@ import torch
 from . import _build
 from . import gust_spmv as k_pad
 from . import gust_spmv_ragged as k_rag
+from ._sweep import bind_other, edited, ms, nvcc_all, profile_split, swapped
 from .gust_spmv import run_kernel, spread_launch_plan
 
 L, C_BLK = 256, 8
@@ -250,28 +251,9 @@ VARIANTS = {
 }
 
 
-def _ms(fn, iters):
-    """Mean milliseconds of ``fn`` per call over ``iters`` calls after 2
-    warm-ups, from CUDA events on the current stream."""
-    for _ in range(2):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def edited_header(edits) -> str:
     """HEADER's text with ``edits`` applied; raises if one finds no text."""
-    text = (_build.CSRC / HEADER).read_text()
-    for old, new in edits:
-        if old not in text:
-            raise RuntimeError("an edit no longer applies to " + HEADER)
-        text = text.replace(old, new)
-    return text
+    return edited((_build.CSRC / HEADER).read_text(), edits, HEADER)
 
 
 def _spills(log):
@@ -296,62 +278,24 @@ def _build_variants(parent):
             shutil.copyfile(_build.CSRC / _build.SOURCES[lib], cu)
             jobs[name, lib] = (cu, vdir / f"lib{lib}.so", ["-I", str(_build.CSRC)])
     if parent is not None:
-        vdir = out_dir / "parent"
-        vdir.mkdir(parents=True, exist_ok=True)
         csrc = Path(parent).resolve() / "repro_torch" / "kernels" / "csrc"
         for lib in PARENT_SIGNATURES:
-            jobs["parent", lib] = (csrc / _build.SOURCES[lib], vdir / f"lib{lib}.so", [])
-    procs = {key: (subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, *inc, "-o", str(so), str(cu)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-        for key, (cu, so, inc) in jobs.items()}
+            jobs["parent", lib] = (csrc / _build.SOURCES[lib],
+                                   out_dir / "parent" / f"lib{lib}.so", [])
+    logs = nvcc_all(jobs)
     libs = {}
-    for (name, lib), (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name} ({lib}):\n{log}")
-        if name == "parent":
-            bound = ctypes.CDLL(str(so))
-            for fn, argtypes in PARENT_SIGNATURES[lib].items():
-                getattr(bound, fn).argtypes = argtypes
-                getattr(bound, fn).restype = ctypes.c_int
-            bound.gust_error_string.argtypes = [ctypes.c_int]
-            bound.gust_error_string.restype = ctypes.c_char_p
-        else:
-            bound = _build.bind(so, lib)
-        libs[name, lib] = (bound, _spills(log))
+    for (name, lib), (_, so, _) in jobs.items():
+        bound = (bind_other(so, PARENT_SIGNATURES[lib]) if name == "parent"
+                 else _build.bind(so, lib))
+        libs[name, lib] = (bound, _spills(logs[name, lib]))
     return libs
 
 
 def _profile_split(fn):
     """Device microseconds per call of the two kernels of one call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for evt in prof.key_averages():
-        for tag in ("spread_partials", "spread_fold"):
-            if tag in evt.key:
-                total = getattr(evt, "device_time_total", None)
-                if total is None:
-                    total = evt.cuda_time_total
-                split[f"{tag}_us"] = total / max(evt.count, 1)
-    return split
-
-
-def _swapped(lib, bound, fn):
-    """Call ``fn`` with library ``lib`` bound to ``bound``."""
-    kept = _build.load(lib)
-    _build._LIBS[lib] = bound
-    try:
-        return fn()
-    finally:
-        _build._LIBS[lib] = kept
+    tags = ("spread_partials", "spread_fold")
+    split = profile_split(fn, tags, calls=10)
+    return {f"{tag}_us": split[tag] * 1e3 for tag in tags if split[tag]}
 
 
 def _kernels(art, xp, kw):
@@ -459,7 +403,7 @@ def _time_row(row, kernels, art, xp, variants, iters):
         lib, run, run_parent = kernels[fam]
         if not torch.equal(run(), want):
             raise AssertionError(f"{tag}: the {fam} kernel differs bitwise from kernel {yard}")
-        row[f"{fam}_ms"] = _ms(run, iters)
+        row[f"{fam}_ms"] = ms(run, iters)
         row.update({f"{fam}_{k}": v for k, v in _profile_split(run).items()})
         gather, pipeline = plans[lib]
         plan = spread_launch_plan(art.m_blk, art.col_loc if gather == "local" else art.col_blk,
@@ -469,21 +413,21 @@ def _time_row(row, kernels, art, xp, variants, iters):
             row[f"{fam}_{key}"] = plan[key]
         parent = variants.get(("parent", lib))
         if parent is not None:
-            if not torch.equal(_swapped(lib, parent[0], run_parent), want):
+            if not torch.equal(swapped(lib, parent[0], run_parent), want):
                 raise AssertionError(f"{tag}: the parent's {fam} kernel differs bitwise "
                                      f"from kernel {yard}")
-            row[f"parent_{fam}_ms"] = _swapped(lib, parent[0], lambda: _ms(run_parent, iters))
+            row[f"parent_{fam}_ms"] = swapped(lib, parent[0], lambda: ms(run_parent, iters))
         for (name, vlib), (bound, _) in variants.items():
             if vlib != lib or name == "parent":
                 continue
-            if VARIANTS[name][1] and not torch.equal(_swapped(lib, bound, run), want):
+            if VARIANTS[name][1] and not torch.equal(swapped(lib, bound, run), want):
                 raise AssertionError(f"{tag}: variant {name} ({lib}) differs bitwise from "
                                      f"kernel {yard}")
-            row[f"{fam}_{name}_ms"] = _swapped(lib, bound, lambda: _ms(run, iters))
-        row[f"{fam}_again_ms"] = _ms(run, iters)
+            row[f"{fam}_{name}_ms"] = swapped(lib, bound, lambda: ms(run, iters))
+        row[f"{fam}_again_ms"] = ms(run, iters)
         if parent is not None:
-            row[f"parent_{fam}_again_ms"] = _swapped(lib, parent[0],
-                                                     lambda: _ms(run_parent, iters))
+            row[f"parent_{fam}_again_ms"] = swapped(lib, parent[0],
+                                                     lambda: ms(run_parent, iters))
     return row
 
 

@@ -79,7 +79,9 @@ def execute_spmm(
     the padded layout's unquantized resident path (a ragged stream's block
     height is fixed at pack time; an override on a quantized or local
     padded stream raises).  ``transpose_io=True`` takes and returns
-    batch-major arrays: x (B, n) -> y (B, m).
+    batch-major arrays: x (B, n) -> y (B, m).  An x with no column
+    (B = 0) gives the empty ``(m, 0)`` (or ``(0, m)``) result and launches
+    nothing, as the reference's kernel path does.
 
     ``gather`` and ``pipeline`` are the reference's knobs, routed as the
     reference routes its kernels: on the card, ``pipeline="double"`` (and
@@ -134,6 +136,9 @@ def execute_spmm(
             )
     local = gather == "local"
     double = pipeline != "single"
+    if x.shape[1] == 0:  # an empty batch: nothing to launch
+        y = torch.zeros(m, 0, dtype=x.dtype, device=x.device)
+        return y.T if transpose_io else y
 
     xp = _prep_x(x, n, l)
     # the execute-time c_blk applies only to the padded resident unquantized

@@ -28,9 +28,9 @@ array (gigabytes at a real matrix's size); the values are the same.
 
 :func:`gust_spgemm_ref` is the plain SpGEMM: it walks the stream's real
 slots (``m != 0``) in stream order, a bounded chunk at a time, and adds
-every partial product ``a * b`` into a flat ``W*l*n_out`` accumulator —
-on the CPU in the kernel's own order (one stream cycle after another;
-within a cycle no two products share a cell).
+every partial product ``a * b`` into a flat ``W*l*n_out`` accumulator (B
+as condensed planes or by row offsets): on the CPU each cell's terms in
+stream order from +0, the kernel's own order.
 """
 
 from __future__ import annotations
@@ -219,9 +219,27 @@ def gust_spmv_ragged_local_ref(
 
 
 #: Most partial products :func:`gust_spgemm_ref` materializes at once
-#: (slots x ``k_max``): about 24 bytes each across its temporaries, so
-#: about 0.8 GB at this cap, whatever the stream's length.
+#: (slots x B's longest row): about 40 bytes each across its temporaries,
+#: so about 1.3 GB at this cap, whatever the stream's length.
 SPGEMM_REF_CHUNK = 1 << 25
+
+
+def _b_rows_of(col, b_vals, b_cols, b_ptr):
+    """The entries of B's rows ``col`` (one per slot), flat in slot order:
+    ``(slot of each entry, value, column)``.  Planes (``b_ptr`` None): every
+    row's ``k_max`` pairs, padding included; offsets: the row's entries."""
+    dev = col.device
+    if b_ptr is None:
+        k_max = b_vals.shape[1]
+        rep = torch.arange(col.numel(), device=dev).repeat_interleave(k_max)
+        return rep, b_vals.index_select(0, col).reshape(-1), \
+            b_cols.index_select(0, col).reshape(-1)
+    start = b_ptr[col]
+    n = b_ptr[col + 1] - start
+    rep = torch.repeat_interleave(torch.arange(col.numel(), device=dev), n)
+    first = torch.cumsum(n, 0) - n  # each slot's first entry in the flat list
+    e = start[rep] + torch.arange(rep.numel(), device=dev) - first[rep]
+    return rep, b_vals[e], b_cols[e]
 
 
 def gust_spgemm_ref(
@@ -229,36 +247,41 @@ def gust_spgemm_ref(
     col_blocks: torch.Tensor,  # (T*c_blk, l) ORIGINAL A columns (B row ids)
     row_blocks: torch.Tensor,  # (T*c_blk, l) adder index
     window: torch.Tensor,  # (T*c_blk,) window id of each stream row
-    b_vals: torch.Tensor,  # (R, k_max) condensed B row values (0 in padding)
-    b_cols: torch.Tensor,  # (R, k_max) condensed B row columns (0 in padding)
+    b_vals: torch.Tensor,  # (R, k_max) B planes, or (nnz,) with b_ptr
+    b_cols: torch.Tensor,  # (R, k_max) B planes, or (nnz,) with b_ptr
     *,
     num_windows: int,
     l: int,
     n_out: int,
+    b_ptr: torch.Tensor = None,  # (R + 1,) int64 row offsets of B
 ) -> torch.Tensor:
     """Plain SpGEMM through A's color-block stream, the reference
-    oracle's arguments and result: each slot ``(a, row, col=j)`` gathers
-    B's condensed row ``j``, multiplies its values by ``a`` and adds each
-    product into ``(window*l + row, b_col)``.  Returns (W, l, n_out) f32.
+    oracle's arguments and result: each slot ``(a, row, col=j)`` takes B's
+    row ``j``, multiplies its values by ``a`` and adds each product into
+    ``(window*l + row, b_col)``.  Returns (W, l, n_out) f32.
 
-    Slots with ``a == 0`` (padding) add ±0 and are dropped before the
-    gather; the rest go in chunks of at most :data:`SPGEMM_REF_CHUNK`
+    B comes as the condensed planes (row ``j`` is ``k_max`` pairs, padding
+    ``(0, 0)`` included, which adds ±0 into column 0) or, with ``b_ptr``,
+    by row offsets into flat arrays: the same sums either way.  Slots with
+    ``a == 0`` (padding) add ±0 and are dropped before the gather; the rest
+    go in stream order, in chunks of at most :data:`SPGEMM_REF_CHUNK`
     products, so memory does not grow with the stream."""
     dev = m_blocks.device
-    k_max = b_vals.shape[1]
     y = torch.zeros(num_windows * l * n_out, dtype=torch.float32, device=dev)
     if n_out == 0:  # no cell to add into (B's padding plane still has one column)
         return y.reshape(num_windows, l, 0)
+    if b_ptr is None:
+        k_max = b_vals.shape[1]
+    else:
+        k_max = int((b_ptr[1:] - b_ptr[:-1]).max()) if b_ptr.numel() > 1 else 0
     m_flat = m_blocks.reshape(-1).float()
     slots = torch.nonzero(m_flat).squeeze(1)  # stream order
     cols, rows = col_blocks.reshape(-1), row_blocks.reshape(-1)
-    vals, bcols = b_vals.float(), b_cols
     per = max(1, SPGEMM_REF_CHUNK // max(k_max, 1))
     for s0 in range(0, slots.numel(), per):
         s = slots[s0:s0 + per]
-        col = cols[s].long()
-        part = m_flat[s][:, None] * vals.index_select(0, col)  # (n, k_max)
+        rep, bv, bc = _b_rows_of(cols[s].long(), b_vals.float(), b_cols, b_ptr)
+        part = m_flat[s][rep] * bv
         adder = window[s // l].long() * l + rows[s].long()
-        idx = adder[:, None] * n_out + bcols.index_select(0, col).long()
-        y.index_add_(0, idx.reshape(-1), part.reshape(-1))
+        y.index_add_(0, adder[rep] * n_out + bc.long(), part)
     return y.reshape(num_windows, l, n_out)

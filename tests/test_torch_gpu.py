@@ -22,13 +22,19 @@ kernels 1, 2, 5 and 7, with kernels 5/7's bulk-copy stream ring where a
 CTA's run holds fewer chunks than the ring has stages, where a block's
 last chunk is short, in int8 and int16, and where a leaf's alignment
 turns the ring off.  The SpGEMM kernel is held bitwise to its plain
-version on the CPU and, on small-integer values, to the dense product;
-the Buffer Filler bitwise to ``x[col]``.  An infinite x at a column that
-only padding slots point at leaves every kernel's rows finite and equal
-to the plain version's.
+version on the CPU (on normal values too, at every tile width, with B by
+row offsets built on the card and as planes, on a hub row whose slots span
+hundreds of cycles, an empty window, one output column and empty B rows)
+and, on small-integer values, to the dense product; the Buffer Filler
+bitwise to ``x[col]`` on each of its paths, from an x off 16-byte
+alignment too.  An infinite x at a column that only padding slots point at
+leaves every kernel's rows finite and equal to the plain version's.  An
+int16 pack that cannot hold a column raises before any launch, and
+``spmm`` with an x of no column launches nothing.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -43,7 +49,7 @@ from repro_torch.core.formats import COOMatrix, dense_from_coo
 from repro_torch.core.packing import pack_ragged, pack_schedule
 from repro_torch.core.plan import PlanConfig, plan
 from repro_torch.core.scheduler import schedule
-from repro_torch.core.spgemm import _stream_view, condense_rows, row_windows
+from repro_torch.core.spgemm import _stream_view, condense_rows, row_offsets, row_windows
 from repro_torch.kernels.ref import _local_columns
 from repro_torch.kernels.ops import _prep_x
 
@@ -742,3 +748,199 @@ def test_stream_ring_follows_the_leaves_alignment(cuda, layout, case):
     assert torch.equal(y_ring, y_regs)
     assert torch.equal(y_ring, _run(art_gpu, xp))
     assert torch.equal(y_ring.cpu(), _run(art_cpu, xp_cpu))
+
+
+def _skewed_spgemm(seed, n_out, l=32, b_row=4.0, empty_window=False):
+    """A (hub row of 600 entries among rows of ~8: its slots span hundreds of
+    cycles; with ``empty_window`` its second window, rows l..2l-1, holds no
+    entry) and B (k x n_out, ``b_row`` entries a row on average, some rows
+    empty), both with normal f32 values."""
+    rng = np.random.default_rng(seed)
+    m, k = 3 * l, 800
+
+    def degree(r):
+        return 600 if r == 5 else 0 if empty_window and l <= r < 2 * l else 8
+
+    cols = [np.sort(rng.choice(k, size=degree(r), replace=False)) for r in range(m)]
+    rows = np.repeat(np.arange(m), [c.size for c in cols])
+    a = COOMatrix((m, k), rows.astype(np.int64), np.concatenate(cols).astype(np.int64),
+                  rng.standard_normal(rows.size).astype(np.float32))
+    bd = ((rng.random((k, n_out)) < min(1.0, b_row / n_out))
+          * rng.standard_normal((k, n_out))).astype(np.float32)
+    bd[rng.choice(k, size=k // 10, replace=False)] = 0.0  # empty B rows
+    bd[0, :] = rng.standard_normal(n_out)  # a full row: every tile of every A row 0 hits
+    return a, _coo(bd)
+
+
+#: case -> (n_out, B's mean entries a row, whether A has an empty window):
+#: a slot's entries in a tile take one round of the kernel when few, many
+#: rounds when hundreds.
+SPGEMM_CARD_CASES = {"skewed": (2100, 4.0, False), "n_out_1": (1, 4.0, False),
+                     "n_out_1030": (1030, 4.0, False), "dense_b": (700, 350.0, False),
+                     "empty_window": (1030, 4.0, True)}
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt,idt", [("float32", "int32"), ("float32", "int16"),
+                                     ("bfloat16", "int32"), ("bfloat16", "int16")])
+@pytest.mark.parametrize("case", sorted(SPGEMM_CARD_CASES))
+def test_spgemm_kernel_bitwise_on_normal_values(cuda, case, layout, vdt, idt):
+    """Kernel 9 on normal f32 values, bitwise against its plain version on
+    the CPU (which sums each cell in stream order), with B by row offsets
+    (built on the card, bitwise as on the CPU) and as planes, its copy of
+    A's real slots sized by the stream or by A's nonzeros: a hub row whose
+    slots span hundreds of cycles, ``n_out`` of 1 and of no multiple of the
+    tile width, empty B rows, B rows of hundreds of entries (several rounds
+    a slot) and an empty window (its rows' tiles are zeros)."""
+    n_out, b_row, empty_window = SPGEMM_CARD_CASES[case]
+    a, b = _skewed_spgemm(len(case), n_out, b_row=b_row, empty_window=empty_window)
+    sched = schedule(a, 32, workers=1)
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    art_gpu, art_cpu = (pack(sched, 4, vdt, idt, device=d) for d in (cuda, "cpu"))
+    assert int(sched.colors_per_window.max()) >= 600  # the hub row's cycles
+    want = _run_spgemm(art_cpu, condense_rows(b, 32, device="cpu"), n_out)
+    carriers = {"planes": condense_rows(b, 32, device=cuda), "offsets": row_offsets(b, 32,
+                                                                                   device=cuda)}
+    offs_cpu = row_offsets(b, 32, device="cpu")
+    for name in ("ptr", "vals", "cols"):  # the builder on the card: the CPU's bits
+        got = getattr(carriers["offsets"], name).cpu()
+        assert torch.equal(got, getattr(offs_cpu, name)), name
+    if empty_window:  # a window of the stream holds no real slot: its tiles are zeros
+        bs_cpu = _stream_view(art_cpu)[2].tolist()
+        blocks = art_cpu.m_blk.reshape(-1, 4 * 32)
+        empty = [w for w in range(art_cpu.num_windows)
+                 if not bool((blocks[bs_cpu[w]:bs_cpu[w + 1]] != 0).any())]
+        assert empty and not bool(want[empty].any())
+    _, _, bs = _stream_view(art_gpu)
+    for real_slots in (None, a.nnz):
+        for name, carrier in carriers.items():
+            before = k_gemm.launches
+            y = k_gemm.gust_spgemm(
+                bs, art_gpu.m_blk, art_gpu.col_blk, art_gpu.row_blk, carrier.vals,
+                carrier.cols, b_ptr=getattr(carrier, "ptr", None), real_slots=real_slots,
+                num_windows=art_gpu.num_windows, l=32, n_out=n_out, c_blk=4)
+            torch.cuda.synchronize()
+            assert k_gemm.launches == before + 1
+            assert torch.equal(y.cpu(), want), (real_slots, name)
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_spgemm_kernel_sums_each_row_in_stream_order(cuda, layout):
+    """A hub row of 60 entries whose values span ten orders of magnitude,
+    over a B whose every row has column 2 (so the hub's cell sums 60 terms,
+    where the order of the sum shows in its bits): bitwise the plain
+    version on the CPU, which sums in stream order."""
+    rng = np.random.default_rng(3)
+    rows = np.concatenate([rng.integers(0, 40, 120), np.full(60, 5)])
+    cols = np.concatenate([rng.integers(0, 80, 120), rng.choice(80, 60, replace=False)])
+    key = np.unique(rows * 80 + cols)
+    vals = (rng.standard_normal(key.size) * 10.0 ** rng.integers(-2, 9, key.size)).astype(
+        np.float32)
+    a = COOMatrix((40, 80), key // 80, key % 80, vals)
+    bd = ((rng.random((80, 7)) < 0.3) * rng.standard_normal((80, 7))).astype(np.float32)
+    bd[:, 2] = rng.standard_normal(80).astype(np.float32)
+    b = _coo(bd)
+    pack = pack_ragged if layout == "ragged" else pack_schedule
+    sched = schedule(a, 8, workers=1)
+    art_gpu, art_cpu = (pack(sched, 4, "float32", "int32", device=d) for d in (cuda, "cpu"))
+    want = _run_spgemm(art_cpu, condense_rows(b, 8, device="cpu"), 7)
+    offs = row_offsets(b, 8, device=cuda)
+    y = k_gemm.gust_spgemm(_stream_view(art_gpu)[2], art_gpu.m_blk, art_gpu.col_blk,
+                           art_gpu.row_blk, offs.vals, offs.cols, b_ptr=offs.ptr,
+                           real_slots=a.nnz, num_windows=art_gpu.num_windows, l=8, n_out=7,
+                           c_blk=4)
+    assert torch.equal(y.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_spgemm_real_slots_bounds_the_slot_copy(cuda):
+    """``real_slots`` sizes the kernel's copy of A's real slots; slots past
+    it are dropped, never written past the copy: at 0 every cell is 0."""
+    a, b = _skewed_spgemm(1, 300)
+    art = pack_ragged(schedule(a, 32, workers=1), 4, "float32", "int32", device=cuda)
+    offs = row_offsets(b, 32, device=cuda)
+    call = functools.partial(
+        k_gemm.gust_spgemm, _stream_view(art)[2], art.m_blk, art.col_blk, art.row_blk,
+        offs.vals, offs.cols, b_ptr=offs.ptr, num_windows=art.num_windows, l=32, n_out=300,
+        c_blk=4)
+    assert bool(call(real_slots=a.nnz).any())
+    assert not bool(call(real_slots=0).any())
+    with pytest.raises(ValueError, match="negative"):
+        call(real_slots=-1)
+
+
+def test_spgemm_launch_plan_and_longest_unit(cuda):
+    """The row-tile kernel's persistent grid fills every SM, and a call can
+    report its longest unit."""
+    props = torch.cuda.get_device_properties(cuda)
+    p = k_gemm.spgemm_launch_plan(cuda)
+    assert p["ctas_per_sm"] >= 1 and p["grid"] == p["ctas_per_sm"] * props.multi_processor_count
+    assert p["n_t"] == 1024 and p["smem_bytes"] == p["warps_per_cta"] * p["n_t"] * 4
+    a, b = _skewed_spgemm(0, 300)
+    art = pack_ragged(schedule(a, 32, workers=1), 4, "float32", "int32", device=cuda)
+    offs = row_offsets(b, 32, device=cuda)
+    stats = {}
+    k_gemm.gust_spgemm(_stream_view(art)[2], art.m_blk, art.col_blk, art.row_blk, offs.vals,
+                       offs.cols, b_ptr=offs.ptr, num_windows=art.num_windows, l=32,
+                       n_out=300, c_blk=4, stats=stats)
+    per_cta = stats["cta_longest_unit_cycles"]
+    assert len(per_cta) == k_gemm.spgemm_launch_plan(cuda)["grid"]
+    assert stats["longest_unit_cycles"] == max(per_cta) > 0
+
+
+@pytest.mark.parametrize("idt", ["int32", "int16"])
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 17])
+def test_gather_fill_16_byte_paths(cuda, idt, b):
+    """Kernel 10 on each of its paths (B = 1: 16 bytes of columns a thread;
+    B % 4 == 0: 16-byte runs; else rows), at slot counts that are no
+    multiple of 4 or 8, from a column view off 16-byte alignment and from
+    an x off 16-byte alignment (B % 4 == 0 then takes the rows path):
+    bitwise its plain version and ``x[col]``."""
+    rng = np.random.default_rng(b)
+    n = 500
+    flat = torch.from_numpy(rng.standard_normal(n * b + 1).astype(np.float32)).to(cuda)
+    aligned = flat[:n * b].view(n, b)
+    off = flat[1:].view(n, b)  # 4 bytes past a 16-byte boundary
+    assert off.data_ptr() % 16 == 4
+    for xp in (aligned, off):
+        for rows, l in ((5, 7), (1000, 37), (64, 32)):
+            col = torch.from_numpy(rng.integers(0, n, (rows + 1, l))).to(
+                getattr(torch, idt)).to(cuda)
+            for c in (col[:rows].contiguous(), col[1:]):  # col[1:] is off alignment at odd l
+                before = k_fill.launches
+                g = k_fill.gather_fill(c, xp)
+                torch.cuda.synchronize()
+                assert k_fill.launches == before + 1
+                assert torch.equal(g, tref.gather_fill_ref(c, xp))
+                assert torch.equal(g, xp[c.long()])
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_int16_plan_refuses_wide_matrix_before_any_launch(cuda, layout):
+    """64 x 40000 at int16: the pack raises before a leaf reaches the card."""
+    rng = np.random.default_rng(0)
+    key = rng.choice(64 * 40000, size=300, replace=False)
+    coo = COOMatrix((64, 40000), key // 40000, key % 40000,
+                    rng.standard_normal(300).astype(np.float32))
+    names = ("launches", "local_launches", "db_launches", "local_db_launches")
+    counts = [(mod, name, getattr(mod, name)) for mod in (k_pad, k_rag) for name in names]
+    for gather in ("resident", "local"):
+        p = plan(coo, PlanConfig(l=256, layout=layout, gather=gather, index_dtype="int16"),
+                 device=cuda)
+        with pytest.raises(ValueError, match="int32"):
+            p.spmv(np.ones(40000, np.float32))
+    assert all(getattr(mod, name) == count for mod, name, count in counts)
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("transpose_io", [False, True])
+def test_spmm_with_no_column_on_card(cuda, layout, transpose_io):
+    rng = np.random.default_rng(4)
+    d = ((rng.random((20, 30)) < 0.3) * rng.standard_normal((20, 30))).astype(np.float32)
+    p = plan(d, PlanConfig(l=8, layout=layout), device=cuda)
+    p.artifact  # packed before the counts are read
+    before = (k_pad.launches, k_pad.db_launches, k_rag.launches, k_rag.db_launches)
+    x = torch.zeros((0, 30) if transpose_io else (30, 0), device=cuda)
+    y = p.spmm(x, transpose_io=transpose_io)
+    assert tuple(y.shape) == ((0, 20) if transpose_io else (20, 0))
+    assert y.device.type == "cuda" and y.dtype == torch.float32
+    assert (k_pad.launches, k_pad.db_launches, k_rag.launches, k_rag.db_launches) == before

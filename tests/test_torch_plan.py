@@ -131,7 +131,7 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.kernels._build, repro_torch.data.matrices, "
         "repro_torch.core.spgemm, repro_torch.graph.analytics, "
         "repro_torch.kernels.gust_spgemm, repro_torch.kernels.gather_fill, "
-        "repro_torch.kernels.local_db_sweep; "
+        "repro_torch.kernels.local_db_sweep, repro_torch.kernels.spgemm_sweep; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); "
         "assert not bad, bad; print('ok')"

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``repro_torch/kernels/csrc`` (one
-``nvcc`` per source, in parallel), then drives three paths of the port,
-each with the launch counts zeroed just before it and read just after:
+``nvcc`` per source, in parallel), then drives four paths of the port,
+each (and each phase of the fourth) with the launch counts zeroed just
+before it and read just after:
 
 1. **SpMV** — ``repro_torch.plan(M, PlanConfig(...)).spmv(v)`` /
    ``.spmm(X)`` on the Table-3 matrix ``crankseg_2`` at its published
@@ -34,6 +35,25 @@ each with the launch counts zeroed just before it and read just after:
    ``PlanConfig(l=256)``, ``plan(G, layout=...).spgemm(G)`` on both
    layouts, ``pagerank(G)`` and ``feature_propagation(G, F=64)``: kernel
    ``gust_spgemm`` (and the SpMV kernels the default plans pick).
+
+4. **The plan lifecycle** at yi-6b's MLP widths (``src/repro/configs/
+   yi_6b.py``: d_model 4,096, d_ff 11,008): W_gate and W_up (11,008 x
+   4,096) and W_down (4,096 x 11,008), each drawn normal from numpy seed 0
+   and pruned by ``prune_by_magnitude`` at density 0.1 (4,508,877
+   nonzeros), as ``GustLinear(w, config=PlanConfig())`` layers:
+
+   * ``linear``: each layer's forward at B = 1 and 8;
+   * ``store``: W_up through ``plan(..., store=PlanStore(tmp))`` cold,
+     then warm with a fresh cache;
+   * ``stack``: ``GustPlan.stack([gate, up])`` and each layer's slice
+     through ``from_spec``, with the gather at ``"auto"`` and forced
+     ``"local"``;
+   * ``tune``: ``up.plan.tune(x)`` at B = 8 over the default candidates
+     (c_blk 4/8/16, l 256/128, both layouts, both gathers);
+   * ``reschedule``: crankseg_2's unbalanced ragged plan after an edit of
+     three windows (about 1% of their values rescaled, three edges each
+     dropped and added);
+   * ``no_fallback``: a ``FaultPlan`` at ``kernel.execute`` on the card.
 
 Checks, each fatal:
   * every SpMV kernel against its plain PyTorch version on the card, at
@@ -68,7 +88,19 @@ Checks, each fatal:
     float64 iteration run to its fixed point; ``feature_propagation``
     within ``1e-4 * (|Â|·|Â|·|H|)`` per element of scipy in float64;
   * no function of any library spills (ptxas): the four SpMV libraries,
-    ``gust_spgemm`` and ``gather_fill``.
+    ``gust_spgemm`` and ``gather_fill``;
+  * the lifecycle path: every layer's output within ``1e-4 * (|W|·|x|)``
+    per element of float64, bitwise the same plan's plain version on the
+    CPU at B=1, and each B=8 row bitwise the same layer at B=1; the warm
+    store load colors nothing (``sched_counters`` unmoved) and gives the
+    cold plan's leaves and ``spmm`` bit for bit; each stacked slice's
+    ``spmm`` bitwise its unstacked plan at B = 1 and 8 (the local slices
+    also the resident plan); the tuned plan within the gate; the
+    rescheduled plan spliced, its dirty windows the edited ones, its
+    leaves and ``spmv`` bitwise a fresh plan's; the fault at
+    ``kernel.execute`` raises, launches nothing, and no plan's
+    ``fallback_kernel`` / ``fallback_gather`` and no process fallback
+    counter moves.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
@@ -81,7 +113,12 @@ the grid of its row-tile kernel, its pre-pass and row-tile device times
 each CTA's longest unit, and the longest slot-loading and product phases
 of a unit, in clock cycles),
 SpGEMM's wall time split (B's row offsets built on the card, kernel,
-reorder, compaction on the card, host copy), and as its last line
+reorder, compaction on the card, host copy), per yi-6b layer and B the
+forward and kernel ms beside the bytes bound, cuSPARSE CSR and dense
+``torch.matmul`` on the pruned weight, ``partial_bytes``, cycles,
+utilization, the resolved layout, gather and pipeline and the schedule
+and pack seconds; the store's file bytes and cold / warm seconds; the
+``TuneResult``; reschedule against fresh-plan seconds; and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 """
@@ -596,6 +633,10 @@ def main() -> int:
     report["variants"] = variants
     spgemm_wall_split(report, gemm_rows)
 
+    # -- path 4: the plan lifecycle at yi-6b's MLP widths ---------------------------
+    lifecycle_path(report, launch_counts, {"coo": coo, "plans": plans, "cache": cache,
+                                           "power_w": power_w})
+
     kernels = []
     heads = {name: (KERNELS[name][2], KERNELS[name][3], PHASE_SCHEDULES[KERNELS[name][1]][0])
              for name in KERNELS}
@@ -633,6 +674,385 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+#: yi-6b's MLP (src/repro/configs/yi_6b.py: d_model 4096, d_ff 11008):
+#: name -> (rows, columns) of each projection's weight, drawn normal from
+#: a numpy seed and pruned at GustServeConfig.density.
+YI_MLP = {"gate": (11008, 4096), "up": (11008, 4096), "down": (4096, 11008)}
+YI_DENSITY, YI_NNZ = 0.1, 4_508_877
+#: The crankseg_2 windows the reschedule phase edits.
+EDIT_WINDOWS = (7, 101, 203)
+
+
+def plan_kernel(p):
+    """The name of the SpMV kernel plan ``p`` launches on the card."""
+    gather, pipe = p.gather_mode, p._pipeline()
+    return next(k for k, (lay, g, _, _) in KERNELS.items()
+                if lay == p.layout and g == gather and SPREAD[k] == pipe)
+
+
+def phase(report, launch_counts, name, fn):
+    """Run phase ``name`` with the launch counts zeroed just before it;
+    record and return its launches (read just after) and seconds."""
+    import torch
+
+    for mod, attr in launch_counts.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in launch_counts.items()
+              if getattr(mod, attr)}
+    report.setdefault("lifecycle", {})[name] = dict(out or {}, seconds=seconds,
+                                                    launches=counts)
+    log(f"phase {name}: {seconds:.1f} s, launches {counts}")
+    return report["lifecycle"][name]
+
+
+def check_gate(tag, y, w_csr, x):
+    """The SpMV gate against float64: per element ``|y - W·x| <= 1e-4 *
+    (|W|·|x|)``, finite, of the expected shape.  ``y``, ``x`` batch-major."""
+    got = y.cpu().numpy().astype(np.float64)
+    x64 = x.cpu().numpy().astype(np.float64).T
+    want = (w_csr @ x64).T
+    bound = TOL_MAIN * (abs(w_csr) @ np.abs(x64)).T
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{tag}: shape {got.shape} (want {want.shape}) or non-finite")
+    worst = float(np.max(np.abs(got - want) - bound))
+    if worst > 0:
+        raise AssertionError(f"{tag}: off float64 by {worst:.3e} beyond the gate")
+    return float(np.max(np.abs(got - want)))
+
+
+def leaves_equal(a, b):
+    """True when two artifacts hold the same leaves bit for bit."""
+    import torch
+
+    from repro_torch.core.packing import RaggedSchedule, packed_leaves, ragged_leaves
+
+    fa = ragged_leaves if isinstance(a, RaggedSchedule) else packed_leaves
+    fb = ragged_leaves if isinstance(b, RaggedSchedule) else packed_leaves
+    la, lb = fa(a), fb(b)
+    return set(la) == set(lb) and all(
+        la[k].dtype == lb[k].dtype and la[k].shape == lb[k].shape
+        and torch.equal(la[k], lb[k]) for k in la)
+
+
+def lifecycle_path(report, launch_counts, crank):
+    """The plan lifecycle on the card: yi-6b's MLP projections as
+    GustLinear layers at B=1 and 8 (``linear``), a layer through a
+    PlanStore cold and warm (``store``), two layers stacked (``stack``),
+    one tuned (``tune``), crankseg_2's unbalanced ragged plan rescheduled
+    after an edit of three windows (``reschedule``), and a fault at
+    ``kernel.execute`` that must reach the caller (``no_fallback``).  Each
+    phase runs with the launch counts zeroed just before it."""
+    import dataclasses
+    import tempfile
+
+    import scipy.sparse as sp
+    import torch
+
+    import repro_torch
+    from repro_torch.core.formats import COOMatrix
+    from repro_torch.core.packing import ScheduleCache
+    from repro_torch.core.scheduler import sched_counters
+    from repro_torch.kernels import _sweep
+    from repro_torch.kernels.gust_spmv import spread_launch_plan
+    from repro_torch.kernels.ops import _prep_x
+    from repro_torch.resilience import FaultError, FaultPlan, FaultSpec, fallback_counters
+    from repro_torch.resilience import injected
+
+    kernel_fns = wrappers()
+    cfg = repro_torch.PlanConfig()  # l=256, c_blk=8, load-balanced, auto
+    layers, rng = {}, np.random.default_rng(0)
+    n_max, n_up = max(n for _, n in YI_MLP.values()), YI_MLP["up"][1]
+    xs = {b: torch.from_numpy(rng.standard_normal((b, n_max)).astype(np.float32)).cuda()
+          for b in (1, BATCH)}
+
+    def build_layers():
+        info = {}
+        for name, (m, n) in YI_MLP.items():
+            t0 = time.perf_counter()
+            w = np.random.default_rng(0).standard_normal((m, n)).astype(np.float32)
+            pruned = repro_torch.prune_by_magnitude(w, YI_DENSITY)
+            r, c = np.nonzero(pruned)
+            coo = COOMatrix((m, n), r.astype(np.int64), c.astype(np.int64), pruned[r, c])
+            if coo.nnz != YI_NNZ:
+                raise AssertionError(f"{name}: {coo.nnz} nonzeros after pruning, not {YI_NNZ}")
+            prune_s = time.perf_counter() - t0
+            cache = ScheduleCache()
+            t0 = time.perf_counter()
+            cache.schedule(coo, cfg.l, load_balance=cfg.load_balance, method=cfg.colorer)
+            schedule_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            repro_torch.plan(coo, cfg, cache=cache).artifact
+            torch.cuda.synchronize()
+            pack_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lin = repro_torch.GustLinear(w, config=cfg, density=YI_DENSITY, cache=cache)
+            construct_s = time.perf_counter() - t0  # prune again; schedule and pack cached
+            csr = sp.csr_matrix((coo.vals.astype(np.float64), (coo.rows, coo.cols)),
+                                shape=(m, n))
+            layers[name] = dict(lin=lin, coo=coo, csr=csr, w=pruned, cache=cache)
+            info[name] = dict(prune_s=prune_s, schedule_s=schedule_s, pack_s=pack_s,
+                              construct_s=construct_s, nnz=coo.nnz)
+        return info
+
+    built = phase(report, launch_counts, "linear_build", build_layers)
+
+    def linear():  # the path: each layer's forward at B=1 and 8
+        return {"y": {(name, b): L_["lin"](xs[b][:, :YI_MLP[name][1]].contiguous())
+                      for name, L_ in layers.items() for b in (1, BATCH)}}
+
+    ys = phase(report, launch_counts, "linear", linear).pop("y")
+    rows = report["lifecycle"]["linear"]["rows"] = {}
+    for name, L_ in layers.items():
+        lin, (m, n) = L_["lin"], YI_MLP[name]
+        p = lin.plan
+        art, kname = p.artifact, plan_kernel(p)
+        kernel, _ = kernel_fns[kname]
+        cpu_plan = repro_torch.GustPlan.from_artifact(
+            type(art)(**{f.name: (getattr(art, f.name).cpu()
+                                  if isinstance(getattr(art, f.name), torch.Tensor)
+                                  else getattr(art, f.name))
+                         for f in dataclasses.fields(art)}),
+            config=p.config)
+        lib_csr = torch.sparse_csr_tensor(
+            torch.from_numpy(L_["csr"].indptr).cuda(),
+            torch.from_numpy(L_["csr"].indices.astype(np.int64)).cuda(),
+            torch.from_numpy(L_["csr"].data.astype(np.float32)).cuda(), (m, n),
+            check_invariants=False)
+        dense = torch.from_numpy(L_["w"]).cuda()
+        for b in (1, BATCH):
+            x, y = xs[b][:, :n].contiguous(), ys[name, b]
+            tag = f"linear {name} B={b}"
+            err = check_gate(tag, y, L_["csr"], x)
+            if b == 1:
+                if not torch.equal(y.cpu(), cpu_plan.spmm(x.cpu(), transpose_io=True)):
+                    raise AssertionError(f"{tag}: differs bitwise from its plain "
+                                         "version on the CPU")
+            else:
+                for k in range(b):
+                    if not torch.equal(y[k:k + 1], lin(x[k:k + 1])):
+                        raise AssertionError(f"{tag}: row {k} differs bitwise from "
+                                             "the same layer at B=1")
+            xp = _prep_x(x.T, n, p.l)
+            args, _, kw = kernel_args(kname, art)
+            moved, ops = bytes_and_ops(kname, art, xp, b, lin.nnz)
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+            xt = x.T.contiguous()
+            row = {
+                "forward_ms": cuda_ms(lambda: lin(x), iters=50, warmup=5),
+                "kernel": kname,
+                "kernel_ms": cuda_ms(functools.partial(kernel, *args, xp, **kw), iters=50,
+                                     warmup=5),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "cusparse_ms": library_ms(functools.partial(torch.matmul, lib_csr, xt),
+                                          False, {}),
+                "dense_matmul_ms": cuda_ms(functools.partial(torch.matmul, dense, xt),
+                                           iters=50, warmup=5),
+                "max_abs_err_vs_f64": err,
+                "cycles": lin.cycles, "utilization": lin.hardware_utilization,
+                "layout": p.layout, "gather": p.gather_mode, "pipeline": p._pipeline(),
+                "stream_bytes": art.stream_bytes, "bytes": moved,
+            }
+            # device time of one forward, by kernel: what is left of
+            # forward_ms is the card waiting on the host
+            split = _sweep.profile_split(lambda: lin(x), ("spread_partials", "spread_fold"))
+            row["device_ms"] = split["spread_partials"] + split["spread_fold"] + split["other"]
+            row["device_split"] = split
+            row["idle_share"] = max(0.0, 1.0 - row["device_ms"] / row["forward_ms"])
+            if p.device.type == "cuda":
+                row.update(spread_launch_plan(art.m_blk, args[1], art.row_blk, xp,
+                                              l=art.l, c_blk=art.c_blk,
+                                              gather=p.gather_mode,
+                                              pipeline=p._pipeline()))
+            row.update(built[name])
+            rows[f"{name}/B={b}"] = row
+            log(f"linear {name} {m}x{n} B={b}: forward {row['forward_ms']:.4f} ms "
+                f"(device {row['device_ms']:.4f} ms, idle share {row['idle_share']:.3f}), "
+                f"kernel {kname} {row['kernel_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms, cuSPARSE {row['cusparse_ms']} ms, dense "
+                f"matmul {row['dense_matmul_ms']:.4f} ms, partial_bytes "
+                f"{row.get('partial_bytes')}, cycles {row['cycles']}, utilization "
+                f"{row['utilization']:.4f}, {row['layout']}/{row['gather']}/"
+                f"{row['pipeline']}, schedule {row['schedule_s']:.1f} s, pack "
+                f"{row['pack_s']:.1f} s; gate max abs err {err:.3e}; bitwise "
+                + ("vs the CPU plain version" if b == 1 else "per row vs B=1"))
+        del lib_csr, dense, cpu_plan
+    del ys
+
+    def store():
+        up = layers["up"]
+        with tempfile.TemporaryDirectory() as tmp:
+            cold_store = repro_torch.PlanStore(tmp)
+            t0 = time.perf_counter()
+            cold = repro_torch.plan(up["coo"], cfg, cache=ScheduleCache(), store=cold_store)
+            cold.artifact
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            file_bytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+            before = dict(sched_counters)
+            warm_store = repro_torch.PlanStore(tmp)
+            t0 = time.perf_counter()
+            warm = repro_torch.plan(up["coo"], cfg, cache=ScheduleCache(), store=warm_store)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            if dict(sched_counters) != before or not warm._store_loaded:
+                raise AssertionError("store: the warm load colored or missed "
+                                     f"({before} -> {dict(sched_counters)})")
+            if not leaves_equal(warm.artifact, cold.artifact):
+                raise AssertionError("store: warm leaves differ from the cold plan's")
+            for b in (1, BATCH):
+                x = xs[b][:, :n_up].T.contiguous()
+                if not torch.equal(warm.spmm(x), cold.spmm(x)):
+                    raise AssertionError(f"store: warm spmm differs at B={b}")
+            stats = warm_store.stats()
+        log(f"store: {file_bytes} bytes, cold {cold_s:.2f} s, warm {warm_s:.2f} s; "
+            "zero coloring on the warm load, leaves and spmm bitwise")
+        return {"file_bytes": file_bytes, "cold_s": cold_s, "warm_s": warm_s,
+                "warm_store": stats, "writes": cold_store.writes}
+
+    phase(report, launch_counts, "store", store)
+
+    def stack():
+        gate, up = layers["gate"]["lin"].plan, layers["up"]["lin"].plan
+        out = {}
+        for gather in ("auto", "local"):
+            stacked = repro_torch.GustPlan.stack([gate, up])
+            out["meta"] = list(stacked["meta"])
+            for i, base in enumerate((gate, up)):
+                c = dataclasses.replace(base.config, gather=gather)
+                sl = repro_torch.GustPlan.from_spec(
+                    {"leaves": {k: v[i] for k, v in stacked["leaves"].items()},
+                     "meta": stacked["meta"]}, config=c)
+                ref = repro_torch.GustPlan.from_artifact(base.artifact, config=c)
+                for b in (1, BATCH):
+                    x = xs[b][:, :n_up].T.contiguous()
+                    if not torch.equal(sl.spmm(x), ref.spmm(x)):
+                        raise AssertionError(f"stack: layer {i} gather={gather} B={b} "
+                                             "differs from its unstacked plan")
+                    if gather == "local" and not torch.equal(sl.spmm(x), base.spmm(x)):
+                        raise AssertionError(f"stack: layer {i} local differs from "
+                                             "the resident plan")
+                out[f"{gather}/{i}"] = {"gather": sl.gather_mode, "kernel": plan_kernel(sl),
+                                        "s_blk": sl.artifact.s_blk,
+                                        "c_pad": getattr(sl.artifact, "c_pad", None),
+                                        "unstacked_c_pad": getattr(base.artifact, "c_pad",
+                                                                   None)}
+            del stacked
+        log(f"stack: gate and up stacked; every slice bitwise its unstacked plan at "
+            f"B=1 and {BATCH}, auto and local gathers: {out}")
+        return {"slices": out}
+
+    phase(report, launch_counts, "stack", stack)
+
+    def tune():
+        up = layers["up"]
+        x = xs[BATCH][:, :n_up].T.contiguous()
+        t0 = time.perf_counter()
+        tuned = up["lin"].plan.tune(x)
+        tune_s = time.perf_counter() - t0
+        res = tuned.tuning
+        err = check_gate("tune", tuned.spmm(x).T, up["csr"], x.T)
+        log(f"tune: {tune_s:.1f} s; choice {res.choice}, baseline {res.baseline}, "
+            f"improvement {res.improvement:.4f}, {len(res.measurements)} measured, "
+            f"{len(res.pruned)} pruned; tuned plan passes the gate ({err:.3e})")
+        return {"tune_s": tune_s, "result": res.to_dict(), "max_abs_err_vs_f64": err,
+                "kernel": plan_kernel(tuned)}
+
+    phase(report, launch_counts, "tune", tune)
+
+    def reschedule():
+        base = crank["plans"]["default", False, "ragged", "float32"]
+        coo, l = crank["coo"], base.l
+        m2 = edited_coo(coo, l, EDIT_WINDOWS)
+        t0 = time.perf_counter()
+        p2 = repro_torch.reschedule(base, m2)
+        torch.cuda.synchronize()
+        resched_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh = repro_torch.plan(m2, base.config, cache=ScheduleCache())
+        fresh.artifact
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        r = p2.resched
+        if not r.spliced or r.full_fallback or r.dirty_windows != len(EDIT_WINDOWS):
+            raise AssertionError(f"reschedule: {r}")
+        if not leaves_equal(p2.artifact, fresh.artifact):
+            raise AssertionError("reschedule: leaves differ from the fresh plan's")
+        v = torch.from_numpy(np.random.default_rng(2).standard_normal(m2.shape[1])
+                             .astype(np.float32)).cuda()
+        if not torch.equal(p2.spmv(v), fresh.spmv(v)):
+            raise AssertionError("reschedule: spmv differs from the fresh plan's")
+        log(f"reschedule: {resched_s:.2f} s against a fresh plan's {fresh_s:.2f} s; "
+            f"{r}; leaves and spmv bitwise the fresh plan's")
+        return {"reschedule_s": resched_s, "fresh_s": fresh_s, "result": r.to_dict(),
+                "edited_nnz": m2.nnz, "kernel": plan_kernel(p2)}
+
+    phase(report, launch_counts, "reschedule", reschedule)
+
+    def no_fallback():
+        p = layers["gate"]["lin"].plan
+        before = dict(fallback_counters)
+        fp = FaultPlan([FaultSpec("kernel.execute", times=-1)], seed=0)
+        raised = False
+        with injected(fp):
+            try:
+                p.spmv(xs[1][0, :YI_MLP["gate"][1]])
+            except FaultError:
+                raised = True
+        if not raised:
+            raise AssertionError("no_fallback: a fault at kernel.execute did not reach "
+                                 "the caller")
+        return {"raised": raised, "fired": [list(f) for f in fp.fired]}
+
+    out = phase(report, launch_counts, "no_fallback", no_fallback)
+    if out["launches"]:
+        raise AssertionError(f"no_fallback: a kernel launched ({out['launches']})")
+    plans = [L_["lin"].plan for L_ in layers.values()] + list(crank["plans"].values())
+    for p in plans:
+        c = p.cost()
+        if c.fallback_kernel or c.fallback_gather:
+            raise AssertionError(f"{p}: fallback_kernel {c.fallback_kernel}, "
+                                 f"fallback_gather {c.fallback_gather}")
+    if any(fallback_counters.values()):
+        raise AssertionError(f"fallback counters moved: {fallback_counters}")
+    log(f"no_fallback: kernel.execute raised, no kernel launched, every fallback "
+        f"counter 0 on {len(plans)} plans")
+    for name in ("linear", "stack", "tune", "reschedule"):
+        if not report["lifecycle"][name]["launches"]:
+            raise AssertionError(f"phase {name} launched no kernel")
+
+
+def edited_coo(coo, l, windows, seed=0):
+    """``coo`` with an edit confined to the rows of ``windows``: about 1% of
+    their values rescaled, three of their edges dropped and three added."""
+    from repro_torch.core.formats import COOMatrix
+
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = coo.rows.copy(), coo.cols.copy(), coo.vals.copy()
+    keep = np.ones(coo.nnz, dtype=bool)
+    add_r, add_c = [], []
+    for w in windows:
+        idx = np.nonzero(rows // l == w)[0]
+        scale = idx[rng.random(idx.size) < 0.01]
+        vals[scale] *= np.float32(1.5)
+        keep[rng.choice(idx, 3, replace=False)] = False
+        present = set((rows[idx] * coo.shape[1] + cols[idx]).tolist())
+        while len(add_r) < 3 * (windows.index(w) + 1):
+            r, c = int(rng.integers(w * l, (w + 1) * l)), int(rng.integers(coo.shape[1]))
+            if r * coo.shape[1] + c not in present:
+                present.add(r * coo.shape[1] + c)
+                add_r.append(r)
+                add_c.append(c)
+    return COOMatrix(coo.shape,
+                     np.concatenate([rows[keep], np.asarray(add_r, np.int64)]),
+                     np.concatenate([cols[keep], np.asarray(add_c, np.int64)]),
+                     np.concatenate([vals[keep], np.ones(len(add_r), np.float32)]))
 
 
 def spilling_functions(lines):

@@ -10,6 +10,8 @@ Public API, exported lazily so that ``import repro_torch`` stays cheap:
     >>> y = p.spmv(v)
     >>> C = p.spgemm(B)                        # sparse x sparse -> COOMatrix
     >>> repro_torch.triangle_count(A)          # graph analytics (repro_torch.graph)
+    >>> layer = repro_torch.GustLinear(w, density=0.1)   # y = layer(x)
+    >>> p = repro_torch.plan(M, store=repro_torch.PlanStore(path))  # warm loads
 """
 
 from typing import TYPE_CHECKING
@@ -17,6 +19,35 @@ from typing import TYPE_CHECKING
 _EXPORTS = {
     "plan": "repro_torch.core.plan",
     "PlanConfig": "repro_torch.core.plan",
+    "GustPlan": "repro_torch.core.plan",
+    "PlanCost": "repro_torch.core.plan",
+    "TuneResult": "repro_torch.core.plan",
+    "reschedule": "repro_torch.core.plan",
+    "RescheduleResult": "repro_torch.core.plan",
+    "PlanStore": "repro_torch.core.plan_store",
+    "GustLinear": "repro_torch.core.gust_linear",
+    "prune_by_magnitude": "repro_torch.core.gust_linear",
+    "FaultPlan": "repro_torch.resilience.faults",
+    "FaultSpec": "repro_torch.resilience.faults",
+    "RequestResult": "repro_torch.resilience.lifecycle",
+    "RequestStatus": "repro_torch.resilience.lifecycle",
+    "expected_colors_bound": "repro_torch.core.bounds",
+    "expected_execution_cycles": "repro_torch.core.bounds",
+    "expected_utilization": "repro_torch.core.bounds",
+    "spmv": "repro_torch.core.spmv",
+    "spmv_scheduled": "repro_torch.core.spmv",
+    "spmm_scheduled": "repro_torch.core.spmv",
+    "spmm_ragged": "repro_torch.core.spmv",
+    "gust_spmm": "repro_torch.kernels.ops",
+    "gust_spmm_auto": "repro_torch.kernels.ops",
+    "ScheduleCache": "repro_torch.core.packing",
+    "clear_cache": "repro_torch.core.packing",
+    "PackedSchedule": "repro_torch.core.packing",
+    "RaggedSchedule": "repro_torch.core.packing",
+    "GustSchedule": "repro_torch.core.formats",
+    "coo_from_dense": "repro_torch.core.formats",
+    "dense_from_coo": "repro_torch.core.formats",
+    "schedule": "repro_torch.core.scheduler",
     "COOMatrix": "repro_torch.core.formats",
     "spgemm": "repro_torch.core.spgemm",
     "SpgemmCost": "repro_torch.core.spgemm",
@@ -27,7 +58,7 @@ _EXPORTS = {
     "TriangleCountResult": "repro_torch.graph.analytics",
 }
 #: Subpackages, imported on first access.
-_SUBMODULES = ("graph",)
+_SUBMODULES = ("graph", "resilience")
 
 __all__ = sorted([*_EXPORTS, *_SUBMODULES])
 
@@ -50,9 +81,40 @@ def __dir__():
 
 
 if TYPE_CHECKING:  # pragma: no cover
-    from repro_torch import graph
-    from repro_torch.core.formats import COOMatrix
-    from repro_torch.core.plan import PlanConfig, plan
+    from repro_torch import graph, resilience
+    from repro_torch.core.bounds import (
+        expected_colors_bound,
+        expected_execution_cycles,
+        expected_utilization,
+    )
+    from repro_torch.core.formats import (
+        COOMatrix,
+        GustSchedule,
+        coo_from_dense,
+        dense_from_coo,
+    )
+    from repro_torch.core.gust_linear import GustLinear, prune_by_magnitude
+    from repro_torch.core.packing import (
+        PackedSchedule,
+        RaggedSchedule,
+        ScheduleCache,
+        clear_cache,
+    )
+    from repro_torch.core.plan import (
+        GustPlan,
+        PlanConfig,
+        PlanCost,
+        RescheduleResult,
+        TuneResult,
+        plan,
+        reschedule,
+    )
+    from repro_torch.core.plan_store import PlanStore
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.core.spmv import spmm_ragged, spmm_scheduled, spmv, spmv_scheduled
+    from repro_torch.kernels.ops import gust_spmm, gust_spmm_auto
+    from repro_torch.resilience.faults import FaultPlan, FaultSpec
+    from repro_torch.resilience.lifecycle import RequestResult, RequestStatus
     from repro_torch.core.spgemm import SpgemmCost, spgemm
     from repro_torch.graph.analytics import (
         PageRankResult,

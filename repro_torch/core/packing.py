@@ -18,6 +18,13 @@ Two layouts share the packed-format invariants (padding slots have value
 
 Scheduling and packing are cached on matrix / schedule content
 (:class:`ScheduleCache`), so two plans over one matrix schedule once.
+
+Repads (``repad_to``, ``repad_to_blocks``, ``repad_seg_to``) and the
+incremental splice (:func:`splice_ragged_blocks`) are torch ops on the
+artifact's own device; they keep every leaf dtype and recompute the
+gather tables there (:func:`_gather_tables`), bit for bit the host
+tables.  Shape-only specs (:func:`packed_spec`, :func:`ragged_spec`,
+:func:`stacked_leaf_specs`) hold tensors on ``torch.device("meta")``.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import dataclasses
 import hashlib
 import os
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +47,16 @@ __all__ = [
     "pack_blocks",
     "pack_schedule",
     "pack_ragged",
+    "pack_auto",
+    "packed_spec",
+    "ragged_spec",
+    "stacked_leaf_specs",
+    "splice_ragged_blocks",
+    "window_ids",
+    "resolve_tuning",
+    "DEFAULT_TUNE_IMPROVEMENT",
+    "clear_cache",
+    "schedule_packed",
     "DEFAULT_WASTE_THRESHOLD",
     "DEFAULT_LOCALITY_RATIO",
     "DEFAULT_LOCAL_MIN_SEGS",
@@ -178,6 +195,63 @@ class PackedSchedule:
             for a in (self.m_blk, self.col_blk, self.row_blk) + extra
         )
 
+    def repad_to(self, c_pad: int) -> "PackedSchedule":
+        """Grow the per-window color padding to ``c_pad`` slots, on the
+        artifact's device.  Keeps every leaf dtype and the packed-format
+        invariants (new value slots 0, new column slots the slot's lane,
+        new row slots 0); the gather tables are recomputed on the grown
+        stream and never narrow.  Equalizes C_pad across stacked layers."""
+        if c_pad == self.c_pad:
+            return self
+        if c_pad < self.c_pad:
+            raise ValueError(
+                f"cannot shrink c_pad {self.c_pad} -> {c_pad} (real colors "
+                "may live in the dropped slots)"
+            )
+        W, l, extra = self.num_windows, self.l, c_pad - self.c_pad
+        lane = torch.arange(l, device=self.device)
+
+        def grow(a, pad_row):
+            a3 = a.reshape(W, self.c_pad, l)
+            pad = pad_row.to(a.dtype)[None, None, :].expand(W, extra, l)
+            return torch.cat([a3, pad], dim=1).reshape(W * c_pad, l)
+
+        col_grown = grow(self.col_blk, lane)
+        seg_blk, col_loc, s_blk = _gather_tables(
+            col_grown, l, self.c_blk, s_min=self.s_blk
+        )
+        col_loc = _index_leaf(col_loc, self.col_loc.dtype, self.shape[1])
+        scale = self.scale_blk
+        if scale is not None:
+            # scales are per (c_blk, l) block: the grown padding must land on
+            # whole new blocks for the old blocks' scales to stay put
+            if c_pad % self.c_blk or self.c_pad % self.c_blk:
+                raise ValueError(
+                    f"quantized repad_to requires c_pad multiples of c_blk="
+                    f"{self.c_blk}, got {self.c_pad} -> {c_pad}"
+                )
+            old_bpw, new_bpw = self.c_pad // self.c_blk, c_pad // self.c_blk
+            ones = torch.ones(W, new_bpw - old_bpw, dtype=scale.dtype,
+                              device=scale.device)  # all-zero blocks
+            scale = torch.cat([scale.reshape(W, old_bpw), ones], dim=1).reshape(-1)
+        return dataclasses.replace(
+            self,
+            m_blk=grow(self.m_blk, torch.zeros(l, device=self.device)),
+            col_blk=col_grown,
+            row_blk=grow(self.row_blk, torch.zeros(l, device=self.device)),
+            seg_blk=seg_blk,
+            col_loc=col_loc,
+            c_pad=c_pad,
+            s_blk=s_blk,
+            scale_blk=scale,
+        )
+
+    def repad_seg_to(self, s_blk: int) -> "PackedSchedule":
+        """Widen the per-block segment table to ``s_blk`` slots (padding
+        with segment 0, which no ``col_loc`` entry references).  Equalizes
+        ``S_blk`` across stacked layers."""
+        return _repad_seg(self, s_blk)
+
 
 @dataclasses.dataclass
 class RaggedSchedule:
@@ -239,6 +313,89 @@ class RaggedSchedule:
             for a in (self.m_blk, self.col_blk, self.row_blk,
                       self.block_window, self.block_starts) + extra
         )
+
+    def repad_to_blocks(self, num_blocks: int) -> "RaggedSchedule":
+        """Grow the stream to ``num_blocks`` blocks with all-padding
+        trailing blocks (attributed to the last window, whose accumulator
+        they extend by zero), on the artifact's device.  Keeps every leaf
+        dtype and the padding invariants; equalizes stream lengths across
+        stacked layers."""
+        if num_blocks == self.num_blocks:
+            return self
+        if num_blocks < self.num_blocks:
+            raise ValueError(
+                f"cannot shrink num_blocks {self.num_blocks} -> {num_blocks}"
+                " (real cycles may live in the dropped blocks)"
+            )
+        l, extra, dev = self.l, num_blocks - self.num_blocks, self.device
+        rows = extra * self.c_blk
+
+        def grow(a, pad_row):
+            return torch.cat([a, pad_row.to(a.dtype)[None, :].expand(rows, l)])
+
+        last_w = max(self.num_windows - 1, 0)
+        bw = torch.cat([
+            self.block_window,
+            torch.full((extra,), last_w, dtype=self.block_window.dtype, device=dev),
+        ])
+        bs = self.block_starts.clone()
+        bs[-1] = num_blocks
+        col_grown = grow(self.col_blk, torch.arange(l, device=dev))
+        seg_blk, col_loc, s_blk = _gather_tables(
+            col_grown, l, self.c_blk, s_min=self.s_blk
+        )
+        scale = self.scale_blk
+        if scale is not None:  # appended blocks are all padding: scale 1.0
+            scale = torch.cat([scale, torch.ones(extra, dtype=scale.dtype, device=dev)])
+        return dataclasses.replace(
+            self,
+            m_blk=grow(self.m_blk, torch.zeros(l, device=dev)),
+            col_blk=col_grown,
+            row_blk=grow(self.row_blk, torch.zeros(l, device=dev)),
+            seg_blk=seg_blk,
+            col_loc=_index_leaf(col_loc, self.col_loc.dtype, self.shape[1]),
+            block_window=bw,
+            block_starts=bs,
+            num_blocks=num_blocks,
+            s_blk=s_blk,
+            scale_blk=scale,
+        )
+
+    def repad_seg_to(self, s_blk: int) -> "RaggedSchedule":
+        """Widen the per-block segment table to ``s_blk`` slots (padding
+        with segment 0): the ragged twin of
+        :meth:`PackedSchedule.repad_seg_to`."""
+        return _repad_seg(self, s_blk)
+
+
+def _repad_seg(packed, s_blk: int):
+    """Shared ``repad_seg_to``: pad ``seg_blk`` columns with segment 0.
+    No ``col_loc`` entry maps to the new slots; the local kernels read
+    only a row's strictly increasing prefix as tiles, and a slot past it
+    reads x directly."""
+    if s_blk == packed.s_blk:
+        return packed
+    if s_blk < packed.s_blk:
+        raise ValueError(
+            f"cannot shrink s_blk {packed.s_blk} -> {s_blk} (real segment "
+            "ids may live in the dropped table slots)"
+        )
+    seg = packed.seg_blk
+    pad = torch.zeros(seg.shape[0], s_blk - packed.s_blk, dtype=seg.dtype,
+                      device=seg.device)
+    return dataclasses.replace(
+        packed, seg_blk=torch.cat([seg, pad], dim=1), s_blk=s_blk
+    )
+
+
+def window_ids(sched: GustSchedule) -> np.ndarray:
+    """Window id of each global schedule cycle, shape (max(C_total, 1),)."""
+    wid = np.zeros(max(sched.total_colors, 1), dtype=np.int32)
+    ids = np.repeat(
+        np.arange(sched.num_windows, dtype=np.int32), sched.colors_per_window
+    )
+    wid[: ids.shape[0]] = ids
+    return wid
 
 
 def pack_blocks(
@@ -315,41 +472,58 @@ def _quantize_stream(
 def _local_gather_tables(
     col: np.ndarray, l: int, c_blk: int, s_min: int = 1
 ) -> Tuple[np.ndarray, np.ndarray, int]:
-    """Segment-local gather tables of a packed column stream.
+    """Host form of :func:`_gather_tables` (numpy in and out, ``col_loc``
+    int32): the tables the packers write."""
+    seg_blk, col_loc, s_blk = _gather_tables(
+        torch.from_numpy(np.asarray(col, np.int64)), l, c_blk, s_min
+    )
+    return seg_blk.numpy(), col_loc.to(torch.int32).numpy(), s_blk
+
+
+def _gather_tables(
+    col: torch.Tensor, l: int, c_blk: int, s_min: int = 1
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Segment-local gather tables of a packed column stream, as torch ops
+    on ``col``'s device (the packers run them on the host, repads and
+    splices on the artifact's device).
 
     For each ``(c_blk, l)`` block of ``col``, the distinct column segments
     (``col // l``) it references, sorted ascending, padded with segment 0
     to ``S_blk = max(max distinct per block, s_min)`` — plus the columns
     remapped to block-local segment ids: ``col_loc = local_seg * l +
-    col % l``.  Returns ``(seg_blk (T, S_blk) int32, col_loc (rows, l)
-    int32, S_blk)``.
+    col % l``.  Bit for bit the reference's tables (a stable sort orders
+    equal segments as numpy's stable argsort does).  Returns ``(seg_blk
+    (T, S_blk) int32, col_loc (rows, l) int64, S_blk)``; the caller casts
+    ``col_loc``.
     """
-    col = np.asarray(col, np.int64)
+    col = col.long()
     rows = col.shape[0]
     if rows % c_blk:  # virtually pad to a block multiple with lane rows
-        lane_rows = np.broadcast_to(
-            np.arange(l, dtype=np.int64), (c_blk - rows % c_blk, l)
-        )
-        col = np.concatenate([col, lane_rows], axis=0)
+        lane_rows = torch.arange(l, device=col.device).expand(c_blk - rows % c_blk, l)
+        col = torch.cat([col, lane_rows])
     t_blk = col.shape[0] // c_blk
-    segs = (col // l).reshape(t_blk, c_blk * l)
-    order = np.argsort(segs, axis=1, kind="stable")
-    srt = np.take_along_axis(segs, order, axis=1)
-    first = np.ones_like(srt, dtype=bool)
+    segs = torch.div(col, l, rounding_mode="floor").reshape(t_blk, c_blk * l)
+    srt, order = torch.sort(segs, dim=1, stable=True)
+    first = torch.ones_like(srt, dtype=torch.bool)
     if srt.shape[1] > 1:
         first[:, 1:] = srt[:, 1:] != srt[:, :-1]
-    loc_sorted = np.cumsum(first, axis=1) - 1  # local id per sorted slot
-    loc = np.empty_like(loc_sorted)
-    np.put_along_axis(loc, order, loc_sorted, axis=1)
-    counts = first.sum(axis=1)
-    s_blk = int(max(counts.max() if t_blk else 1, s_min, 1))
-    seg_blk = np.zeros((t_blk, s_blk), np.int32)
-    r_idx = np.nonzero(first)[0]
-    seg_blk[r_idx, loc_sorted[first]] = srt[first]
-    col_loc = (
-        loc.reshape(col.shape[0], l) * l + (col - (col // l) * l)
-    ).astype(np.int32)[:rows]
+    loc_sorted = first.long().cumsum(dim=1) - 1  # local id per sorted slot
+    loc = torch.empty_like(loc_sorted).scatter_(1, order, loc_sorted)
+    counts = first.sum(dim=1)
+    s_blk = int(max(int(counts.max()) if t_blk else 1, s_min, 1))
+    seg_blk = torch.zeros(t_blk, s_blk, dtype=torch.int32, device=col.device)
+    r_idx = first.nonzero(as_tuple=True)[0]
+    seg_blk[r_idx, loc_sorted[first]] = srt[first].int()
+    col_loc = (loc.reshape(col.shape[0], l) * l + (col - segs.reshape(-1, l) * l))[:rows]
     return seg_blk, col_loc, s_blk
+
+
+def _index_leaf(col_loc: torch.Tensor, idt: torch.dtype, n_cols: int) -> torch.Tensor:
+    """``col_loc`` cast to the index dtype, after the int16 range check
+    the packers make (:func:`_check_index_range`)."""
+    largest = int(col_loc.max()) if col_loc.numel() else 0
+    _check_index_range(idt, n_cols, largest)
+    return col_loc.to(idt)
 
 
 def _extended_row_perm(sched: GustSchedule) -> np.ndarray:
@@ -360,15 +534,15 @@ def _extended_row_perm(sched: GustSchedule) -> np.ndarray:
     return row_perm
 
 
-def _check_index_range(idt: torch.dtype, n_cols: int, col_loc: np.ndarray) -> None:
+def _check_index_range(idt: torch.dtype, n_cols: int, largest_loc: int) -> None:
     """Raise when an int16 index leaf cannot hold the largest column
-    (``n_cols - 1``) or the largest block-local column: the cast would
-    wrap, and a kernel would then read outside x.  The reference's packer
-    wraps without a word; the port refuses at pack time."""
+    (``n_cols - 1``) or the largest block-local column ``largest_loc``:
+    the cast would wrap, and a kernel would then read outside x.  The
+    reference's packer wraps without a word; the port refuses at pack
+    time, and so do its repads and splices."""
     if idt != torch.int16:
         return
     top = torch.iinfo(torch.int16).max
-    largest_loc = int(col_loc.max()) if col_loc.size else 0
     for what, largest in (("column", n_cols - 1), ("col_loc", largest_loc)):
         if largest > top:
             raise ValueError(
@@ -385,7 +559,7 @@ def _stream_leaves(m_b, c_b, l, c_blk, value_dtype, index_dtype, device, n_cols)
     vdt = _lookup(VALUE_DTYPES, value_dtype, "value")
     idt = _lookup(INDEX_DTYPES, index_dtype, "index")
     seg_blk, col_loc, s_blk = _local_gather_tables(c_b, l, c_blk)
-    _check_index_range(idt, n_cols, col_loc)
+    _check_index_range(idt, n_cols, int(col_loc.max()) if col_loc.size else 0)
     scale = None
     if vdt == torch.int8:
         m_b, scale = _quantize_stream(m_b, c_blk)
@@ -564,6 +738,271 @@ def resolve_gather(
     return "local" if s_blk <= locality_ratio * seg_count else "resident"
 
 
+def splice_ragged_blocks(
+    old: RaggedSchedule,
+    sched: GustSchedule,
+    dirty: Sequence[int],
+    *,
+    value_dtype="float32",
+    index_dtype="int32",
+) -> RaggedSchedule:
+    """Incremental ragged repack on ``old``'s device: windows listed in
+    ``dirty`` are packed fresh (through a compact dirty-only
+    sub-schedule), every other window's stream blocks and int8 scales are
+    copied from ``old``.  Bit for bit ``pack_ragged(sched, old.c_blk,
+    ...)``: stream blocks are window-local, scales block-local, and the
+    gather tables a pure function of the spliced column stream.
+
+    ``old`` must be an un-repadded pack of a schedule that agrees with
+    ``sched`` on every clean window (the :func:`~repro_torch.core.scheduler.
+    incremental_schedule` contract) and on geometry and dtypes; anything
+    else raises."""
+    from .scheduler import _ranges
+
+    l, W, cb = sched.l, sched.num_windows, old.c_blk
+    if old.l != l or old.num_windows != W or tuple(old.shape) != tuple(sched.shape):
+        raise ValueError("splice: schedule/artifact geometry mismatch")
+    vdt = _lookup(VALUE_DTYPES, value_dtype, "value")
+    idt = _lookup(INDEX_DTYPES, index_dtype, "index")
+    quant = vdt == torch.int8
+    if quant != old.quantized:
+        raise ValueError("splice: quantization mismatch with the old artifact")
+    if idt != old.col_blk.dtype:
+        raise ValueError("splice: index dtype mismatch with the old artifact")
+    if vdt != old.m_blk.dtype:
+        raise ValueError("splice: value dtype mismatch with the old artifact")
+    dev = old.device
+
+    dirty = np.asarray(dirty, dtype=np.int64)
+    dirty_mask = np.zeros(W, dtype=bool)
+    dirty_mask[dirty] = True
+    clean = np.nonzero(~dirty_mask)[0]
+
+    bpw_new, bs_new, t_new = _ragged_block_layout(sched, cb)
+    bs_old = old.block_starts.cpu().numpy().astype(np.int64)
+    bpw_old = np.diff(bs_old)
+    if clean.size and not np.array_equal(bpw_old[clean], bpw_new[clean]):
+        raise ValueError("splice: clean windows changed block counts")
+
+    def at(idx):
+        return torch.from_numpy(idx).to(dev)
+
+    m_new = torch.zeros(t_new * cb, l, dtype=old.m_blk.dtype, device=dev)
+    c_new = torch.arange(l, device=dev).to(idt).repeat(t_new * cb, 1)  # col == lane
+    r_new = torch.zeros(t_new * cb, l, dtype=old.row_blk.dtype, device=dev)
+    scale_new = torch.ones(t_new, dtype=torch.float32, device=dev) if quant else None
+
+    if clean.size:
+        src = at(_ranges(bs_old[clean] * cb, bpw_old[clean] * cb))
+        dst = at(_ranges(bs_new[clean] * cb, bpw_new[clean] * cb))
+        m_new[dst] = old.m_blk[src]
+        c_new[dst] = old.col_blk[src]
+        r_new[dst] = old.row_blk[src]
+        if quant:
+            sb = at(_ranges(bs_old[clean], bpw_old[clean]))
+            scale_new[at(_ranges(bs_new[clean], bpw_new[clean]))] = old.scale_blk[sb]
+
+    if dirty.size:
+        # Pack only the dirty windows: their schedule rows lifted into a
+        # compact sub-schedule (sub window i == dirty[i]); a window's block
+        # content depends only on its own rows, so the sub-pack's blocks
+        # equal the fresh global pack's.
+        ws = np.asarray(sched.window_starts)
+        sub_cpw = np.diff(ws)[dirty]
+        sub_ws = np.zeros(dirty.size + 1, dtype=np.int64)
+        np.cumsum(sub_cpw, out=sub_ws[1:])
+        rows_src = _ranges(ws[dirty], sub_cpw)
+        sub_c = int(sub_ws[-1])
+        rows = max(sub_c, 1)
+        sub_m = np.zeros((rows, l), dtype=np.asarray(sched.m_sch).dtype)
+        sub_r = np.zeros((rows, l), dtype=np.int32)
+        sub_col = np.tile(np.arange(l, dtype=np.int32), (rows, 1))
+        sub_valid = np.zeros((rows, l), dtype=bool)
+        if sub_c:
+            sub_m[:sub_c] = np.asarray(sched.m_sch)[rows_src]
+            sub_r[:sub_c] = np.asarray(sched.row_sch)[rows_src]
+            sub_col[:sub_c] = np.asarray(sched.col_sch)[rows_src]
+            sub_valid[:sub_c] = np.asarray(sched.valid)[rows_src]
+        sub_sched = GustSchedule(
+            l=l,
+            shape=(int(dirty.size) * l, sched.shape[1]),
+            nnz=int(sub_valid.sum()),
+            m_sch=sub_m,
+            row_sch=sub_r,
+            col_sch=sub_col,
+            window_starts=sub_ws,
+            row_perm=np.arange(int(dirty.size) * l, dtype=np.int64),
+            valid=sub_valid,
+        )
+        sub = pack_ragged(sub_sched, cb, value_dtype, index_dtype, device=dev)
+        # sub windows come in dirty order: the sub stream maps onto the
+        # dirty destinations row for row
+        dst = at(_ranges(bs_new[dirty] * cb, bpw_new[dirty] * cb))
+        m_new[dst] = sub.m_blk
+        c_new[dst] = sub.col_blk
+        r_new[dst] = sub.row_blk
+        if quant:
+            scale_new[at(_ranges(bs_new[dirty], bpw_new[dirty]))] = sub.scale_blk
+
+    seg_blk, col_loc, s_blk = _gather_tables(c_new, l, cb)
+    row_perm = _extended_row_perm(sched)
+    return RaggedSchedule(
+        m_blk=m_new,
+        col_blk=c_new,
+        row_blk=r_new,
+        row_perm=_leaf(row_perm, torch.int32, dev),
+        seg_blk=seg_blk,
+        col_loc=_index_leaf(col_loc, idt, sched.shape[1]),
+        block_window=_leaf(np.repeat(np.arange(W, dtype=np.int32), bpw_new),
+                           torch.int32, dev),
+        block_starts=_leaf(bs_new, torch.int32, dev),
+        l=l,
+        num_windows=W,
+        c_blk=cb,
+        num_blocks=t_new,
+        shape=tuple(sched.shape),
+        fusable=_fusable(sched),
+        s_blk=s_blk,
+        identity_perm=bool(
+            np.array_equal(row_perm, np.arange(W * l, dtype=np.int32))
+        ),
+        scale_blk=scale_new,
+    )
+
+
+#: A measured tune winner must beat the static-default baseline by this
+#: wall-clock factor to displace it — consumed only through
+#: :func:`resolve_tuning` (the reference's value; the margin absorbs
+#: timer noise so ``GustPlan.tune`` is never slower than the defaults).
+DEFAULT_TUNE_IMPROVEMENT = 1.05
+
+
+def resolve_tuning(
+    measurements: Dict, baseline, min_improvement: float = None,
+):
+    """The one measured-tuning decision point: the key of the fastest
+    candidate in ``measurements`` (``{candidate_key: seconds}``), unless
+    it fails to beat ``baseline``'s own measurement by
+    ``min_improvement`` — then ``baseline``.  ``None`` means
+    :data:`DEFAULT_TUNE_IMPROVEMENT`."""
+    if min_improvement is None:
+        min_improvement = DEFAULT_TUNE_IMPROVEMENT
+    if baseline not in measurements:
+        raise ValueError(
+            f"baseline {baseline!r} missing from measurements "
+            f"({sorted(map(repr, measurements))})"
+        )
+    if not all(t > 0 for t in measurements.values()):
+        raise ValueError("measurements must be positive wall-clock seconds")
+    best = min(measurements, key=measurements.get)
+    if measurements[baseline] / measurements[best] >= min_improvement:
+        return best
+    return baseline
+
+
+def pack_auto(
+    sched: GustSchedule, c_blk: int = 8, *, waste_threshold: float = None,
+    value_dtype="float32", index_dtype="int32", device="cuda",
+):
+    """Pick the layout by measured padding waste (:func:`resolve_layout`)
+    and pack only that one, on ``device``."""
+    fn = (
+        pack_ragged
+        if resolve_layout(sched, c_blk, waste_threshold) == "ragged"
+        else pack_schedule
+    )
+    return fn(sched, c_blk, value_dtype, index_dtype, device=device)
+
+
+def _default_spec_s_blk(n: int, l: int, c_blk: int) -> int:
+    """Worst-case table width for shape-only specs: a block of c_blk*l
+    slots references at most that many distinct segments, capped at the
+    matrix's segment count."""
+    return max(min(-(-n // l), c_blk * l), 1)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def packed_spec(
+    m: int,
+    n: int,
+    l: int,
+    c_pad: int,
+    value_dtype="float32",
+    index_dtype="int32",
+    c_blk: int = 8,
+    s_blk: int = None,
+) -> PackedSchedule:
+    """Shape-only :class:`PackedSchedule` (leaves on the meta device, the
+    exact dtypes, no allocation).  ``c_pad`` is typically sized from the
+    Eq. 9 bound; ``s_blk=None`` sizes the gather table at the worst case."""
+    vdt = _lookup(VALUE_DTYPES, value_dtype, "value")
+    idt = _lookup(INDEX_DTYPES, index_dtype, "index")
+    W = max(-(-m // l), 1)
+    if s_blk is None:
+        s_blk = _default_spec_s_blk(n, l, c_blk)
+    t_blk = -(-(W * c_pad) // c_blk)
+    return PackedSchedule(
+        m_blk=_meta((W * c_pad, l), vdt),
+        col_blk=_meta((W * c_pad, l), idt),
+        row_blk=_meta((W * c_pad, l), idt),
+        row_perm=_meta((W * l,), torch.int32),
+        seg_blk=_meta((t_blk, s_blk), torch.int32),
+        col_loc=_meta((W * c_pad, l), idt),
+        l=l,
+        num_windows=W,
+        c_pad=c_pad,
+        shape=(m, n),
+        fusable=True,
+        c_blk=c_blk,
+        s_blk=s_blk,
+        identity_perm=False,
+        scale_blk=_meta((t_blk,), torch.float32) if vdt == torch.int8 else None,
+    )
+
+
+def ragged_spec(
+    m: int,
+    n: int,
+    l: int,
+    num_blocks: int,
+    c_blk: int = 8,
+    value_dtype="float32",
+    index_dtype="int32",
+    s_blk: int = None,
+) -> RaggedSchedule:
+    """Shape-only :class:`RaggedSchedule`, the ragged twin of
+    :func:`packed_spec`.  ``num_blocks`` is typically
+    ``W * ceil(expected_colors_bound / c_blk)``."""
+    vdt = _lookup(VALUE_DTYPES, value_dtype, "value")
+    idt = _lookup(INDEX_DTYPES, index_dtype, "index")
+    W = max(-(-m // l), 1)
+    if s_blk is None:
+        s_blk = _default_spec_s_blk(n, l, c_blk)
+    rows = num_blocks * c_blk
+    return RaggedSchedule(
+        m_blk=_meta((rows, l), vdt),
+        col_blk=_meta((rows, l), idt),
+        row_blk=_meta((rows, l), idt),
+        row_perm=_meta((W * l,), torch.int32),
+        seg_blk=_meta((num_blocks, s_blk), torch.int32),
+        col_loc=_meta((rows, l), idt),
+        block_window=_meta((num_blocks,), torch.int32),
+        block_starts=_meta((W + 1,), torch.int32),
+        l=l,
+        num_windows=W,
+        c_blk=c_blk,
+        num_blocks=num_blocks,
+        shape=(m, n),
+        fusable=True,
+        s_blk=s_blk,
+        identity_perm=False,
+        scale_blk=_meta((num_blocks,), torch.float32) if vdt == torch.int8 else None,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Leaves/meta codec — the reference's wire format, with torch leaves.
 # ---------------------------------------------------------------------------
@@ -652,6 +1091,18 @@ def ragged_from_leaves(leaves: Dict, meta: Tuple) -> RaggedSchedule:
     )
 
 
+def stacked_leaf_specs(proto, reps: int) -> Dict[str, torch.Tensor]:
+    """Meta-device leaves of ``reps`` layer packs stacked on axis 0, for
+    a packed or ragged prototype, real or shape-only (only ``.shape`` and
+    ``.dtype`` are read)."""
+    leaves = (
+        ragged_leaves(proto)
+        if isinstance(proto, RaggedSchedule)
+        else packed_leaves(proto)
+    )
+    return {k: _meta((reps, *v.shape), v.dtype) for k, v in leaves.items()}
+
+
 # ---------------------------------------------------------------------------
 # Content-keyed schedule cache.
 # ---------------------------------------------------------------------------
@@ -710,13 +1161,12 @@ class ScheduleCache:
             self.evictions += 1
         return val
 
-    def schedule(
-        self, coo: COOMatrix, l: int, *, load_balance: bool = True,
-        method: str = "fast", workers: Optional[int] = None,
-    ) -> GustSchedule:
+    def _schedule_for_key(self, mk: str, coo: COOMatrix, l: int,
+                          load_balance: bool, method: str,
+                          workers: Optional[int] = None) -> GustSchedule:
         # ``workers`` is not part of the key: the schedule is bit-identical
         # for every worker count.
-        key = ("sched", self.matrix_key(coo), l, load_balance, method)
+        key = ("sched", mk, l, load_balance, method)
         return self._get(
             key,
             lambda: schedule(
@@ -724,6 +1174,44 @@ class ScheduleCache:
                 workers=workers,
             ),
         )
+
+    def schedule(
+        self, coo: COOMatrix, l: int, *, load_balance: bool = True,
+        method: str = "fast", workers: Optional[int] = None,
+    ) -> GustSchedule:
+        return self._schedule_for_key(
+            self.matrix_key(coo), coo, l, load_balance, method, workers
+        )
+
+    def _matrix_pack(self, tag, fn, coo, l, load_balance, method, c_blk,
+                     value_dtype, index_dtype, device):
+        device = resolve_device(device)
+        mk = self.matrix_key(coo)  # O(nnz) hash, once per call
+        sched = self._schedule_for_key(mk, coo, l, load_balance, method)
+        key = (tag, mk, l, load_balance, method, c_blk, dtype_name(value_dtype),
+               dtype_name(index_dtype), str(device))
+        return sched, self._get(
+            key,
+            lambda: fn(sched, c_blk, value_dtype, index_dtype, device=device),
+        )
+
+    def packed(
+        self, coo: COOMatrix, l: int, *, load_balance: bool = True,
+        method: str = "fast", c_blk: int = 8, value_dtype="float32",
+        index_dtype="int32", device="cuda",
+    ) -> Tuple[GustSchedule, PackedSchedule]:
+        """Schedule + padded pack of ``coo``, both keyed on matrix content."""
+        return self._matrix_pack("packed", pack_schedule, coo, l, load_balance,
+                                 method, c_blk, value_dtype, index_dtype, device)
+
+    def ragged_packed(
+        self, coo: COOMatrix, l: int, *, load_balance: bool = True,
+        method: str = "fast", c_blk: int = 8, value_dtype="float32",
+        index_dtype="int32", device="cuda",
+    ) -> Tuple[GustSchedule, RaggedSchedule]:
+        """Ragged twin of :meth:`packed`."""
+        return self._matrix_pack("ragged", pack_ragged, coo, l, load_balance,
+                                 method, c_blk, value_dtype, index_dtype, device)
 
     def _pack(self, tag, fn, sched, c_blk, value_dtype, index_dtype, device):
         device = resolve_device(device)
@@ -750,6 +1238,27 @@ class ScheduleCache:
         return self._pack("ragged_for", pack_ragged, sched, c_blk,
                           value_dtype, index_dtype, device)
 
+    def auto_for(
+        self, sched: GustSchedule, *, c_blk: int = 8,
+        waste_threshold: float = None, value_dtype="float32",
+        index_dtype="int32", device="cuda",
+    ):
+        """Cached twin of :func:`pack_auto`: the :func:`resolve_layout`
+        decision, memoized through :meth:`ragged_for` / :meth:`pack_for`."""
+        route = (
+            self.ragged_for
+            if resolve_layout(sched, c_blk, waste_threshold) == "ragged"
+            else self.pack_for
+        )
+        return route(sched, c_blk=c_blk, value_dtype=value_dtype,
+                     index_dtype=index_dtype, device=device)
+
+    def memo(self, key: Tuple, build):
+        """LRU memoization for results derived from cached entries (a
+        ``GustPlan.tune`` sweep).  ``key`` must lead with a tag distinct
+        from the built-in routes."""
+        return self._get(key, build)
+
     def stats(self) -> Dict[str, int]:
         return {
             "hits": self.hits,
@@ -769,3 +1278,30 @@ DEFAULT_SCHEDULE_CACHE_SIZE = 256
 
 default_cache = ScheduleCache()
 
+
+def clear_cache() -> None:
+    """Drop every entry of the module-level cache and the ``core.spmv``
+    shims' identity-keyed plans.  Entries hold device tensors for the
+    process lifetime; call this after a one-shot conversion."""
+    from . import spmv
+
+    default_cache.clear()
+    spmv._SHIM_PLANS.clear()
+
+
+def schedule_packed(
+    coo: COOMatrix, l: int, *, load_balance: bool = True, method: str = "fast",
+    c_blk: int = 8, value_dtype="float32", index_dtype="int32",
+    cache: Optional[ScheduleCache] = default_cache, device="cuda",
+) -> Tuple[GustSchedule, PackedSchedule]:
+    """Schedule + padded pack in one call, served from ``cache``
+    (content-keyed; ``cache=None`` bypasses it)."""
+    if cache is None:
+        device = resolve_device(device)
+        sched = schedule(coo, l, load_balance=load_balance, method=method)
+        return sched, pack_schedule(sched, c_blk, value_dtype, index_dtype,
+                                    device=device)
+    return cache.packed(
+        coo, l, load_balance=load_balance, method=method, c_blk=c_blk,
+        value_dtype=value_dtype, index_dtype=index_dtype, device=device,
+    )

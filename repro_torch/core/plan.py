@@ -9,21 +9,35 @@ vectors.
     >>> y = p.spmv(v)     # on the card, through the CUDA kernels
     >>> Y = p.spmm(X)
     >>> C = p.spgemm(B)   # sparse x sparse, a COOMatrix
+    >>> p.cost()          # measured + Eq. 9-11 predicted cost
+    >>> spec = p.to_spec()                    # leaves/meta wire format
+    >>> stacked = repro_torch.GustPlan.stack([p, q])   # serving stacks
+    >>> tuned = p.tune(X)                     # measured autotuning
+    >>> p2 = repro_torch.reschedule(p, matrix2)       # dirty windows only
 
 The device decides the execution path: ``device="cuda"`` (the default;
 it raises when no card is present) runs the hand-written kernels,
 ``device="cpu"`` their plain PyTorch versions.  Execution is never
-retried on another path when it fails.
+retried on another path when it fails: the reference degrades a failed
+kernel to its jnp path and a failed segment-local gather to the resident
+one, the port lets the error reach the caller (``cost().fallback_kernel``
+and ``fallback_gather`` stay 0).  The one fallback it applies is the
+store's: a read that exhausts its retries is served by a fresh plan,
+bit for bit the stored one (``fallback_store``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Optional, Tuple, Union
+import time
+from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..kernels.ops import execute_spmm
+from ..resilience import faults
+from ..resilience.fallback import record_fallback
 from .formats import COOMatrix, GustSchedule, coo_from_dense
 from .packing import (
     INDEX_DTYPES,
@@ -35,24 +49,45 @@ from .packing import (
     dtype_name,
     pack_ragged,
     pack_schedule,
+    packed_from_leaves,
+    packed_leaves,
+    packed_meta,
+    packed_spec,
+    ragged_from_leaves,
+    ragged_leaves,
+    ragged_meta,
+    ragged_spec,
     ragged_waste_ratio,
     resolve_device,
     resolve_gather,
     resolve_layout,
+    resolve_tuning,
+    splice_ragged_blocks,
 )
 from .scheduler import schedule
-from ..kernels.ops import execute_spmm
 
 if TYPE_CHECKING:  # pragma: no cover
     from .spgemm import SpgemmCost
 
-__all__ = ["PlanConfig", "PlanCost", "GustPlan", "plan"]
+__all__ = [
+    "PlanConfig",
+    "PlanCost",
+    "TuneResult",
+    "GustPlan",
+    "plan",
+    "reschedule",
+    "RescheduleResult",
+]
 
 _LAYOUTS = ("padded", "ragged", "auto")
 _BACKENDS = ("jnp", "pallas", "auto")
 _COLORERS = ("paper", "fast", "exact")
 _GATHERS = ("resident", "local", "auto")
 _PIPELINES = ("single", "double", "auto")
+
+#: The reference's knobs that choose between its Pallas and jnp paths; in
+#: the port the plan's device chooses.
+_EXECUTION_ONLY = ("backend", "interpret")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,17 +159,150 @@ class PlanConfig:
         object.__setattr__(self, "value_dtype", vdt)
         object.__setattr__(self, "index_dtype", idt)
 
+    def to_dict(self) -> Dict:
+        """Plain-JSON form (the config part of :meth:`GustPlan.to_spec`)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "PlanConfig":
+        """Inverse of :meth:`to_dict`; unknown keys are dropped.  A
+        reference config's ``backend``/``interpret`` (its Pallas or jnp
+        path) are dropped too: the plan's device chooses the path."""
+        known = {f.name for f in dataclasses.fields(cls)} - set(_EXECUTION_ONLY)
+        return cls(**{k: v for k, v in d.items() if k in known})
+
 
 @dataclasses.dataclass(frozen=True)
 class PlanCost:
-    """Stream cost of one plan: the reference's stream-byte and waste
-    fields.  ``waste_ratio`` is the padded/ragged stream ratio that
-    drives ``layout="auto"``."""
+    """Measured + predicted cost of one plan, with the reference's field
+    names.
 
+    ``cycles``/``utilization`` come from the schedule; ``waste_ratio`` is
+    the padded/ragged stream ratio that drives ``layout="auto"``;
+    ``expected_*`` are the Eq. 9-11 bounds at the matrix's density.
+
+    Gather locality: ``s_blk`` / ``locality_ratio`` (the ``gather="auto"``
+    signal); ``gather_flops_resident`` / ``gather_flops_local`` are the
+    reference's one-hot gather FLOPs per vector column (``4 · slots ·
+    seg_count`` against ``4 · slots · S_blk``), kept for comparison: the
+    port's kernels read ``x[col]`` directly.  ``x_vmem_bytes_resident`` /
+    ``x_vmem_bytes_local`` are x's f32 bytes per vector column that each
+    gather keeps at hand: the whole padded vector against one block's
+    tiles.
+
+    ``backend`` is ``"cuda"`` (the kernels) or ``"plain"`` (their plain
+    PyTorch versions), ``pipeline`` the resolved one.  Cache and store
+    counters are the plan's at cost time.  ``fallback_kernel`` and
+    ``fallback_gather`` are always 0 in the port (no execution fallback);
+    ``fallback_store`` counts store reads served by a fresh plan.
+    """
+
+    cycles: int
+    utilization: float
     waste_ratio: float
     layout: str
     streamed_slots: int
     stream_bytes: int
+    density: float
+    expected_colors: float
+    expected_cycles: float
+    expected_utilization: float
+    gather: str
+    s_blk: int
+    locality_ratio: float
+    gather_flops_resident: int
+    gather_flops_local: int
+    x_vmem_bytes_resident: int
+    x_vmem_bytes_local: int
+    backend: str = "cuda"
+    pipeline: str = "double"
+    cache_hits: int = 0
+    cache_misses: int = 0
+    cache_entries: int = 0
+    cache_evictions: int = 0
+    store_hits: int = 0
+    store_misses: int = 0
+    fallback_kernel: int = 0
+    fallback_gather: int = 0
+    fallback_store: int = 0
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+TuneKey = Tuple[int, int, str, str]
+
+
+@dataclasses.dataclass(frozen=True)
+class TuneResult:
+    """Record of one measured :meth:`GustPlan.tune` sweep.
+
+    Candidate keys are ``(c_blk, l, layout, gather)``.  ``choice`` is the
+    winner of :func:`~repro_torch.core.packing.resolve_tuning`: the
+    fastest measured candidate unless it fails to beat ``baseline`` (the
+    plan's static layout/gather resolution) by the margin.
+    ``cost_consistent``: the winner streams no more bytes than the
+    baseline.  ``pruned``: candidates whose predicted stream bytes passed
+    ``prune_ratio`` × the least, never timed.  Times are seconds."""
+
+    choice: TuneKey
+    baseline: TuneKey
+    measurements: Dict[TuneKey, float]
+    predicted_bytes: Dict[TuneKey, int]
+    improvement: float
+    cost_consistent: bool
+    pruned: Tuple[TuneKey, ...] = ()
+
+    def to_dict(self) -> Dict:
+        key = lambda k: f"c_blk={k[0]},l={k[1]},layout={k[2]},gather={k[3]}"
+        return {
+            "choice": key(self.choice),
+            "baseline": key(self.baseline),
+            "measurements": {key(k): v for k, v in self.measurements.items()},
+            "predicted_bytes": {
+                key(k): v for k, v in self.predicted_bytes.items()
+            },
+            "improvement": self.improvement,
+            "cost_consistent": self.cost_consistent,
+            "pruned": [key(k) for k in self.pruned],
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "TuneResult":
+        """Inverse of :meth:`to_dict`: how a store warm load revives the
+        recorded sweep."""
+
+        def parse(s: str) -> TuneKey:
+            kv = dict(part.split("=", 1) for part in s.split(","))
+            return (int(kv["c_blk"]), int(kv["l"]), kv["layout"], kv["gather"])
+
+        return cls(
+            choice=parse(d["choice"]),
+            baseline=parse(d["baseline"]),
+            measurements={parse(k): v for k, v in d["measurements"].items()},
+            predicted_bytes={
+                parse(k): v for k, v in d["predicted_bytes"].items()
+            },
+            improvement=d["improvement"],
+            cost_consistent=d["cost_consistent"],
+            pruned=tuple(parse(k) for k in d.get("pruned", [])),
+        )
+
+
+def _as_coo(matrix, who: str) -> COOMatrix:
+    """A dense 2-D array (numpy or torch) or a COOMatrix as a COOMatrix."""
+    if isinstance(matrix, torch.Tensor):
+        matrix = matrix.detach().cpu().numpy()
+    if isinstance(matrix, np.ndarray):
+        if matrix.ndim != 2:
+            raise ValueError(f"dense matrix must be 2-D, got shape {matrix.shape}")
+        matrix = coo_from_dense(matrix)
+    if not isinstance(matrix, COOMatrix):
+        raise TypeError(
+            f"{who} takes a dense (numpy or torch) array or a COOMatrix; got "
+            f"{type(matrix).__name__}"
+        )
+    return matrix
 
 
 def plan(
@@ -142,6 +310,7 @@ def plan(
     config: Optional[PlanConfig] = None,
     *,
     cache: Optional[ScheduleCache] = default_cache,
+    store=None,
     workers: Optional[int] = None,
     device="cuda",
     **overrides,
@@ -157,6 +326,14 @@ def plan(
     ``workers`` forwards to the window-chunked parallel colorer (None =
     auto); it never changes the schedule.  The device is checked before
     any scheduling work.
+
+    ``store`` (a :class:`~repro_torch.core.plan_store.PlanStore`) carries
+    the artifact across processes: on a hit its leaves are loaded onto
+    ``device`` with no coloring or packing; on a miss the fresh plan
+    writes its artifact (and any ``TuneResult``) when the pack first
+    materializes.  A store-loaded plan executes bit for bit as the fresh
+    one but carries no schedule (``cost()``, ``tune()`` and
+    ``reschedule()`` need a fresh plan).
     """
     device = resolve_device(device)
     if config is None:
@@ -169,17 +346,29 @@ def plan(
             config = dataclasses.replace(config, l=matrix.l)
         return GustPlan(config, matrix, cache=cache, device=device)
 
-    if isinstance(matrix, torch.Tensor):
-        matrix = matrix.detach().cpu().numpy()
-    if isinstance(matrix, np.ndarray):
-        if matrix.ndim != 2:
-            raise ValueError(f"dense matrix must be 2-D, got shape {matrix.shape}")
-        matrix = coo_from_dense(matrix)
-    if not isinstance(matrix, COOMatrix):
-        raise TypeError(
-            "plan() takes a dense (numpy or torch) array, a COOMatrix or a "
-            f"GustSchedule; got {type(matrix).__name__}"
-        )
+    matrix = _as_coo(matrix, "plan()")
+
+    store_key, store_fallbacks = None, 0
+    if store is not None:
+        store_key = store.key(ScheduleCache.matrix_key(matrix), config)
+        io0 = store.io_errors
+        record = store.get(store_key)
+        if record is None and store.io_errors > io0:
+            # the read failed after the store's retries: stored -> fresh,
+            # bit for bit the stored plan, counted on the fresh plan
+            record_fallback("store")
+            store_fallbacks = 1
+        if record is not None:
+            spec = record["spec"]
+            spec = dict(spec, leaves={k: v.to(device) for k, v in spec["leaves"].items()})
+            p = GustPlan.from_spec(spec, config=config, cache=cache)
+            p._source = matrix
+            p._store, p._store_key, p._store_loaded = store, store_key, True
+            if record.get("tuning"):
+                p.tuning = TuneResult.from_dict(record["tuning"])
+            p.summary = record.get("summary")
+            return p
+
     if cache is None:
         sched = schedule(
             matrix, config.l, load_balance=config.load_balance,
@@ -190,36 +379,64 @@ def plan(
             matrix, config.l, load_balance=config.load_balance,
             method=config.colorer, workers=workers,
         )
-    return GustPlan(config, sched, cache=cache, device=device, source=matrix)
+    p = GustPlan(config, sched, cache=cache, device=device, source=matrix)
+    p._store, p._store_key = store, store_key
+    p._fallbacks["store"] = store_fallbacks
+    return p
 
 
 class GustPlan:
     """Executable GUST artifact: schedule + packed layout on one device.
 
-    Built by :func:`plan`.  Packing is lazy: the artifact materializes on
+    Built by :func:`plan` (or :meth:`from_spec` / :meth:`from_artifact` /
+    :meth:`spec_for`).  Packing is lazy: the artifact materializes on
     first execution (or on reading :attr:`artifact`).  ``_source`` is the
-    :class:`COOMatrix` the plan was scheduled from (``None`` when it was
-    built from a :class:`GustSchedule`)."""
+    :class:`COOMatrix` the plan was scheduled from, when known (``tune``
+    sweeps ``l`` and ``reschedule`` diffs windows through it).  A plan
+    built from a shape-only artifact lives on the meta device and does
+    not execute."""
 
     def __init__(
         self,
         config: PlanConfig,
-        sched: GustSchedule,
+        sched: Optional[GustSchedule] = None,
         *,
+        artifact: Optional[Union[PackedSchedule, RaggedSchedule]] = None,
         cache: Optional[ScheduleCache] = None,
         device="cuda",
         source: Optional[COOMatrix] = None,
     ):
+        if sched is None and artifact is None:
+            raise ValueError("a GustPlan needs a schedule or a packed artifact")
         self.config = config
         self.sched = sched
         self.cache = cache
-        self.device = resolve_device(device)
+        if artifact is not None and artifact.device.type == "meta":
+            self.device = artifact.device
+        else:
+            self.device = resolve_device(device)
+        self._artifact = artifact
         self._source = source
-        self._artifact: Optional[Union[PackedSchedule, RaggedSchedule]] = None
+        self.tuning: Optional[TuneResult] = None
+        # PlanStore attachment: a fresh plan writes its artifact when it
+        # first packs; a loaded one carries the stored schedule summary.
+        self._store = None
+        self._store_key: Optional[str] = None
+        self._store_loaded = False
+        self.summary: Optional[Dict] = None
+        # Fallbacks applied on this plan's path (PlanCost.fallback_*): the
+        # port applies only the store's.
+        self._fallbacks: Dict[str, int] = {"kernel": 0, "gather": 0, "store": 0}
+        # reschedule(): per-window fingerprints of the source, last delta.
+        self._window_hashes: Optional[np.ndarray] = None
+        self.resched: Optional[RescheduleResult] = None
+
+    # -- identity ----------------------------------------------------------
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return self.sched.shape
+        src = self.sched if self.sched is not None else self._artifact
+        return tuple(src.shape)
 
     @property
     def l(self) -> int:
@@ -228,6 +445,8 @@ class GustPlan:
     @property
     def layout(self) -> str:
         """Resolved layout (``auto`` is decided from the measured waste)."""
+        if self._artifact is not None:
+            return "ragged" if isinstance(self._artifact, RaggedSchedule) else "padded"
         if self.config.layout != "auto":
             return self.config.layout
         return resolve_layout(
@@ -236,10 +455,36 @@ class GustPlan:
 
     @property
     def artifact(self) -> Union[PackedSchedule, RaggedSchedule]:
-        """The packed execution layout; materialized on first use."""
+        """The packed execution layout; materialized on first use, when a
+        fresh plan with a store also writes it."""
         if self._artifact is None:
+            faults.trip("pack.materialize")
             self._artifact = self._pack()
+            self._store_put()
         return self._artifact
+
+    def _store_put(self) -> None:
+        """Write-behind of the artifact (plus tuning and a schedule
+        summary).  A failed write (``OSError``, an injected store fault)
+        leaves the plan as it is: persistence never stops execution."""
+        if self._store is None or self._store_key is None or self._store_loaded:
+            return
+        summary = None
+        if self.sched is not None:
+            summary = {
+                "cycles": int(self.sched.cycles),
+                "nnz": int(self.sched.nnz),
+                "utilization": float(self.sched.hardware_utilization),
+            }
+        try:
+            self._store.put(
+                self._store_key,
+                self.to_spec(),
+                tuning=self.tuning.to_dict() if self.tuning else None,
+                summary=summary,
+            )
+        except (OSError, faults.FaultError):
+            pass
 
     @property
     def gather_mode(self) -> str:
@@ -250,6 +495,9 @@ class GustPlan:
             return self.config.gather
         a = self.artifact
         return resolve_gather(a.s_blk, a.seg_count)
+
+    def _backend(self) -> str:
+        return "cuda" if self.device.type == "cuda" else "plain"
 
     def _pipeline(self) -> str:
         """Resolved streaming mode: ``auto`` means double-buffered, as on
@@ -270,10 +518,13 @@ class GustPlan:
             self.sched, c.c_blk, c.value_dtype, c.index_dtype, device=self.device
         )
 
+    # -- execution ---------------------------------------------------------
+
     def spmm(self, x, *, transpose_io: bool = False) -> torch.Tensor:
         """Multi-vector execution: ``x (n, B) -> y (m, B)``, or batch-major
         ``x (B, n) -> y (B, m)`` with ``transpose_io=True``.  ``x`` (a
-        tensor or numpy array) is moved to the plan's device."""
+        tensor or numpy array) is moved to the plan's device.  A failure
+        propagates: no other path is tried."""
         x = torch.as_tensor(x, device=self.device)
         return execute_spmm(
             self.artifact,
@@ -312,14 +563,318 @@ class GustPlan:
 
         return _spgemm_cost(self, other)
 
-    def cost(self) -> PlanCost:
-        """Stream bytes and padding waste of this plan (packs a lazy plan)."""
+    # -- multi-layer serving -------------------------------------------------
+
+    @staticmethod
+    def stack(plans: Sequence[Union["GustPlan", PackedSchedule, RaggedSchedule]]) -> Dict:
+        """Stack the artifacts of ``plans`` (one per layer) along a leading
+        axis.  Layers are first equalized to one stream length
+        (``repad_to`` / ``repad_to_blocks``) and one table width
+        (``repad_seg_to``), keeping the padding invariants and leaf dtypes;
+        ``identity_perm`` and ``fusable`` hold only if they hold for every
+        layer.  Returns the ``{"leaves", "meta"}`` wire format that
+        :meth:`from_spec` takes one layer's slice of."""
+        arts = [p.artifact if isinstance(p, GustPlan) else p for p in plans]
+        if not arts:
+            raise ValueError("stack() needs at least one plan")
+        ragged = isinstance(arts[0], RaggedSchedule)
+        if any(isinstance(a, RaggedSchedule) != ragged for a in arts):
+            raise ValueError("cannot stack mixed padded/ragged layouts")
+        if any(a.quantized != arts[0].quantized for a in arts):
+            # scale_blk exists only on quantized artifacts: no common leaves
+            raise ValueError(
+                "cannot stack mixed quantized/unquantized layers: pack "
+                "every layer with the same value_dtype"
+            )
+        if ragged:
+            t_uniform = max(a.num_blocks for a in arts)
+            arts = [a.repad_to_blocks(t_uniform) for a in arts]
+        else:
+            c_uniform = max(a.c_pad for a in arts)
+            arts = [a.repad_to(c_uniform) for a in arts]
+        s_uniform = max(a.s_blk for a in arts)
+        arts = [a.repad_seg_to(s_uniform) for a in arts]
+        ident = all(a.identity_perm for a in arts)
+        fusable = all(a.fusable for a in arts)
+        arts = [
+            dataclasses.replace(a, identity_perm=ident, fusable=fusable)
+            for a in arts
+        ]
+        if ragged:
+            leaf_fn, meta = ragged_leaves, ragged_meta(arts[0])
+        else:
+            leaf_fn, meta = packed_leaves, packed_meta(arts[0])
+        per_layer = [leaf_fn(a) for a in arts]
+        leaves = {k: torch.stack([d[k] for d in per_layer]) for k in per_layer[0]}
+        return {"leaves": leaves, "meta": meta}
+
+    # -- serialization (the leaves/meta codec) -------------------------------
+
+    def to_spec(self) -> Dict:
+        """``{"leaves", "meta", "config"}`` — the wire format shared with
+        serving stacks and the store.  ``leaves`` are the artifact's
+        tensors at their exact dtypes; ``meta`` and ``config`` are static
+        and JSON-able."""
         a = self.artifact
+        if isinstance(a, RaggedSchedule):
+            leaves, meta = ragged_leaves(a), ragged_meta(a)
+        else:
+            leaves, meta = packed_leaves(a), packed_meta(a)
+        return {"leaves": leaves, "meta": meta, "config": self.config.to_dict()}
+
+    @classmethod
+    def from_spec(
+        cls,
+        spec: Dict,
+        *,
+        config: Optional[PlanConfig] = None,
+        cache: Optional[ScheduleCache] = None,
+    ) -> "GustPlan":
+        """Rebuild a plan from :meth:`to_spec` output (or one layer's slice
+        of a :meth:`stack`) on its leaves' device.  The schedule is not
+        serialized: the plan executes but cannot re-pack."""
+        meta = tuple(spec["meta"])
+        if meta and meta[0] == "ragged":
+            artifact = ragged_from_leaves(spec["leaves"], meta)
+        else:
+            artifact = packed_from_leaves(spec["leaves"], meta)
+        if config is None:
+            cfg_dict = spec.get("config")
+            config = PlanConfig.from_dict(cfg_dict) if cfg_dict else PlanConfig()
+        return cls.from_artifact(artifact, config=config, cache=cache)
+
+    @classmethod
+    def from_artifact(
+        cls,
+        artifact: Union[PackedSchedule, RaggedSchedule],
+        *,
+        config: Optional[PlanConfig] = None,
+        c_blk: Optional[int] = None,
+        cache: Optional[ScheduleCache] = None,
+        sched: Optional[GustSchedule] = None,
+    ) -> "GustPlan":
+        """Wrap a packed artifact in a plan on the artifact's device.
+        Layout, geometry and dtypes are read off the artifact; ``c_blk``
+        overrides the config's on a padded unquantized stream (ragged and
+        quantized streams run at their pack-time height)."""
+        if config is None:
+            config = PlanConfig()
+        ragged = isinstance(artifact, RaggedSchedule)
+        config = dataclasses.replace(
+            config,
+            l=artifact.l,
+            layout="ragged" if ragged else "padded",
+            c_blk=artifact.c_blk if (ragged or artifact.quantized) else (
+                c_blk if c_blk is not None else config.c_blk
+            ),
+            value_dtype=dtype_name(artifact.m_blk.dtype),
+            index_dtype=dtype_name(artifact.col_blk.dtype),
+        )
+        return cls(config, sched, artifact=artifact, cache=cache,
+                   device=artifact.device)
+
+    @classmethod
+    def spec_for(
+        cls, m: int, n: int, config: PlanConfig, *, colors: float
+    ) -> "GustPlan":
+        """Shape-only plan (meta-device leaves, no allocation) with the
+        stream sized from a per-window color estimate, typically the Eq. 9
+        bound: how memory is accounted without running the scheduler."""
+        c = config
+        layout = "padded" if c.layout == "auto" else c.layout
+        cpb = max(-(-int(np.ceil(colors)) // c.c_blk), 1)
+        if layout == "ragged":
+            artifact = ragged_spec(
+                m, n, c.l, max(-(-m // c.l), 1) * cpb, c_blk=c.c_blk,
+                value_dtype=c.value_dtype, index_dtype=c.index_dtype,
+            )
+        else:
+            artifact = packed_spec(
+                m, n, c.l, cpb * c.c_blk, c_blk=c.c_blk,
+                value_dtype=c.value_dtype, index_dtype=c.index_dtype,
+            )
+        return cls(dataclasses.replace(c, layout=layout), artifact=artifact)
+
+    # -- measured autotuning -------------------------------------------------
+
+    def tune(
+        self,
+        x_probe,
+        *,
+        c_blks: Optional[Sequence[int]] = None,
+        ls: Optional[Sequence[int]] = None,
+        layouts: Sequence[str] = ("padded", "ragged"),
+        gathers: Sequence[str] = ("resident", "local"),
+        iters: int = 3,
+        warmup: int = 1,
+        min_improvement: Optional[float] = None,
+        prune_ratio: float = 4.0,
+    ) -> "GustPlan":
+        """Measure ``(c_blk, l, layout, gather)`` candidates on ``x_probe``
+        (``(n,)`` or ``(n, B)``) and return a plan pinned to the winner.
+
+        Each candidate is priced by :class:`PlanCost` first (predicted
+        stream bytes past ``prune_ratio`` × the least are pruned untimed),
+        then timed on the plan's device: best of ``iters`` calls after
+        ``warmup``, each between ``torch.cuda.synchronize()`` calls on the
+        card (``time.perf_counter`` on the CPU).  The winner comes from
+        :func:`~repro_torch.core.packing.resolve_tuning`: the fastest,
+        unless it fails to beat the static baseline by the margin.  The
+        returned plan carries the :class:`TuneResult` on ``.tuning`` and a
+        config that spells every swept knob.  The sweep is memoized in the
+        plan's cache, keyed on schedule content, probe, knobs and device.
+
+        ``ls`` defaults to the plan's ``l`` plus ``l/2`` when the plan
+        holds its source matrix (another ``l`` means rescheduling).
+        """
+        if self.sched is None:
+            raise ValueError(
+                "tune() needs the schedule; deserialized/spec plans carry "
+                "only the packed artifact"
+            )
+        x_probe = torch.as_tensor(x_probe, device=self.device)
+        if x_probe.dim() == 1:
+            x_probe = x_probe[:, None]
+        c = self.config
+        if c_blks is None:
+            c_blks = tuple(sorted({4, c.c_blk, 2 * c.c_blk}))
+        if ls is None:
+            ls = (
+                tuple(sorted({c.l, max(c.l // 2, 1)}, reverse=True))
+                if self._source is not None
+                else (c.l,)
+            )
+        baseline = (c.c_blk, c.l, self.layout, self.gather_mode)
+
+        def build(key: TuneKey) -> "GustPlan":
+            cb, l, layout, gather = key
+            cfg = dataclasses.replace(c, c_blk=cb, l=l, layout=layout, gather=gather)
+            if l == c.l:
+                return GustPlan(cfg, self.sched, cache=self.cache,
+                                device=self.device, source=self._source)
+            return plan(self._source, cfg, cache=self.cache, device=self.device)
+
+        candidates = {baseline}
+        for cb in c_blks:
+            for l in ls:
+                if l != c.l and self._source is None:
+                    continue
+                for layout in layouts:
+                    for gather in gathers:
+                        candidates.add((int(cb), int(l), layout, gather))
+        candidates = sorted(candidates)
+        on_card = self.device.type == "cuda"
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(self.device)
+
+        def seconds(run) -> float:
+            for _ in range(max(warmup, 1)):
+                run(x_probe)
+            best = float("inf")
+            for _ in range(max(iters, 1)):
+                sync()
+                t0 = time.perf_counter()
+                run(x_probe)
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            return best
+
+        def sweep() -> TuneResult:
+            predicted, plans = {}, {}
+            for key in candidates:
+                plans[key] = build(key)
+                predicted[key] = int(plans[key].cost().stream_bytes)
+            least = min(predicted.values())
+            pruned = tuple(
+                k for k in candidates
+                if k != baseline and predicted[k] > prune_ratio * least
+            )
+            measurements = {
+                key: seconds(plans[key].spmm) for key in candidates if key not in pruned
+            }
+            choice = resolve_tuning(
+                measurements, baseline, min_improvement=min_improvement
+            )
+            return TuneResult(
+                choice=choice,
+                baseline=baseline,
+                measurements=measurements,
+                predicted_bytes=predicted,
+                improvement=measurements[baseline] / measurements[choice],
+                cost_consistent=predicted[choice] <= predicted[baseline],
+                pruned=pruned,
+            )
+
+        if self.cache is not None:
+            memo_key = (
+                "tune", self.cache.schedule_key(self.sched), tuple(candidates),
+                tuple(x_probe.shape), str(x_probe.dtype), c.value_dtype,
+                c.index_dtype, str(self.device), iters, warmup, min_improvement,
+                prune_ratio,
+            )
+            result = self.cache.memo(memo_key, sweep)
+        else:
+            result = sweep()
+        tuned = build(result.choice)
+        tuned.tuning = result
+        if self._store is not None and self._source is not None:
+            # persist the winner under the tuned config's key, so a warm
+            # load revives the artifact and the TuneResult together
+            tuned._store = self._store
+            tuned._store_key = self._store.key(
+                ScheduleCache.matrix_key(self._source), tuned.config
+            )
+        return tuned
+
+    # -- cost ----------------------------------------------------------------
+
+    def cost(self) -> PlanCost:
+        """Measured schedule cost + Eq. 9-11 predictions (packs a lazy
+        plan)."""
+        from .bounds import (
+            expected_colors_bound,
+            expected_execution_cycles,
+            expected_utilization,
+        )
+
+        if self.sched is None:
+            raise ValueError(
+                "cost() needs the schedule; deserialized/spec plans carry "
+                "only the packed artifact"
+            )
+        m, n = self.shape
+        density = self.sched.nnz / float(m * n) if m and n else 0.0
+        a = self.artifact
+        streamed = a.streamed_slots
+        cache = self.cache.stats() if self.cache is not None else {}
         return PlanCost(
+            cycles=self.sched.cycles,
+            utilization=self.sched.hardware_utilization,
             waste_ratio=ragged_waste_ratio(self.sched, self.config.c_blk),
             layout=self.layout,
-            streamed_slots=a.streamed_slots,
+            streamed_slots=streamed,
             stream_bytes=a.stream_bytes,
+            density=density,
+            expected_colors=float(expected_colors_bound(n, density, self.l)),
+            expected_cycles=float(expected_execution_cycles(n, density, self.l)),
+            expected_utilization=float(expected_utilization(n, density, self.l)),
+            gather=self.gather_mode,
+            s_blk=a.s_blk,
+            locality_ratio=a.s_blk / max(a.seg_count, 1),
+            gather_flops_resident=4 * streamed * a.seg_count,
+            gather_flops_local=4 * streamed * a.s_blk,
+            x_vmem_bytes_resident=a.seg_count * self.l * 4,
+            x_vmem_bytes_local=a.s_blk * self.l * 4,
+            backend=self._backend(),
+            pipeline=self._pipeline(),
+            store_hits=self._store.hits if self._store is not None else 0,
+            store_misses=self._store.misses if self._store is not None else 0,
+            fallback_kernel=self._fallbacks["kernel"],
+            fallback_gather=self._fallbacks["gather"],
+            fallback_store=self._fallbacks["store"],
+            **{f"cache_{k}": v for k, v in cache.items()},
         )
 
     def __repr__(self) -> str:
@@ -329,3 +884,110 @@ class GustPlan:
             f"GustPlan({m}x{n}, l={self.l}, layout={self.config.layout}"
             f"->{packed}, device={self.device})"
         )
+
+
+# ---------------------------------------------------------------------------
+# Incremental re-planning for drifting sparsity: diff per-window content,
+# recolor only dirty windows, splice their blocks into the existing stream.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RescheduleResult:
+    """What one :func:`reschedule` delta did.  ``full_fallback``: the plan
+    was rebuilt from scratch (load-balanced config, or nothing to diff
+    against); ``spliced``: the ragged stream was updated in place through
+    :func:`~repro_torch.core.packing.splice_ragged_blocks`."""
+
+    windows: int
+    dirty_windows: int
+    reused_windows: int
+    recolored_edges: int
+    full_fallback: bool
+    spliced: bool
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def reschedule(
+    base: GustPlan,
+    matrix: Union[np.ndarray, torch.Tensor, COOMatrix],
+    *,
+    workers: Optional[int] = None,
+    store=None,
+) -> GustPlan:
+    """Re-plan ``matrix`` incrementally against ``base`` (a plan over the
+    previous version of the same-shaped matrix), on ``base``'s device.
+
+    Per-window content fingerprints are diffed; only dirty windows are
+    recolored, and when ``base`` holds a materialized ragged artifact
+    only their blocks are packed, every clean window's blocks copied on
+    the device.  The result is bit for bit ``plan(matrix, base.config)``
+    built fresh.  Incremental reuse needs ``load_balance=False`` (row
+    balancing is a function of the whole matrix); a load-balanced config
+    builds a fresh plan and says so in ``.resched.full_fallback``.  The
+    returned plan carries its fingerprints for the next delta; window
+    totals accumulate in ``sched_counters``."""
+    from .scheduler import incremental_schedule, sched_counters
+
+    if not isinstance(base, GustPlan):
+        raise TypeError(f"reschedule() needs a GustPlan, got {type(base).__name__}")
+    if base.sched is None:
+        raise ValueError(
+            "reschedule() needs the base plan's schedule; store-loaded/"
+            "spec plans carry only the packed artifact — build fresh"
+        )
+    matrix = _as_coo(matrix, "reschedule()")
+    if tuple(matrix.shape) != tuple(base.shape):
+        raise ValueError(
+            f"reschedule() cannot change the matrix shape "
+            f"({tuple(base.shape)} -> {tuple(matrix.shape)}); build a fresh plan"
+        )
+
+    cfg = base.config
+    W = base.sched.num_windows
+    can_diff = base._window_hashes is not None or base._source is not None
+    if cfg.load_balance or not can_diff:
+        p = plan(matrix, cfg, cache=base.cache, store=store, workers=workers,
+                 device=base.device)
+        p.resched = RescheduleResult(
+            windows=W, dirty_windows=W, reused_windows=0,
+            recolored_edges=p.sched.nnz if p.sched is not None else 0,
+            full_fallback=True, spliced=False,
+        )
+        return p
+
+    edges_before = sched_counters["colored_edges"]
+    new_sched, dirty, new_hashes = incremental_schedule(
+        base.sched,
+        matrix,
+        old_coo=base._source,
+        old_hashes=base._window_hashes,
+        method=cfg.colorer,
+        workers=workers,
+    )
+    recolored_edges = sched_counters["colored_edges"] - edges_before
+
+    p = GustPlan(cfg, new_sched, cache=base.cache, device=base.device, source=matrix)
+    p._window_hashes = new_hashes
+    spliced = isinstance(base._artifact, RaggedSchedule) and p.layout == "ragged"
+    if spliced:
+        p._artifact = splice_ragged_blocks(
+            base._artifact, new_sched, dirty,
+            value_dtype=cfg.value_dtype, index_dtype=cfg.index_dtype,
+        )
+    if store is not None:
+        p._store = store
+        p._store_key = store.key(ScheduleCache.matrix_key(matrix), cfg)
+        if spliced:
+            p._store_put()  # the artifact is already there: write now
+    p.resched = RescheduleResult(
+        windows=W,
+        dirty_windows=int(dirty.size),
+        reused_windows=W - int(dirty.size),
+        recolored_edges=int(recolored_edges),
+        full_fallback=False,
+        spliced=spliced,
+    )
+    return p

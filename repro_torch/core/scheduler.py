@@ -26,12 +26,13 @@ Three colorers are provided:
 All three satisfy: validity, completeness, C_w >= Δ_w (Eq. 1 bound).
 
 Counterpart of ``repro.core.scheduler`` (numpy only): every colorer gives
-the reference's colors bit for bit.  Incremental rescheduling comes with
-a later slice of the port.
+the reference's colors bit for bit, and incremental rescheduling
+(:func:`incremental_schedule`) gives a fresh schedule's.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -42,6 +43,8 @@ from .load_balance import balance_lanes, balance_rows
 
 __all__ = [
     "schedule",
+    "incremental_schedule",
+    "window_fingerprints",
     "color_edges_fast",
     "color_edges_paper",
     "color_edges_exact",
@@ -53,14 +56,18 @@ __all__ = [
 ]
 
 #: Host-side observability counters.  ``color_calls`` / ``colored_edges``
-#: count invocations of any colorer through :func:`schedule` (two plans
-#: over one matrix color once through the ``ScheduleCache``);
-#: ``parallel_chunks`` counts chunks colored by worker processes (0 when
-#: the serial colorer ran).
+#: count invocations of any colorer through :func:`schedule` or
+#: :func:`incremental_schedule` (two plans over one matrix color once
+#: through the ``ScheduleCache``; a ``PlanStore`` warm load colors
+#: nothing); ``parallel_chunks`` counts chunks colored by worker
+#: processes (0 when the serial colorer ran); ``windows_recolored`` /
+#: ``windows_reused`` track incremental rescheduling.
 sched_counters: Dict[str, int] = {
     "color_calls": 0,
     "colored_edges": 0,
     "parallel_chunks": 0,
+    "windows_recolored": 0,
+    "windows_reused": 0,
 }
 
 
@@ -619,3 +626,168 @@ def schedule(
         row_perm=row_perm,
         valid=valid,
     )
+
+
+# ---------------------------------------------------------------------------
+# Incremental re-scheduling (dirty-window re-coloring)
+# ---------------------------------------------------------------------------
+
+
+def _window_hashes(
+    win: np.ndarray,
+    row_local: np.ndarray,
+    col: np.ndarray,
+    val: np.ndarray,
+    num_windows: int,
+) -> np.ndarray:
+    """sha1 fingerprint of each window's edge content.  Hashed over
+    canonical dtypes (int64 indices, float64 values) so the fingerprint is
+    independent of the edge-array index-dtype policy."""
+    e = win.shape[0]
+    bounds = np.searchsorted(win, np.arange(num_windows + 1))
+    rl64 = np.ascontiguousarray(row_local, dtype=np.int64)
+    c64 = np.ascontiguousarray(col, dtype=np.int64)
+    v64 = np.ascontiguousarray(val, dtype=np.float64)
+    out = np.empty(num_windows, dtype="S20")
+    for w in range(num_windows):
+        s, t = int(bounds[w]), int(bounds[w + 1])
+        h = hashlib.sha1()
+        h.update(rl64[s:t].tobytes())
+        h.update(c64[s:t].tobytes())
+        h.update(v64[s:t].tobytes())
+        out[w] = h.digest()
+    return out
+
+
+def window_fingerprints(coo: COOMatrix, l: int) -> np.ndarray:
+    """Per-window content fingerprints under the ``load_balance=False``
+    window assignment (win = row // l) — the diff key for
+    :func:`incremental_schedule`."""
+    win, row_local, _, col, val, _ = _build_edges(coo, l, False)
+    num_windows = max(-(-coo.shape[0] // l), 1)
+    return _window_hashes(win, row_local, col, val, num_windows)
+
+
+def _ranges(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Concatenation of arange(start, start+length) per pair — vectorized
+    multi-slice index construction."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    total = int(lengths.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    out = np.repeat(np.asarray(starts, dtype=np.int64), lengths)
+    resets = np.repeat(np.cumsum(lengths) - lengths, lengths)
+    return out + (np.arange(total, dtype=np.int64) - resets)
+
+
+def incremental_schedule(
+    old_sched: GustSchedule,
+    new_coo: COOMatrix,
+    *,
+    old_coo: Optional[COOMatrix] = None,
+    old_hashes: Optional[np.ndarray] = None,
+    method: str = "fast",
+    workers: Optional[int] = None,
+) -> Tuple[GustSchedule, np.ndarray, np.ndarray]:
+    """Re-schedule ``new_coo`` reusing ``old_sched`` wherever possible.
+
+    Diffs per-window content fingerprints, recolors only the dirty
+    windows, and splices their cycles into a fresh global table; clean
+    windows' schedule rows are copied verbatim.  Because windows are
+    independent coloring problems, the result is **bit-identical** to a
+    fresh ``schedule(new_coo, l, load_balance=False, method=...)``.
+
+    Only valid for ``load_balance=False`` schedules: row balancing is a
+    global function of the whole matrix, so any content change could
+    reassign every window.  ``old_sched.row_perm`` must be the identity.
+
+    Returns ``(new_sched, dirty_windows, new_hashes)``; pass ``new_hashes``
+    back as ``old_hashes`` on the next delta to skip re-hashing the old
+    side.  Counts windows in ``sched_counters`` (windows_recolored /
+    windows_reused)."""
+    if method not in _COLORERS:
+        raise ValueError(f"unknown coloring method {method!r}")
+    l = old_sched.l
+    m, n = old_sched.shape
+    if tuple(new_coo.shape) != (m, n):
+        raise ValueError(
+            f"incremental_schedule: shape changed {old_sched.shape} -> "
+            f"{tuple(new_coo.shape)}; build a fresh plan instead"
+        )
+    if not np.array_equal(old_sched.row_perm, np.arange(m)):
+        raise ValueError(
+            "incremental_schedule requires a load_balance=False schedule "
+            "(row_perm must be identity)"
+        )
+    num_windows = old_sched.num_windows
+
+    win, row_local, lane, col, val, row_perm = _build_edges(new_coo, l, False)
+    e = win.shape[0]
+    new_hashes = _window_hashes(win, row_local, col, val, num_windows)
+    if old_hashes is None:
+        if old_coo is None:
+            raise ValueError("incremental_schedule needs old_coo or old_hashes")
+        old_hashes = window_fingerprints(old_coo, l)
+    old_hashes = np.asarray(old_hashes)
+    if old_hashes.shape != new_hashes.shape:
+        raise ValueError("old_hashes has wrong window count")
+
+    dirty_mask = old_hashes != new_hashes
+    dirty = np.nonzero(dirty_mask)[0]
+    clean = np.nonzero(~dirty_mask)[0]
+    sched_counters["windows_recolored"] += int(dirty.size)
+    sched_counters["windows_reused"] += int(clean.size)
+
+    # --- recolor dirty windows only -------------------------------------
+    edge_dirty = dirty_mask[win]
+    d_idx = np.nonzero(edge_dirty)[0]
+    cpw_old = np.diff(old_sched.window_starts)
+    cpw_new = cpw_old.copy()
+    cpw_new[dirty] = 0  # dirty windows that became empty stay at 0 colors
+    if d_idx.size:
+        colors_d = _color_edges(
+            method,
+            win[d_idx],
+            row_local[d_idx],
+            lane[d_idx],
+            num_windows,
+            l,
+            workers,
+        )
+        np.maximum.at(cpw_new, win[d_idx], colors_d + 1)
+
+    window_starts = np.zeros(num_windows + 1, dtype=np.int64)
+    np.cumsum(cpw_new, out=window_starts[1:])
+    c_total = int(window_starts[-1])
+
+    # --- splice: copy clean windows' rows, scatter dirty edges ----------
+    m_sch, row_sch, col_sch, valid = _alloc_tables(c_total, l, old_sched.m_sch.dtype)
+    if clean.size:
+        src = _ranges(old_sched.window_starts[clean], cpw_old[clean])
+        dst = _ranges(window_starts[clean], cpw_old[clean])
+        m_sch[dst] = old_sched.m_sch[src]
+        row_sch[dst] = old_sched.row_sch[src]
+        col_sch[dst] = old_sched.col_sch[src]
+        valid[dst] = old_sched.valid[src]
+    if d_idx.size:
+        lane_d = lane[d_idx]
+        gcycle = window_starts[win[d_idx]] + colors_d
+        if valid[gcycle, lane_d].any() or np.unique(gcycle * l + lane_d).size != d_idx.size:
+            raise AssertionError("collision in incremental schedule")
+        m_sch[gcycle, lane_d] = val[d_idx].astype(old_sched.m_sch.dtype)
+        row_sch[gcycle, lane_d] = row_local[d_idx].astype(np.int32)
+        col_sch[gcycle, lane_d] = col[d_idx].astype(np.int32)
+        valid[gcycle, lane_d] = True
+
+    new_sched = GustSchedule(
+        l=l,
+        shape=(m, n),
+        nnz=e,
+        m_sch=m_sch,
+        row_sch=row_sch,
+        col_sch=col_sch,
+        window_starts=window_starts,
+        row_perm=row_perm,
+        valid=valid,
+    )
+    return new_sched, dirty, new_hashes

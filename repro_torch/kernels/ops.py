@@ -5,16 +5,22 @@ Counterpart of ``repro.kernels.ops.execute_spmm``.  The device of the
 artifact decides the path: on a CUDA artifact the hand-written kernels
 run, chosen by layout, gather and pipeline as the reference chooses its
 Pallas kernels; on a CPU artifact their plain PyTorch versions.  There
-is no fallback from one to the other.
+is no fallback from one to the other.  The resilience fault sites
+``kernel.execute`` (tagged ``"cuda"`` or ``"plain"``) and ``gather.local``
+(when the resolved gather is segment-local) fire on every call; an
+injected fault reaches the caller as a failed kernel would.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Tuple, Union
 
 import torch
 
-from ..core.packing import PackedSchedule, RaggedSchedule, resolve_gather
+from ..core.formats import GustSchedule
+from ..core.packing import PackedSchedule, RaggedSchedule, default_cache, resolve_gather
+from ..resilience import faults
 
 from .gust_spmv import gust_spmv, gust_spmv_db, gust_spmv_local, gust_spmv_local_db
 from .gust_spmv_ragged import (
@@ -24,7 +30,13 @@ from .gust_spmv_ragged import (
     gust_spmv_ragged_local_db,
 )
 
-__all__ = ["execute_spmm", "normalize_choice", "EXECUTE_CHOICES"]
+__all__ = [
+    "execute_spmm",
+    "gust_spmm",
+    "gust_spmm_auto",
+    "normalize_choice",
+    "EXECUTE_CHOICES",
+]
 
 #: Legal values of every string knob the executor (and PlanConfig)
 #: accepts — the one place rejection messages are defined.
@@ -94,6 +106,14 @@ def execute_spmm(
     normalize_choice("gather", gather)
     normalize_choice("pipeline", pipeline)
     normalize_choice("layout", layout)
+    if faults.enabled():
+        faults.trip("kernel.execute",
+                    tag="cuda" if packed.device.type == "cuda" else "plain")
+        eff_gather = gather
+        if eff_gather == "auto":
+            eff_gather = resolve_gather(packed.s_blk, packed.seg_count)
+        if eff_gather == "local":
+            faults.trip("gather.local")
     ragged = isinstance(packed, RaggedSchedule)
     actual_layout = "ragged" if ragged else "padded"
     if layout not in ("auto", actual_layout):
@@ -175,3 +195,50 @@ def execute_spmm(
         y = out[:m]
     y = y.to(x.dtype)
     return y.T if transpose_io else y
+
+
+def gust_spmm(
+    packed: Union[PackedSchedule, RaggedSchedule],
+    x: torch.Tensor,
+    *,
+    c_blk: int = 8,
+) -> torch.Tensor:
+    """Legacy packed-entry shim: ``y = M @ x``, x (n, B) -> y (m, B), on
+    the artifact's device.  Routes through
+    :meth:`~repro_torch.core.plan.GustPlan.from_artifact`; prefer
+    ``repro_torch.plan(matrix, ...).spmm(x)``."""
+    from ..core.plan import GustPlan
+
+    return GustPlan.from_artifact(packed, c_blk=c_blk).spmm(x)
+
+
+def gust_spmm_auto(
+    sched: GustSchedule,
+    x: torch.Tensor,
+    *,
+    c_blk: int = 8,
+    waste_threshold: float = None,
+    cache=default_cache,
+    device="cuda",
+) -> torch.Tensor:
+    """Deprecated schedule-level shim: pick ragged or padded by the
+    measured waste, pack through the content-keyed cache on ``device``,
+    execute.  Use ``repro_torch.plan(sched, PlanConfig(layout="auto",
+    ...)).spmm(x)``."""
+    warnings.warn(
+        "gust_spmm_auto(sched, x, ...) is deprecated; use "
+        "repro_torch.plan(sched, PlanConfig(layout='auto', c_blk=...), "
+        "device=...).spmm(x)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from ..core.plan import PlanConfig, plan
+
+    p = plan(
+        sched,
+        PlanConfig(l=sched.l, layout="auto", c_blk=c_blk,
+                   waste_threshold=waste_threshold),
+        cache=cache,
+        device=device,
+    )
+    return p.spmm(x)

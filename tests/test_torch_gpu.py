@@ -30,7 +30,12 @@ bitwise to ``x[col]`` on each of its paths, from an x off 16-byte
 alignment too.  An infinite x at a column that only padding slots point at
 leaves every kernel's rows finite and equal to the plain version's.  An
 int16 pack that cannot hold a column raises before any launch, and
-``spmm`` with an x of no column launches nothing.
+``spmm`` with an x of no column launches nothing.  Repadded and stacked
+artifacts (a longer stream, a segment table widened past the kernels'
+16 staged tiles) run through kernels 1-8 bit for bit as the unpadded
+artifact; a store round trip, a rescheduled plan and ``GustLinear`` equal
+their fresh or plain counterparts bit for bit; a fault at
+``kernel.execute`` reaches the caller with no fallback.
 """
 
 import dataclasses
@@ -45,7 +50,11 @@ import repro_torch.kernels.gust_spgemm as k_gemm
 import repro_torch.kernels.gust_spmv as k_pad
 import repro_torch.kernels.gust_spmv_ragged as k_rag
 import repro_torch.kernels.ref as tref
+import repro_torch.resilience as resilience
 from repro_torch.core.formats import COOMatrix, dense_from_coo
+from repro_torch.core.gust_linear import GustLinear
+from repro_torch.core.plan import GustPlan, reschedule
+from repro_torch.core.plan_store import PlanStore
 from repro_torch.core.packing import pack_ragged, pack_schedule
 from repro_torch.core.plan import PlanConfig, plan
 from repro_torch.core.scheduler import schedule
@@ -944,3 +953,127 @@ def test_spmm_with_no_column_on_card(cuda, layout, transpose_io):
     assert tuple(y.shape) == ((0, 20) if transpose_io else (20, 0))
     assert y.device.type == "cuda" and y.dtype == torch.float32
     assert (k_pad.launches, k_pad.db_launches, k_rag.launches, k_rag.db_launches) == before
+
+
+def _grown(art, seg_extra):
+    """``art`` with a longer stream (two more blocks per padded window, five
+    more ragged blocks) and its segment table widened by ``seg_extra``."""
+    if hasattr(art, "block_starts"):
+        grown = art.repad_to_blocks(art.num_blocks + 5)
+    else:
+        grown = art.repad_to(art.c_pad + 2 * art.c_blk)
+    return grown.repad_seg_to(grown.s_blk + seg_extra)
+
+
+@pytest.mark.parametrize("family", ["single", "local_single", "db", "local_db"])
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt", ["float32", "int8"])
+def test_repadded_and_stacked_artifacts_run_bitwise(cuda, family, layout, vdt):
+    """A repadded artifact and each layer's slice of a stack give the
+    unpadded artifact's bits through every SpMV kernel; the widened
+    segment table repeats segment 0 past its increasing prefix, beyond the
+    16 tiles a block stages."""
+    cfg = PlanConfig(l=32, c_blk=8, layout=layout, value_dtype=vdt)
+    plans = [plan(_dense(s, 300, 900, d), cfg, device=cuda)
+             for s, d in ((11, 0.02), (12, 0.05))]
+    stacked = GustPlan.stack(plans)
+    X = torch.from_numpy(np.random.default_rng(13).standard_normal((900, 8))
+                         .astype(np.float32)).to(cuda)
+    for i, p in enumerate(plans):
+        art = p.artifact
+        grown = _grown(art, seg_extra=20)
+        assert grown.s_blk > 16 and grown.m_blk.dtype == art.m_blk.dtype
+        sl = GustPlan.from_spec({"leaves": {k: v[i] for k, v in stacked["leaves"].items()},
+                                 "meta": stacked["meta"]}).artifact
+        for b in (1, 8):
+            xp = _prep_x(X[:, :b], 900, 32)
+            want = _run_family(family, art, xp)
+            assert torch.equal(_run_family(family, grown, xp), want)
+            assert torch.equal(_run_family(family, sl, xp), want)
+            if b == 1:
+                cpu = _run_family("single", _to_cpu(art), xp.cpu())
+                assert torch.equal(want.cpu(), cpu)
+
+
+def _to_cpu(art):
+    return dataclasses.replace(art, **{
+        f.name: getattr(art, f.name).cpu() for f in dataclasses.fields(art)
+        if isinstance(getattr(art, f.name), torch.Tensor)})
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt,idt", [("float32", "int32"), ("bfloat16", "int16"),
+                                     ("int8", "int32")])
+def test_store_round_trip_on_card(cuda, tmp_path, layout, vdt, idt):
+    coo = _coo(_dense(14, 300, 500, 0.03))
+    cfg = PlanConfig(l=32, layout=layout, value_dtype=vdt, index_dtype=idt)
+    cold = plan(coo, cfg, cache=None, store=PlanStore(str(tmp_path)), device=cuda)
+    cold.artifact
+    warm = plan(coo, cfg, cache=None, store=PlanStore(str(tmp_path)), device=cuda)
+    assert warm._store_loaded and warm.artifact.m_blk.device.type == cuda.type
+    X = np.random.default_rng(15).standard_normal((500, 8)).astype(np.float32)
+    for b in (1, 8):
+        assert torch.equal(warm.spmm(X[:, :b]), cold.spmm(X[:, :b]))
+
+
+@pytest.mark.parametrize("vdt", ["float32", "int8"])
+def test_reschedule_equals_fresh_plan_on_card(cuda, vdt):
+    dense = _dense(16, 400, 600, 0.03)
+    edited = dense.copy()
+    rng = np.random.default_rng(17)
+    for w in (2, 9):  # l=32: rows 64..95 and 288..319
+        blk = edited[w * 32:(w + 1) * 32]
+        nz = np.argwhere(blk != 0)
+        blk[nz[0][0], nz[0][1]] = 0.0
+        blk[nz[-1][0], nz[-1][1]] *= 2.0
+        blk[rng.integers(32), rng.integers(600)] = 1.5
+    cfg = PlanConfig(l=32, layout="ragged", load_balance=False, value_dtype=vdt)
+    base = plan(_coo(dense), cfg, cache=None, device=cuda)
+    base.artifact
+    p = reschedule(base, _coo(edited))
+    fresh = plan(_coo(edited), cfg, cache=None, device=cuda)
+    assert p.resched.spliced and p.resched.dirty_windows == 2
+    assert p.artifact.m_blk.device.type == cuda.type
+    for k in ("m_blk", "col_blk", "row_blk", "seg_blk", "col_loc", "block_starts"):
+        assert torch.equal(getattr(p.artifact, k), getattr(fresh.artifact, k)), k
+    v = np.random.default_rng(18).standard_normal(600).astype(np.float32)
+    assert torch.equal(p.spmv(v), fresh.spmv(v))
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+def test_gust_linear_equals_its_plain_version(cuda, layout):
+    w = np.random.default_rng(19).standard_normal((200, 320)).astype(np.float32)
+    cfg = PlanConfig(l=64, layout=layout)
+    lin = GustLinear(w, config=cfg, density=0.1, cache=None, device=cuda)
+    plain = GustLinear(w, config=cfg, density=0.1, cache=None, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(20).standard_normal((8, 320))
+                         .astype(np.float32))
+    y = lin(x.to(cuda))
+    assert y.device.type == cuda.type and y.shape == (8, 200)
+    assert torch.equal(lin(x[:1].to(cuda)).cpu(), plain(x[:1]))
+    for k in range(8):
+        assert torch.equal(y[k:k + 1], lin(x[k:k + 1].to(cuda)))
+    np.testing.assert_allclose(y.cpu().numpy(), plain(x).numpy(), rtol=1e-5, atol=1e-5)
+    assert lin(x[0].to(cuda)).shape == (200,)
+
+
+@pytest.mark.parametrize("site,gather", [("kernel.execute", "auto"),
+                                         ("gather.local", "local")])
+def test_execution_fault_reaches_the_caller_on_card(cuda, site, gather):
+    p = plan(_dense(21, 200, 300, 0.05), PlanConfig(l=32, gather=gather), device=cuda)
+    v = np.ones(300, np.float32)
+    want = p.spmv(v)
+    names = ("launches", "local_launches", "db_launches", "local_db_launches")
+    before = [getattr(mod, n) for mod in (k_pad, k_rag) for n in names]
+    resilience.reset_fallback_counters()
+    fp = resilience.FaultPlan([resilience.FaultSpec(site)], seed=0)
+    with resilience.injected(fp):
+        with pytest.raises(resilience.FaultError):
+            p.spmv(v)
+    assert [getattr(mod, n) for mod in (k_pad, k_rag) for n in names] == before
+    if site == "kernel.execute":
+        assert fp.fired[0][2] == "cuda"
+    cost = p.cost()
+    assert (cost.fallback_kernel, cost.fallback_gather, cost.backend) == (0, 0, "cuda")
+    assert not any(resilience.fallback_counters.values())
+    assert torch.equal(p.spmv(v), want)

@@ -81,10 +81,11 @@ def test_plan_matches_reference(layout, vdt):
     )
     assert port.layout == ref.layout == layout
     assert port.gather_mode == ref.gather_mode == "resident"
-    assert dataclasses.asdict(port.cost()) == {
-        k: getattr(ref.cost(), k)
-        for k in ("waste_ratio", "layout", "streamed_slots", "stream_bytes")
-    }
+    # the full PlanCost: every field the reference's but the execution
+    # path's name
+    port_cost, ref_cost = dataclasses.asdict(port.cost()), dataclasses.asdict(ref.cost())
+    assert (port_cost.pop("backend"), ref_cost.pop("backend")) == ("plain", "jnp")
+    assert port_cost == ref_cost
     if vdt == "float32":  # and against the matrix itself
         np.testing.assert_allclose(y.numpy(), dense @ v, rtol=1e-4, atol=1e-4)
 
@@ -131,7 +132,12 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.kernels._build, repro_torch.data.matrices, "
         "repro_torch.core.spgemm, repro_torch.graph.analytics, "
         "repro_torch.kernels.gust_spgemm, repro_torch.kernels.gather_fill, "
-        "repro_torch.kernels.local_db_sweep, repro_torch.kernels.spgemm_sweep; "
+        "repro_torch.kernels.local_db_sweep, repro_torch.kernels.spgemm_sweep, "
+        "repro_torch.core.plan_store, repro_torch.core.gust_linear, "
+        "repro_torch.core.spmv, repro_torch.core.bounds, repro_torch.resilience, "
+        "repro_torch.resilience.faults, repro_torch.resilience.retry, "
+        "repro_torch.resilience.lifecycle, repro_torch.resilience.fallback; "
+        "[getattr(repro_torch, n) for n in repro_torch.__all__]; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); "
         "assert not bad, bad; print('ok')"

@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``repro_torch/kernels/csrc`` (one
-``nvcc`` per source, in parallel), then drives four paths of the port,
-each (and each phase of the fourth) with the launch counts zeroed just
-before it and read just after:
+``nvcc`` per source, in parallel), then drives five paths of the port,
+each (and each phase of the fourth and fifth) with the launch counts
+zeroed just before it and read just after:
 
 1. **SpMV** — ``repro_torch.plan(M, PlanConfig(...)).spmv(v)`` /
    ``.spmm(X)`` on the Table-3 matrix ``crankseg_2`` at its published
@@ -55,6 +55,18 @@ before it and read just after:
      dropped and added);
    * ``no_fallback``: a ``FaultPlan`` at ``kernel.execute`` on the card.
 
+5. **Serving** yi-6b at its published widths (d_model 4,096, 32 heads
+   with 4 KV heads of 128, d_ff 11,008, vocab 64,000; 5.80 B parameters,
+   random from ``torch.Generator`` seed 0 on the card), float32, through
+   ``ServeLoop`` at batch 4 and ``seq_len`` 512: 8 requests (prompts of
+   64, 96 and 128 tokens from numpy seed 0, 32 new tokens each):
+
+   * ``serve.dense``: all 32 layers;
+   * ``serve.gust``: the first 2 layers (the host schedule of all 96 MLP
+     matrices would take over half an hour), gustified at
+     ``GustServeConfig()`` (density 0.1, l=256, load-balanced, padded:
+     kernel 5), then with ``ragged=True`` (kernel 7).
+
 Checks, each fatal:
   * every SpMV kernel against its plain PyTorch version on the card, at
     the main path's shapes (B = 1 and 8): per element
@@ -100,7 +112,17 @@ Checks, each fatal:
     leaves and ``spmv`` bitwise a fresh plan's; the fault at
     ``kernel.execute`` raises, launches nothing, and no plan's
     ``fallback_kernel`` / ``fallback_gather`` and no process fallback
-    counter moves.
+    counter moves;
+  * the serving path: every request DONE with no retry, no failure and
+    every fallback counter 0; one request served alone on the idle engine
+    of the same batch equals its stream in the mixed run bitwise (both
+    phases); the first decode step at two layers on the card within
+    ``2e-4`` of the largest logit of the same step on the CPU's plain path
+    (float32, TF32 off); each GUST phase launches its kernel exactly once
+    per GUST product (3 x 2 layers x decode steps) and no other kernel,
+    so no product ran a plain version; padded == ragged token streams
+    bitwise; a GUST decode step within ``1e-4`` of the largest logit of a
+    dense decode step on the same pruned MLP weights.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
@@ -118,7 +140,12 @@ forward and kernel ms beside the bytes bound, cuSPARSE CSR and dense
 ``torch.matmul`` on the pruned weight, ``partial_bytes``, cycles,
 utilization, the resolved layout, gather and pipeline and the schedule
 and pack seconds; the store's file bytes and cold / warm seconds; the
-``TuneResult``; reschedule against fresh-plan seconds; and as its last line
+``TuneResult``; reschedule against fresh-plan seconds; per serving phase
+prefill ms by prompt length and decode-step ms (CUDA events), tokens/s,
+slot occupancy, a ``torch.profiler`` window of 8 decode steps (device ms
+by kernel, idle share), and for GUST the gustify seconds (prune /
+schedule / pack), cycles per layer, streamed slots and stream
+utilization; and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 """
@@ -308,6 +335,7 @@ def x_tile_bytes(name, art, b):
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -637,6 +665,12 @@ def main() -> int:
     lifecycle_path(report, launch_counts, {"coo": coo, "plans": plans, "cache": cache,
                                            "power_w": power_w})
 
+    # -- path 5: serving yi-6b at full width, dense and GUST-sparse -------------------
+    t0 = time.perf_counter()
+    serve_path(report, launch_counts)
+    report["serve"]["seconds"] = time.perf_counter() - t0
+    log(f"serve path: {report['serve']['seconds']:.1f} s")
+
     kernels = []
     heads = {name: (KERNELS[name][2], KERNELS[name][3], PHASE_SCHEDULES[KERNELS[name][1]][0])
              for name in KERNELS}
@@ -666,6 +700,8 @@ def main() -> int:
         kernels.append(entry)
     report["kernels"] = kernels
 
+    report["total_s"] = time.perf_counter() - start
+    log(f"chip_smoke: {report['total_s']:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -1026,6 +1062,355 @@ def lifecycle_path(report, launch_counts, crank):
     for name in ("linear", "stack", "tune", "reschedule"):
         if not report["lifecycle"][name]["launches"]:
             raise AssertionError(f"phase {name} launched no kernel")
+
+
+#: yi-6b as the serving path drives it (src/repro/configs/yi_6b.py):
+#: the published widths it must have, the traffic and the engine.
+YI_WIDTHS = dict(d_model=4096, n_heads=32, n_kv=4, head_dim=128, d_ff=11008,
+                 vocab=64_000, n_layers=32)
+SERVE = dict(batch=4, seq_len=512, prompt_lens=(64, 96, 128), requests=8, max_new=32,
+             gust_layers=2, profile_steps=8)
+#: Tolerances, of the largest |logit|: the card's first decode step at two
+#: layers against the CPU's plain path (float32 products summed in another
+#: order), and the GUST decode against a dense decode on the same pruned
+#: MLP weights (the sparse products sum in another order).
+TOL_SERVE_CPU, TOL_SERVE_GUST = 2e-4, 1e-4
+SERVE_DEVICE = "cuda"
+
+
+def first_layers(params, n):
+    """The parameter tree of the first ``n`` rep layers (views)."""
+    from repro_torch.models.tree import tree_map
+
+    return dict(params, stack={"reps": tuple(tree_map(lambda a: a[:n], r)
+                                             for r in params["stack"]["reps"]),
+                               "tail": []})
+
+
+def instrument(loop):
+    """Wrap the loop's prefill, decode and sampler in CUDA events; returns
+    the list each call appends ``(kind, prompt length or None, start,
+    end)`` to."""
+    import torch
+
+    calls = []
+
+    def timed(kind, fn):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            size = args[1]["tokens"].shape[1] if kind == "prefill" else None
+            calls.append((kind, size, start, end))
+            return out
+        return run
+
+    loop._prefill = timed("prefill", loop._prefill)
+    loop._decode = timed("decode", loop._decode)
+    loop._sample_rows = timed("sample", loop._sample_rows)
+    return calls
+
+
+def zero_launches(launch_counts):
+    for mod, attr in launch_counts.values():
+        setattr(mod, attr, 0)
+
+
+def read_launches(launch_counts):
+    """The kernels launched since the counts were zeroed, by name."""
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in launch_counts.items()}
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_run(loop, rids, launches, kernel, steps, what):
+    """Every request of ``rids`` DONE, no contained decode retry or
+    failure and no fallback so far on ``loop``, and ``launches`` exactly
+    one of ``kernel`` per GUST product of ``steps`` decode steps (three a
+    layer; none at all when ``kernel`` is None, the dense decode)."""
+    statuses = {str(loop.results[r].status) for r in rids}
+    res = loop.resilience_stats()
+    if statuses != {"DONE"} or res["decode_retries"] or res["failed"] or any(
+            v for k, v in res.items() if k.startswith("fallback_")):
+        raise AssertionError(f"{what}: statuses {statuses}, resilience {res}")
+    want = {} if kernel is None else {kernel: 3 * loop.lm.stack.n_layers * steps}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, not {want} (one per GUST "
+                             "product)")
+    return res
+
+
+def serve_run(loop, prompts, launch_counts, kernel):
+    """Enqueue ``prompts``, drain the loop with the launch counts zeroed
+    just before and read just after; the phase's numbers."""
+    import torch
+
+    calls = instrument(loop)
+    zero_launches(launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [loop.enqueue(x, max_new=SERVE["max_new"]) for x in prompts]
+    loop.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(launch_counts)
+    prefill, decode, sample = {}, [], []
+    for kind, size, start, end in calls:
+        ms = start.elapsed_time(end)
+        if kind == "prefill":
+            prefill.setdefault(str(size), []).append(ms)
+        else:
+            (decode if kind == "decode" else sample).append(ms)
+    tokens = sum(len(loop.results[r].tokens) for r in rids)
+    out = {
+        "wall_s": wall, "tokens": tokens, "tok_per_s": tokens / wall,
+        "decode_steps": loop.stats["decode_steps"], "slot_occupancy": loop.occupancy,
+        "prefill_ms_by_prompt_len": {k: float(np.median(v)) for k, v in prefill.items()},
+        "decode_step_ms": {"median": float(np.median(decode)), "min": float(min(decode)),
+                           "max": float(max(decode)), "mean": float(np.mean(decode))},
+        "sample_ms_median": float(np.median(sample)),
+        "launches": launches,
+    }
+    out["resilience"] = check_run(loop, rids, launches, kernel, out["decode_steps"],
+                                  "serving")
+    return [loop.results[r].tokens for r in rids], out
+
+
+def solo_equals(loop, prompts, streams, index, launch_counts, kernel):
+    """Serve prompts[index] alone on the (now idle) engine of the same
+    batch; its stream must equal the mixed run's, bit for bit."""
+    zero_launches(launch_counts)
+    steps0 = loop.stats["decode_steps"]
+    rid = loop.submit(prompts[index], max_new=SERVE["max_new"])
+    loop.run_to_completion()
+    check_run(loop, [rid], read_launches(launch_counts), kernel,
+              loop.stats["decode_steps"] - steps0, f"request {index} served alone")
+    if loop.results[rid].tokens != streams[index]:
+        raise AssertionError(f"request {index} served alone differs from its stream in "
+                             "the mixed run")
+
+
+def decode_profile(loop, prompts, steps, step_ms, launch_counts, kernel):
+    """``torch.profiler`` (CUDA activity) over ``steps`` decode steps of a
+    full batch on the idle engine: device ms per step by kernel, and the
+    idle share ``1 - device / wall``, against the profiled window's wall
+    and against ``step_ms``, the unprofiled run's median step.  The
+    window's launch counts and the batch's statuses are checked as
+    ``serve_run``'s are."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rids = [loop.enqueue(x, max_new=steps + 2) for x in prompts[:loop.cfg.batch]]
+    loop.step()  # admissions and a first decode step, outside the window
+    torch.cuda.synchronize()
+    steps0 = loop.stats["decode_steps"]
+    zero_launches(launch_counts)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loop.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = read_launches(launch_counts)
+    if loop.stats["decode_steps"] - steps0 != steps:
+        raise AssertionError(f"profile: {loop.stats['decode_steps'] - steps0} decode "
+                             f"steps in the window, not {steps}")
+    loop.run_to_completion()
+    check_run(loop, rids, launches, kernel, steps, "profiled decode steps")
+    by_kernel, launched = {}, 0
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None)
+        if total is None:
+            total = evt.cuda_time_total
+        if total:
+            by_kernel[evt.key[:100]] = total / steps / 1e3
+            launched += evt.count
+    groups = {"gust_spmv": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, ms in by_kernel.items():
+        low = name.lower()
+        if "spread" in low:
+            groups["gust_spmv"] += ms
+        elif "gemm" in low or "gemv" in low or "cutlass" in low or "matmul" in low:
+            groups["gemm"] += ms
+        else:
+            groups["other"] += ms
+    device_ms = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    return {"steps": steps, "launches": launches,
+            "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "device_ops_per_step": launched / steps,
+            "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "idle_share_vs_unprofiled_step": max(0.0, 1.0 - device_ms / step_ms),
+            "by_group_ms": groups,
+            "top_kernels_ms": top}
+
+
+def serve_path(report, launch_counts):
+    """Serving yi-6b at its published widths on the card, random weights
+    from a seeded ``torch.Generator``.  ``serve.dense``: all 32 layers,
+    float32, 8 requests (prompts of 64, 96 and 128 tokens, 32 new tokens
+    each) through the continuous-batching ``ServeLoop`` at batch 4; one
+    request alone equals its mixed stream bitwise; the first decode step
+    at two layers agrees with the CPU's plain path.  ``serve.gust``: the
+    first two layers, gustified at ``GustServeConfig()`` (padded, kernel 5)
+    and with ``ragged=True`` (kernel 7), serving the same traffic: every
+    GUST product launches its kernel, padded == ragged and solo ==
+    concurrent bitwise, and a GUST decode step agrees with a dense one on
+    the same pruned MLP weights."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.tree import tree_map
+    from repro_torch.resilience import fallback_counters
+    from repro_torch.serving import (CachePolicy, GustServeConfig, ServeConfig,
+                                     ServeLoop, cache_bytes, decode_step_gust)
+    from repro_torch.core.gust_linear import prune_by_magnitude
+
+    dev = torch.device(SERVE_DEVICE)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the float32 products would not be float32")
+    cfg = get_arch("yi_6b")
+    widths = {k: getattr(cfg, k) for k in YI_WIDTHS}
+    if widths != YI_WIDTHS:
+        raise AssertionError(f"yi-6b widths {widths} != the published {YI_WIDTHS}")
+    lm = build_model(cfg)
+    out = report.setdefault("serve", {})
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = lm.param_count(params)
+    out["param_bytes"] = out["params"] * 4
+    sc = ServeConfig(batch=SERVE["batch"], seq_len=SERVE["seq_len"], dtype="float32")
+    out["kv_cache_bytes"] = cache_bytes(lm, sc.batch, sc.seq_len, CachePolicy("float32"))
+    rng = np.random.default_rng(0)
+    lens = SERVE["prompt_lens"]
+    prompts = [rng.integers(0, cfg.vocab, lens[r % len(lens)]).astype(np.int32)
+               for r in range(SERVE["requests"])]
+    log(f"serve: yi-6b {widths}, {out['params']} parameters ({out['param_bytes']} "
+        f"bytes float32), init {out['init_s']:.1f} s; KV cache at batch {sc.batch}, "
+        f"seq_len {sc.seq_len}: {out['kv_cache_bytes']} bytes")
+
+    # -- serve.dense: all 32 layers ---------------------------------------------------
+    loop = ServeLoop(lm, params, sc)
+    streams, dense = serve_run(loop, prompts, launch_counts, None)
+    solo_equals(loop, prompts, streams, 1, launch_counts, None)
+    dense["profile"] = decode_profile(loop, prompts, SERVE["profile_steps"],
+                                      dense["decode_step_ms"]["median"], launch_counts,
+                                      None)
+    del loop
+    # the first decode step at two layers, on the card and on the CPU
+    lm2 = build_model(dataclasses.replace(cfg, n_layers=SERVE["gust_layers"]))
+    params2 = first_layers(params, SERVE["gust_layers"])
+    cpu2 = tree_map(lambda a: a.cpu(), params2)
+    x = torch.from_numpy(prompts[0])[None]
+    logits = {}
+    for name, p, d in (("card", params2, dev), ("cpu", cpu2, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        caches = lm2.init_caches(1, sc.seq_len, torch.float32, device=d)
+        first, caches = lm2.prefill(p, {"tokens": x.to(d)}, caches, dtype=torch.float32)
+        tok = torch.argmax(first[:, -1], dim=-1).to(torch.int32)
+        if name == "cpu" and not torch.equal(tok, logits["card"][1]):
+            raise AssertionError("card and CPU prefill pick different first tokens")
+        step, _ = lm2.decode_step(p, caches, tok[:, None].to(d), x.shape[1],
+                                  dtype=torch.float32)
+        logits[name] = (step.cpu(), tok.cpu(), time.perf_counter() - t0)
+    del cpu2
+    err = float((logits["card"][0] - logits["cpu"][0]).abs().max())
+    scale = float(logits["cpu"][0].abs().max())
+    if not np.isfinite(err) or err > TOL_SERVE_CPU * scale:
+        raise AssertionError(f"serve.dense: the 2-layer decode step on the card is "
+                             f"{err:.3e} off the CPU's (max |logit| {scale:.3e})")
+    dense.update(cpu_check={"max_abs_err": err, "max_abs_logit": scale,
+                            "cpu_s": logits["cpu"][2], "card_s": logits["card"][2]})
+    out["dense"] = dense
+    log(f"serve.dense: {cfg.n_layers} layers, {dense['tokens']} tokens in {dense['wall_s']:.2f} s "
+        f"({dense['tok_per_s']:.1f} tokens/s), {dense['decode_steps']} decode steps, "
+        f"step {json.dumps(dense['decode_step_ms'])} ms, sampler "
+        f"{dense['sample_ms_median']:.3f} ms, prefill ms by prompt length "
+        f"{json.dumps(dense['prefill_ms_by_prompt_len'])}, occupancy "
+        f"{dense['slot_occupancy']:.3f}; every request DONE, no retry or fallback; solo "
+        f"== mixed bitwise; 2-layer decode step card vs CPU max abs err {err:.3e} "
+        f"(max |logit| {scale:.3e}); profile "
+        f"{json.dumps({k: v for k, v in dense['profile'].items() if k != 'top_kernels_ms'})}")
+
+    # -- serve.gust: the first 2 layers, gustified padded then ragged ----------------
+    gust_streams = {}
+    for layout in ("padded", "ragged"):
+        gcfg = GustServeConfig(ragged=layout == "ragged")
+        t0 = time.perf_counter()
+        loop = ServeLoop(lm2, params2, dataclasses.replace(sc, gust=gcfg))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        plans = loop.gust_tree["plans"]
+        kernels = {plan_kernel(p) for ps in plans.values() for p in ps}
+        want = "gust_spmv_ragged_db" if layout == "ragged" else "gust_spmv_db"
+        if kernels != {want}:
+            raise AssertionError(f"serve.gust {layout}: the plans resolve {kernels}, "
+                                 f"not {want}")
+        streams, row = serve_run(loop, prompts, launch_counts, want)
+        solo_equals(loop, prompts, streams, 1, launch_counts, want)
+        row["profile"] = decode_profile(loop, prompts, SERVE["profile_steps"],
+                                        row["decode_step_ms"]["median"], launch_counts,
+                                        want)
+        gust_streams[layout] = streams
+        tree = loop.gust_tree
+        row.update(build_s=build_s, gustify_s=tree["seconds"], kernel=want,
+                   stats={k: v for k, v in tree["stats"].items()})
+        if layout == "padded":
+            gust_loop, gust_cfg = loop, gcfg
+        out[f"gust_{layout}"] = row
+        log(f"serve.gust {layout}: 2 layers, gustify {build_s:.1f} s "
+            f"{json.dumps(tree['seconds'])}, {row['tokens']} tokens in "
+            f"{row['wall_s']:.2f} s ({row['tok_per_s']:.1f} tokens/s), "
+            f"{row['decode_steps']} decode steps, step "
+            f"{json.dumps(row['decode_step_ms'])} ms, sampler "
+            f"{row['sample_ms_median']:.3f} ms, prefill ms "
+            f"{json.dumps(row['prefill_ms_by_prompt_len'])}, occupancy "
+            f"{row['slot_occupancy']:.3f}, launches {row['launches']}; stats "
+            f"{json.dumps(row['stats'])}; profile "
+            f"{json.dumps({k: v for k, v in row['profile'].items() if k != 'top_kernels_ms'})}")
+        del loop
+    if gust_streams["padded"] != gust_streams["ragged"]:
+        raise AssertionError("serve.gust: padded and ragged token streams differ")
+
+    # a GUST decode step against a dense one on the same pruned MLP weights
+    pruned = {}
+    mlp = params2["stack"]["reps"][0]["mlp"]
+    for name, w in mlp.items():
+        pruned[name] = torch.stack([
+            torch.from_numpy(np.ascontiguousarray(prune_by_magnitude(
+                w[r].cpu().numpy().T, gust_cfg.density).T)) for r in range(w.shape[0])
+        ]).to(dev)
+    params_pruned = dict(params2, stack={"reps": (dict(params2["stack"]["reps"][0],
+                                                       mlp=pruned),), "tail": []})
+    caches = lm2.init_caches(sc.batch, sc.seq_len, torch.float32, device=dev)
+    template = lm2.init_caches(1, sc.seq_len, torch.float32, device=dev)
+    for slot, x in enumerate(prompts[:sc.batch]):
+        _, one = lm2.prefill(params2, {"tokens": torch.from_numpy(x)[None].to(dev)},
+                             template, dtype=torch.float32)
+        lm2.insert_slot_caches(caches, one, slot)
+    pos = torch.tensor([len(x) for x in prompts[:sc.batch]], dtype=torch.int32, device=dev)
+    tok = torch.arange(sc.batch, dtype=torch.int32, device=dev)[:, None] * 7
+    twin = tree_map(lambda a: a.clone(), caches)
+    want, _ = lm2.decode_step(params_pruned, twin, tok, pos, dtype=torch.float32)
+    got, _ = decode_step_gust(lm2, params2, gust_loop.gust_tree, caches, tok, pos,
+                              dtype=torch.float32)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not np.isfinite(err) or err > TOL_SERVE_GUST * scale:
+        raise AssertionError(f"serve.gust: the GUST decode step is {err:.3e} off the dense "
+                             f"one on the pruned weights (max |logit| {scale:.3e})")
+    out["gust_vs_dense_pruned"] = {"max_abs_err": err, "max_abs_logit": scale}
+    if any(fallback_counters.values()):
+        raise AssertionError(f"serve: fallback counters moved: {fallback_counters}")
+    log(f"serve.gust: padded == ragged token streams bitwise; solo == mixed bitwise; "
+        f"GUST decode vs dense on the pruned weights max abs err {err:.3e} (max |logit| "
+        f"{scale:.3e})")
 
 
 def edited_coo(coo, l, windows, seed=0):

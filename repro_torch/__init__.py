@@ -12,6 +12,9 @@ Public API, exported lazily so that ``import repro_torch`` stays cheap:
     >>> repro_torch.triangle_count(A)          # graph analytics (repro_torch.graph)
     >>> layer = repro_torch.GustLinear(w, density=0.1)   # y = layer(x)
     >>> p = repro_torch.plan(M, store=repro_torch.PlanStore(path))  # warm loads
+    >>> lm = repro_torch.build_model(repro_torch.get_arch("yi_6b"))  # dense LM
+    >>> loop = repro_torch.ServeLoop(lm, lm.init(gen), repro_torch.ServeConfig(
+    ...     batch=4, seq_len=512, gust=repro_torch.GustServeConfig()))  # GUST decode
 """
 
 from typing import TYPE_CHECKING
@@ -56,9 +59,26 @@ _EXPORTS = {
     "feature_propagation": "repro_torch.graph.analytics",
     "PageRankResult": "repro_torch.graph.analytics",
     "TriangleCountResult": "repro_torch.graph.analytics",
+    "ArchConfig": "repro_torch.configs.base",
+    "get_arch": "repro_torch.configs.base",
+    "LM": "repro_torch.models.model_zoo",
+    "build_model": "repro_torch.models.model_zoo",
+    "from_reference_params": "repro_torch.core.convert",
+    "CachePolicy": "repro_torch.serving.kv_cache",
+    "cache_bytes": "repro_torch.serving.kv_cache",
+    "cache_specs": "repro_torch.serving.kv_cache",
+    "GustServeConfig": "repro_torch.serving.gust_serve",
+    "gustify": "repro_torch.serving.gust_serve",
+    "decode_step_gust": "repro_torch.serving.gust_serve",
+    "dryrun_specs": "repro_torch.serving.gust_serve",
+    "ServeConfig": "repro_torch.serving.serve_loop",
+    "ServeLoop": "repro_torch.serving.serve_loop",
+    "make_sampler": "repro_torch.serving.serve_loop",
+    "make_serve_fns": "repro_torch.serving.serve_loop",
+    "run_serving": "repro_torch.launch.serve",
 }
 #: Subpackages, imported on first access.
-_SUBMODULES = ("graph", "resilience")
+_SUBMODULES = ("configs", "graph", "launch", "models", "resilience", "serving")
 
 __all__ = sorted([*_EXPORTS, *_SUBMODULES])
 
@@ -81,7 +101,24 @@ def __dir__():
 
 
 if TYPE_CHECKING:  # pragma: no cover
-    from repro_torch import graph, resilience
+    from repro_torch import configs, graph, launch, models, resilience, serving
+    from repro_torch.configs.base import ArchConfig, get_arch
+    from repro_torch.core.convert import from_reference_params
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models.model_zoo import LM, build_model
+    from repro_torch.serving.gust_serve import (
+        GustServeConfig,
+        decode_step_gust,
+        dryrun_specs,
+        gustify,
+    )
+    from repro_torch.serving.kv_cache import CachePolicy, cache_bytes, cache_specs
+    from repro_torch.serving.serve_loop import (
+        ServeConfig,
+        ServeLoop,
+        make_sampler,
+        make_serve_fns,
+    )
     from repro_torch.core.bounds import (
         expected_colors_bound,
         expected_execution_cycles,

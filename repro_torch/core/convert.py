@@ -1,10 +1,16 @@
-"""Carry a packed artifact across from the reference.
+"""Carry a packed artifact, or a model's parameters, across from the
+reference.
 
-The system has no weights: the packed color-block stream is its state.
+The packed color-block stream is the state of a plan:
 ``repro.core.packing.packed_leaves`` / ``ragged_leaves`` (as numpy arrays)
 plus the meta tuple are the reference's wire format, and
 :func:`from_reference_leaves` turns them into the port's artifact on a
 device, bit for bit — so the two packages can run one artifact.
+
+A model's parameters are the reference's pytree; ``jax.random`` cannot
+be reproduced in torch, so :func:`from_reference_params` takes the tree
+as numpy arrays (``jax.tree.map(np.asarray, lm.init(key))``) and returns
+the port's tree, name for name and bit for bit.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from .packing import (
     resolve_device,
 )
 
-__all__ = ["from_reference_leaves", "to_numpy_leaves"]
+__all__ = ["from_reference_leaves", "from_reference_params", "to_numpy_leaves"]
 
 
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -42,6 +48,39 @@ def from_reference_leaves(
     if meta and meta[0] == "ragged":
         return ragged_from_leaves(tensors, meta)
     return packed_from_leaves(tensors, meta)
+
+
+def from_reference_params(params, cfg, device="cuda"):
+    """The port's parameter tree for ``repro_torch.models.model_zoo.LM(cfg)``
+    from the reference's (numpy leaves, the reference's nesting).  Every
+    leaf keeps its dtype and bits; a tree whose names, shapes or dtypes
+    differ from what ``LM(cfg).init`` makes raises ``ValueError``."""
+    from ..models.model_zoo import LM
+    from ..models.tree import tree_map
+
+    device = resolve_device(device)
+    want = LM(cfg).init(None)
+
+    def check(path, got, spec):
+        if isinstance(spec, dict):
+            if not isinstance(got, dict) or set(got) != set(spec):
+                raise ValueError(f"{path or 'params'}: expected the keys {sorted(spec)}")
+            for k in spec:
+                check(f"{path}/{k}", got[k], spec[k])
+        elif isinstance(spec, (list, tuple)):
+            if not isinstance(got, (list, tuple)) or len(got) != len(spec):
+                raise ValueError(f"{path}: expected {len(spec)} entries")
+            for i, (g, s) in enumerate(zip(got, spec)):
+                check(f"{path}/{i}", g, s)
+        else:
+            arr = np.asarray(got)
+            if tuple(arr.shape) != tuple(spec.shape) or arr.dtype.name != str(
+                    spec.dtype).replace("torch.", ""):
+                raise ValueError(f"{path}: {arr.dtype.name}{tuple(arr.shape)} != "
+                                 f"{spec.dtype}{tuple(spec.shape)}")
+
+    check("", params, want)
+    return tree_map(lambda s, a: _to_tensor(np.asarray(a), device), want, params)
 
 
 def to_numpy_leaves(leaves: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

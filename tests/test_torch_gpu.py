@@ -35,7 +35,10 @@ artifacts (a longer stream, a segment table widened past the kernels'
 16 staged tiles) run through kernels 1-8 bit for bit as the unpadded
 artifact; a store round trip, a rescheduled plan and ``GustLinear`` equal
 their fresh or plain counterparts bit for bit; a fault at
-``kernel.execute`` reaches the caller with no fallback.
+``kernel.execute`` reaches the caller with no fallback.  A reduced yi-6b
+``ServeLoop`` on the card (dense, GUST padded and ragged) gives the CPU
+path's greedy streams, launches kernel 5 or 7 once per GUST product, and
+serves one request alone as in the mixed run, bit for bit.
 """
 
 import dataclasses
@@ -1077,3 +1080,59 @@ def test_execution_fault_reaches_the_caller_on_card(cuda, site, gather):
     assert (cost.fallback_kernel, cost.fallback_gather, cost.backend) == (0, 0, "cuda")
     assert not any(resilience.fallback_counters.values())
     assert torch.equal(p.spmv(v), want)
+
+
+@pytest.mark.parametrize("mode", ["dense", "padded", "ragged"])
+def test_serve_loop_on_card_equals_the_cpu_path(cuda, mode):
+    """yi-6b reduced, float32: the same weights served on the card and on
+    the CPU (plain versions) give the same greedy streams; on the card
+    every GUST product of every decode step launches kernel 5 (padded) or
+    7 (ragged), and a request served alone equals its stream in the mixed
+    run bitwise."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.tree import tree_map
+    from repro_torch.serving import GustServeConfig, ServeConfig, ServeLoop
+
+    lm = build_model(get_arch("yi_6b").reduced())
+    p_cpu = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    p_card = tree_map(lambda t: t.to(cuda), p_cpu)
+    gcfg = None if mode == "dense" else GustServeConfig(
+        density=0.5, gust_length=16, ragged=mode == "ragged")
+    sc = ServeConfig(batch=2, seq_len=64, dtype="float32", gust=gcfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, lm.cfg.vocab, n).astype(np.int32) for n in (5, 11, 7)]
+    counter = (k_rag, "db_launches") if mode == "ragged" else (k_pad, "db_launches")
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_card)):
+        loop = ServeLoop(lm, params, sc)
+        before = getattr(*counter)
+        rids = [loop.enqueue(x, max_new=6) for x in prompts]
+        loop.run_to_completion()
+        out[dev] = [loop.completed[r] for r in rids]
+        launched = getattr(*counter) - before
+    assert out["cuda"] == out["cpu"]
+    if gcfg is not None:
+        assert launched == 3 * lm.stack.reps * loop.stats["decode_steps"]
+    solo = ServeLoop(lm, p_card, sc)
+    rid = solo.submit(prompts[1], max_new=6)
+    solo.run_to_completion()
+    assert solo.completed[rid] == out["cuda"][1]
+
+
+def test_temperature_sampling_on_card_is_keyed(cuda):
+    """The Gumbel-max sampler draws from card generators keyed by (seed,
+    request, token): the same seed gives the same draws, a request's draw
+    does not depend on its row, and a dominant logit wins."""
+    from repro_torch.serving import make_sampler
+
+    sampler = make_sampler(0.8)
+    logits = torch.randn(3, 1000, generator=torch.Generator().manual_seed(0)).to(cuda)
+    keys = [(5, 0), (6, 3), (7, 9)]
+    first = sampler(logits, 11, keys)
+    assert first.device.type == "cuda" and first.dtype == torch.int32
+    assert torch.equal(first, sampler(logits, 11, keys))
+    alone = sampler(logits[1:2], 11, keys[1:2])
+    assert int(alone[0]) == int(first[1])
+    big = torch.tensor([[1000.0, 0.0, -500.0]], device=cuda)
+    assert sampler(big, 0, [(0, 0)]).tolist() == [0]

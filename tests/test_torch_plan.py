@@ -136,7 +136,13 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.core.plan_store, repro_torch.core.gust_linear, "
         "repro_torch.core.spmv, repro_torch.core.bounds, repro_torch.resilience, "
         "repro_torch.resilience.faults, repro_torch.resilience.retry, "
-        "repro_torch.resilience.lifecycle, repro_torch.resilience.fallback; "
+        "repro_torch.resilience.lifecycle, repro_torch.resilience.fallback, "
+        "repro_torch.configs, repro_torch.models, repro_torch.models.layers, "
+        "repro_torch.models.attention, repro_torch.models.transformer, "
+        "repro_torch.models.model_zoo, repro_torch.models.tree, repro_torch.serving, "
+        "repro_torch.serving.kv_cache, repro_torch.serving.gust_serve, "
+        "repro_torch.serving.serve_loop, repro_torch.launch, repro_torch.launch.serve; "
+        "[repro_torch.configs.get_arch(a) for a in repro_torch.configs.ARCH_IDS]; "
         "[getattr(repro_torch, n) for n in repro_torch.__all__]; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')); "

@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``repro_torch/kernels/csrc`` (one
-``nvcc`` per source, in parallel), then drives five paths of the port,
-each (and each phase of the fourth and fifth) with the launch counts
-zeroed just before it and read just after:
+``nvcc`` per source, in parallel), then drives six paths of the port,
+each (and each phase of the fourth, fifth and sixth) with the launch
+counts zeroed just before it and read just after:
 
 1. **SpMV** — ``repro_torch.plan(M, PlanConfig(...)).spmv(v)`` /
    ``.spmm(X)`` on the Table-3 matrix ``crankseg_2`` at its published
@@ -67,6 +67,24 @@ zeroed just before it and read just after:
      ``GustServeConfig()`` (density 0.1, l=256, load-balanced, padded:
      kernel 5), then with ``ragged=True`` (kernel 7).
 
+6. **The MoE and recurrent archs** at their published widths, the same
+   engine and traffic as path 5, dense (the reference's ``gustify`` takes
+   only ``attn_mlp`` stacks), each phase's weights drawn on the card from
+   ``torch.Generator`` seed 0 and freed before the next; depth cut to fit
+   80 GB in float32, never the widths (``FAMILIES``):
+
+   * ``families.llama4``: llama4-scout-17b-a16e (d_model 5,120, 40 heads
+     / 8 KV of 128, 16 experts × d_ff 8,192, top-1, vocab 202,048), 4 of
+     48 layers (one pattern repetition: 3 chunked + 1 global, MoE each),
+     9.34 B parameters;
+   * ``families.dbrx``: dbrx-132b (d_model 6,144, 48 / 8 × 128, 16
+     experts × d_ff 10,752, top-4, vocab 100,352), 2 of 40 layers, 7.13 B;
+   * ``families.recurrentgemma``: recurrentgemma-9b (d_model 4,096, 16 / 1
+     × 256, GeGLU d_ff 12,288, vocab 256,000, window 2,048), 5 of 38
+     layers (``rec, rec, local`` and the 2-block tail), 2.17 B;
+   * ``families.xlstm``: xlstm-125m (d_model 768, 4 heads, vocab 50,304),
+     all 12 layers (mLSTM, sLSTM), 134 M.
+
 Checks, each fatal:
   * every SpMV kernel against its plain PyTorch version on the card, at
     the main path's shapes (B = 1 and 8): per element
@@ -122,7 +140,14 @@ Checks, each fatal:
     per GUST product (3 x 2 layers x decode steps) and no other kernel,
     so no product ran a plain version; padded == ragged token streams
     bitwise; a GUST decode step within ``1e-4`` of the largest logit of a
-    dense decode step on the same pruned MLP weights.
+    dense decode step on the same pruned MLP weights;
+  * the families path, per phase: the arch's published widths; every
+    request DONE with no retry, failure or fallback and no kernel
+    launched; one request alone equals its mixed stream bitwise (MoE at
+    batch 4 = ``min_capacity``: no pair is dropped); the first decode
+    step on the card within ``2e-4`` of the largest logit of the CPU's
+    plain path with the same first token, at one layer for the MoE archs
+    and at the phase's depth for the recurrent ones.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
@@ -145,12 +170,16 @@ prefill ms by prompt length and decode-step ms (CUDA events), tokens/s,
 slot occupancy, a ``torch.profiler`` window of 8 decode steps (device ms
 by kernel, idle share), and for GUST the gustify seconds (prune /
 schedule / pack), cycles per layer, streamed slots and stream
-utilization; and as its last line
+utilization; for each families phase the same serving numbers, the
+bytes bound of a decode step (every parameter read once), peak device
+memory and the card-vs-CPU error, also on a ``{"families": {...}}``
+line before the card's name; and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 """
 
 import functools
+import gc
 import json
 import os
 import re
@@ -671,6 +700,12 @@ def main() -> int:
     report["serve"]["seconds"] = time.perf_counter() - t0
     log(f"serve path: {report['serve']['seconds']:.1f} s")
 
+    # -- path 6: the MoE and recurrent archs at their published widths ---------------
+    t0 = time.perf_counter()
+    families = families_path(report, launch_counts)
+    report["families_seconds"] = time.perf_counter() - t0
+    log(f"families path: {report['families_seconds']:.1f} s")
+
     kernels = []
     heads = {name: (KERNELS[name][2], KERNELS[name][3], PHASE_SCHEDULES[KERNELS[name][1]][0])
              for name in KERNELS}
@@ -706,6 +741,7 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"families": families}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1078,13 +1114,68 @@ TOL_SERVE_CPU, TOL_SERVE_GUST = 2e-4, 1e-4
 SERVE_DEVICE = "cuda"
 
 
-def first_layers(params, n):
-    """The parameter tree of the first ``n`` rep layers (views)."""
+def first_layers(params, sc, n):
+    """The parameter tree of the first ``n`` layers of stack ``sc`` (views):
+    ``n // P`` repetitions of its pattern of length P, then the first
+    ``n % P`` blocks of the next as the tail."""
+    from repro_torch.models.transformer import rep_slice
     from repro_torch.models.tree import tree_map
 
-    return dict(params, stack={"reps": tuple(tree_map(lambda a: a[:n], r)
-                                             for r in params["stack"]["reps"]),
-                               "tail": []})
+    reps, stack = n // len(sc.pattern), params["stack"]
+    tail = [rep_slice(stack["reps"][i], reps) if reps < sc.reps else stack["tail"][i]
+            for i in range(n % len(sc.pattern))]
+    return dict(params, stack={"reps": tuple(tree_map(lambda a: a[:reps], r)
+                                             for r in stack["reps"]),
+                               "tail": tail})
+
+
+def serve_prompts(vocab):
+    """The serving traffic's prompts: lengths 64, 96, 128 in turn, tokens
+    from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    lens = SERVE["prompt_lens"]
+    return [rng.integers(0, vocab, lens[r % len(lens)]).astype(np.int32)
+            for r in range(SERVE["requests"])]
+
+
+def first_step_vs_cpu(lm, params, prompt, seq_len, what):
+    """Prefill ``prompt`` and take one greedy decode step with ``params``
+    on the card and with a host copy on the CPU's plain path (float32):
+    both pick the same first token, and the step's logits agree within
+    ``TOL_SERVE_CPU`` of the largest |logit|."""
+    import torch
+
+    from repro_torch.models.tree import tree_map
+
+    dev = torch.device(SERVE_DEVICE)
+    cpu = tree_map(lambda a: a.cpu(), params)
+    x = torch.from_numpy(prompt)[None]
+    logits = {}
+    for name, p, d in (("card", params, dev), ("cpu", cpu, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        caches = lm.init_caches(1, seq_len, torch.float32, device=d)
+        first, caches = lm.prefill(p, {"tokens": x.to(d)}, caches, dtype=torch.float32)
+        tok = torch.argmax(first[:, -1], dim=-1).to(torch.int32)
+        if name == "cpu" and not torch.equal(tok, logits["card"][1]):
+            raise AssertionError(f"{what}: card and CPU prefill pick different first "
+                                 "tokens")
+        step, _ = lm.decode_step(p, caches, tok[:, None].to(d), x.shape[1],
+                                 dtype=torch.float32)
+        logits[name] = (step.cpu(), tok.cpu(), time.perf_counter() - t0)
+    del cpu
+    # the padded vocabulary's columns hold -1e30 on both: compare the real ones
+    (card, card_pad), (host, host_pad) = (
+        logits[k][0].split([lm.cfg.vocab, lm.cfg.padded_vocab - lm.cfg.vocab], dim=-1)
+        for k in ("card", "cpu"))
+    if not torch.equal(card_pad, host_pad):
+        raise AssertionError(f"{what}: the padded vocabulary's logits differ")
+    err = float((card - host).abs().max())
+    scale = float(host.abs().max())
+    if not np.isfinite(err) or err > TOL_SERVE_CPU * scale:
+        raise AssertionError(f"{what}: the {lm.stack.n_layers}-layer decode step on the "
+                             f"card is {err:.3e} off the CPU's (max |logit| {scale:.3e})")
+    return {"layers": lm.stack.n_layers, "max_abs_err": err, "max_abs_logit": scale,
+            "cpu_s": logits["cpu"][2], "card_s": logits["card"][2]}
 
 
 def instrument(loop):
@@ -1287,10 +1378,7 @@ def serve_path(report, launch_counts):
     out["param_bytes"] = out["params"] * 4
     sc = ServeConfig(batch=SERVE["batch"], seq_len=SERVE["seq_len"], dtype="float32")
     out["kv_cache_bytes"] = cache_bytes(lm, sc.batch, sc.seq_len, CachePolicy("float32"))
-    rng = np.random.default_rng(0)
-    lens = SERVE["prompt_lens"]
-    prompts = [rng.integers(0, cfg.vocab, lens[r % len(lens)]).astype(np.int32)
-               for r in range(SERVE["requests"])]
+    prompts = serve_prompts(cfg.vocab)
     log(f"serve: yi-6b {widths}, {out['params']} parameters ({out['param_bytes']} "
         f"bytes float32), init {out['init_s']:.1f} s; KV cache at batch {sc.batch}, "
         f"seq_len {sc.seq_len}: {out['kv_cache_bytes']} bytes")
@@ -1305,28 +1393,10 @@ def serve_path(report, launch_counts):
     del loop
     # the first decode step at two layers, on the card and on the CPU
     lm2 = build_model(dataclasses.replace(cfg, n_layers=SERVE["gust_layers"]))
-    params2 = first_layers(params, SERVE["gust_layers"])
-    cpu2 = tree_map(lambda a: a.cpu(), params2)
-    x = torch.from_numpy(prompts[0])[None]
-    logits = {}
-    for name, p, d in (("card", params2, dev), ("cpu", cpu2, torch.device("cpu"))):
-        t0 = time.perf_counter()
-        caches = lm2.init_caches(1, sc.seq_len, torch.float32, device=d)
-        first, caches = lm2.prefill(p, {"tokens": x.to(d)}, caches, dtype=torch.float32)
-        tok = torch.argmax(first[:, -1], dim=-1).to(torch.int32)
-        if name == "cpu" and not torch.equal(tok, logits["card"][1]):
-            raise AssertionError("card and CPU prefill pick different first tokens")
-        step, _ = lm2.decode_step(p, caches, tok[:, None].to(d), x.shape[1],
-                                  dtype=torch.float32)
-        logits[name] = (step.cpu(), tok.cpu(), time.perf_counter() - t0)
-    del cpu2
-    err = float((logits["card"][0] - logits["cpu"][0]).abs().max())
-    scale = float(logits["cpu"][0].abs().max())
-    if not np.isfinite(err) or err > TOL_SERVE_CPU * scale:
-        raise AssertionError(f"serve.dense: the 2-layer decode step on the card is "
-                             f"{err:.3e} off the CPU's (max |logit| {scale:.3e})")
-    dense.update(cpu_check={"max_abs_err": err, "max_abs_logit": scale,
-                            "cpu_s": logits["cpu"][2], "card_s": logits["card"][2]})
+    params2 = first_layers(params, lm.stack, SERVE["gust_layers"])
+    dense["cpu_check"] = first_step_vs_cpu(lm2, params2, prompts[0], sc.seq_len,
+                                           "serve.dense")
+    err, scale = dense["cpu_check"]["max_abs_err"], dense["cpu_check"]["max_abs_logit"]
     out["dense"] = dense
     log(f"serve.dense: {cfg.n_layers} layers, {dense['tokens']} tokens in {dense['wall_s']:.2f} s "
         f"({dense['tok_per_s']:.1f} tokens/s), {dense['decode_steps']} decode steps, "
@@ -1411,6 +1481,124 @@ def serve_path(report, launch_counts):
     log(f"serve.gust: padded == ragged token streams bitwise; solo == mixed bitwise; "
         f"GUST decode vs dense on the pruned weights max abs err {err:.3e} (max |logit| "
         f"{scale:.3e})")
+
+
+#: The families path: per phase the arch (``src/repro/configs/<arch>.py``),
+#: the published widths it must have, the layers it runs (its depth, cut
+#: to fit the card's 80 GB in float32 and the smoke's time; never its
+#: widths) and the layers of its card-vs-CPU check (one for the MoE archs,
+#: whose 1-layer weights, 12.4 and 15.5 GB, are copied to the host).
+FAMILIES = {
+    "llama4": ("llama4_scout_17b_a16e",
+               dict(d_model=5120, n_heads=40, n_kv=8, head_dim=128, d_ff=8192,
+                    n_experts=16, top_k=1, vocab=202_048, n_layers=48), 4, 1),
+    "dbrx": ("dbrx_132b",
+             dict(d_model=6144, n_heads=48, n_kv=8, head_dim=128, d_ff=10752,
+                  n_experts=16, top_k=4, vocab=100_352, n_layers=40), 2, 1),
+    "recurrentgemma": ("recurrentgemma_9b",
+                       dict(d_model=4096, n_heads=16, n_kv=1, head_dim=256, d_ff=12288,
+                            vocab=256_000, local_window=2048, n_layers=38), 5, 5),
+    "xlstm": ("xlstm_125m", dict(d_model=768, n_heads=4, vocab=50_304, n_layers=12),
+              12, 12),
+}
+
+
+def families_path(report, launch_counts):
+    """Serving the MoE and recurrent archs at their published widths on
+    the card, each phase's weights drawn from ``torch.Generator`` seed 0 on
+    the card and freed before the next: llama4-scout (4 of 48 layers: one
+    pattern repetition, MoE top-1 over 16 experts), dbrx (2 of 40: MoE
+    top-4, rep stacking), recurrentgemma (5 of 38: RG-LRU, local
+    attention, the 2-block tail) and xlstm (all 12: mLSTM, sLSTM).  Float32
+    at batch 4 and ``seq_len`` 512, the serving path's traffic: every
+    request DONE with no retry, failure or fallback and no GUST kernel
+    launched; one request alone equals its mixed stream bitwise;
+    ``decode_profile`` over 8 decode steps; the first decode step on the
+    card within ``TOL_SERVE_CPU`` of the CPU's plain path, with the same
+    first token.  Returns the summary the ``families`` line prints."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serving import CachePolicy, ServeConfig, ServeLoop, cache_bytes
+
+    dev = torch.device(SERVE_DEVICE)
+    out = report.setdefault("families", {})
+    summary = {}
+    for name, (arch, widths, layers, cpu_layers) in FAMILIES.items():
+        t_phase = time.perf_counter()
+        cfg = get_arch(arch)
+        got = {k: getattr(cfg, k) for k in widths}
+        if got != widths:
+            raise AssertionError(f"families.{name}: {arch} widths {got} != the published "
+                                 f"{widths}")
+        lm = build_model(dataclasses.replace(cfg, n_layers=layers))
+        # the earlier paths' engines are reference cycles (``instrument``)
+        # that may still hold their weights: free them before drawing these
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        row = {"arch": arch, "layers": layers, "of_layers": cfg.n_layers,
+               "init_s": time.perf_counter() - t0, "params": lm.param_count(params),
+               "start_memory_bytes": start_bytes}
+        # a decode step reads every parameter once (every expert's weights,
+        # the tied table for the logits): its bytes bound at the HBM rate
+        row["param_bytes"] = row["params"] * 4
+        row["decode_bytes_bound_ms"] = row["param_bytes"] / HBM_BYTES_PER_S * 1e3
+        sc = ServeConfig(batch=SERVE["batch"], seq_len=SERVE["seq_len"], dtype="float32")
+        row["cache_bytes"] = cache_bytes(lm, sc.batch, sc.seq_len, CachePolicy("float32"))
+        prompts = serve_prompts(cfg.vocab)
+        loop = ServeLoop(lm, params, sc)
+        streams, run = serve_run(loop, prompts, launch_counts, None)
+        solo_equals(loop, prompts, streams, 1, launch_counts, None)
+        run["profile"] = decode_profile(loop, prompts, SERVE["profile_steps"],
+                                        run["decode_step_ms"]["median"], launch_counts,
+                                        None)
+        del loop
+        row.update(run)
+        lm_cpu = build_model(dataclasses.replace(cfg, n_layers=cpu_layers))
+        row["cpu_check"] = first_step_vs_cpu(lm_cpu, first_layers(params, lm.stack,
+                                                                  cpu_layers),
+                                             prompts[0], sc.seq_len, f"families.{name}")
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del params
+        row["seconds"] = time.perf_counter() - t_phase
+        out[name] = row
+        prof = row["profile"]
+        summary[name] = {
+            "arch": arch, "layers": f"{layers}/{cfg.n_layers}", "params": row["params"],
+            "decode_step_ms": row["decode_step_ms"]["median"],
+            "decode_bytes_bound_ms": row["decode_bytes_bound_ms"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "device_ops_per_step": prof["device_ops_per_step"],
+            "idle_share": prof["idle_share"],
+            "prefill_ms_by_prompt_len": row["prefill_ms_by_prompt_len"],
+            "tok_per_s": row["tok_per_s"], "peak_memory_bytes": row["peak_memory_bytes"],
+            "start_memory_bytes": start_bytes,
+            "cpu_check_max_abs_err": row["cpu_check"]["max_abs_err"],
+            "cpu_check_max_abs_logit": row["cpu_check"]["max_abs_logit"],
+            "seconds": row["seconds"],
+        }
+        log(f"families.{name}: {arch} {layers} of {cfg.n_layers} layers, {row['params']} "
+            f"parameters, init {row['init_s']:.1f} s; {row['tokens']} tokens in "
+            f"{row['wall_s']:.2f} s ({row['tok_per_s']:.1f} tokens/s), "
+            f"{row['decode_steps']} decode steps, step "
+            f"{json.dumps(row['decode_step_ms'])} ms (bytes bound "
+            f"{row['decode_bytes_bound_ms']:.2f} ms), prefill ms "
+            f"{json.dumps(row['prefill_ms_by_prompt_len'])}, peak memory "
+            f"{row['peak_memory_bytes']} bytes ({start_bytes} at the start); every request DONE, no retry, fallback or "
+            f"kernel; solo == mixed bitwise; {cpu_layers}-layer decode step card vs CPU "
+            f"max abs err {row['cpu_check']['max_abs_err']:.3e} (max |logit| "
+            f"{row['cpu_check']['max_abs_logit']:.3e}); profile "
+            f"{json.dumps({k: v for k, v in prof.items() if k != 'top_kernels_ms'})}; "
+            f"{row['seconds']:.1f} s")
+    return summary
 
 
 def edited_coo(coo, l, windows, seed=0):

@@ -15,6 +15,12 @@ onto the plan's layout and dtypes.  The device (``--device``, default
 ``cuda``) chooses the path: the CUDA kernels on the card, their plain
 PyTorch versions on the CPU; there is no ``--use-kernel``.
 
+Every decoder-only arch serves: the dense ``attn_mlp`` stacks (yi_6b,
+phi3_mini_3_8b, mistral_large_123b, gemma3_4b, llava_next_mistral_7b),
+the MoE stacks (llama4_scout_17b_a16e, dbrx_132b) and the recurrent ones
+(recurrentgemma_9b, xlstm_125m); ``--gust`` takes the homogeneous
+``attn_mlp`` stacks only.
+
 Usage:
     python -m repro_torch.launch.serve --arch yi_6b --reduced --device cpu \\
         --requests 6 --max-new 16 [--gust --density 0.2 --ragged --compact]

@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .layers import _f32, _he, rope
+from .layers import _f32, _he, _matmul_to, rope
 
 __all__ = [
     "AttnSpec",
@@ -93,9 +93,9 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor, dtype) -> torch.Tensor:
-    """``einsum("bqhk,hkd->bqd")`` in float32, cast to ``dtype``."""
+    """``einsum("bqhk,hkd->bqd", preferred_element_type=dtype)``."""
     h, k, d = wo.shape
-    return (_f32(o).reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)).to(dtype)
+    return _matmul_to(o.reshape(*o.shape[:-2], h * k), wo.reshape(h * k, d), dtype)
 
 
 def _qkv(p, x, spec: AttnSpec, positions):

@@ -14,8 +14,10 @@ Conventions, as in the reference:
   * products take float32 inputs and accumulate in float32, then cast to
     the activation dtype: the reference's ``preferred_element_type``.
     Torch multiplies no bf16 activation by an f32 weight, so a bf16
-    activation is cast up first, which is the reference's promotion.
-    TF32 stays off (``torch.backends.cuda.matmul.allow_tf32`` is left at
+    activation is cast up first, which is the reference's promotion;
+    where the reference asks for a bf16 result of a bf16 activation
+    (the output projections), XLA rounds the weight to bf16 first, and
+    so does :func:`_matmul_to`.  TF32 stays off (``torch.backends.cuda.matmul.allow_tf32`` is left at
     its default, ``False``).
 
 ``gelu`` is the tanh approximation, the default of ``jax.nn.gelu``.
@@ -66,6 +68,17 @@ def _he(gen, shape, scale_axis=0):
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float32 else x.float()
+
+
+def _matmul_to(a: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """``einsum(a, w, preferred_element_type=dtype)`` for an f32 weight
+    ``w``, accumulated in f32 and cast to ``dtype``.  Where ``a`` is
+    already in a narrower ``dtype`` (bf16), XLA multiplies in that dtype:
+    the weight is rounded to it first, so it is here too (a no-op at
+    f32)."""
+    if a.dtype == dtype:
+        w = w.to(dtype)
+    return (_f32(a) @ _f32(w)).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -161,4 +174,4 @@ def mlp(p, x: torch.Tensor, *, kind: str = "swiglu") -> torch.Tensor:
         h = (g * u).to(x.dtype)
     else:
         h = gelu(x32 @ p["w_up"]).to(x.dtype)
-    return (_f32(h) @ p["w_down"]).to(x.dtype)
+    return _matmul_to(h, p["w_down"], x.dtype)

@@ -8,10 +8,12 @@ across from the reference), with the reference's names and nesting.
 
 Frontends: ``token`` (an ordinary token LM) and ``embed`` (llava: the
 prompt arrives as precomputed embeddings (B, S, d); decode continues from
-the token table).  ``encdec`` and block kinds other than ``attn_mlp``
-raise ``NotImplementedError`` (ROADMAP §1 item 5).  Training's loss
-(``loss_fn``, ``softmax_xent``) comes with the training slice; the
-forward, ``train_logits``, is here.
+the token table).  Every block kind of the decoder-only archs runs:
+dense attention + MLP, MoE (llama4, dbrx), RG-LRU (recurrentgemma) and
+mLSTM/sLSTM (xlstm).  The ``encdec`` frontend and its ``enc``/``xattn``
+blocks (seamless) raise ``NotImplementedError`` (ROADMAP §1 item 5).
+Training's loss (``loss_fn``, ``softmax_xent``) comes with the training
+slice; the forward, ``train_logits``, is here.
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ class LM(torch.nn.Module):
     # -- forward -----------------------------------------------------------
     def train_logits(self, params, batch, *, dtype=torch.bfloat16):
         """Full-sequence logits (B, S, padded_vocab) in f32 and the aux
-        loss (0 for ``attn_mlp`` stacks)."""
+        loss: the MoE blocks' aux summed over the stack (0.0 for a stack
+        without MoE)."""
         x = self._inputs(params, batch, dtype)
         x, aux = T.stack_train(params["stack"], x, self.stack)
         return self._logits(params, x), aux
@@ -118,8 +121,11 @@ class LM(torch.nn.Module):
 
     def decode_step(self, params, caches, tokens, pos, *, dtype=torch.bfloat16):
         """One token for every sequence.  tokens: (B, 1) int; ``pos`` a
-        scalar or a (B,) vector of per-sequence positions.  ``caches`` is
-        written in place; returns (logits (B, 1, V), caches)."""
+        scalar or a (B,) vector of per-sequence positions.  Returns
+        (logits (B, 1, V), the new cache tree): attention K/V is written
+        into ``caches`` in place, recurrent states come back as new
+        tensors and ``caches`` keeps the old ones
+        (``transformer.stack_decode``)."""
         x = self._embed_tokens(params, tokens, dtype)
         x, caches = T.stack_decode(params["stack"], x, self.stack, caches, pos)
         return self._logits(params, x), caches

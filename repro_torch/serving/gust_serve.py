@@ -23,7 +23,9 @@ Departures from the reference (ROADMAP §3):
   * ``store_verify="load"`` raises, as ``PlanStore(verify="load")`` does.
 
 Applies to homogeneous ``attn_mlp`` stacks (pattern length 1: phi3, yi,
-mistral-large, llava).  :func:`dryrun_specs` sizes the stream from the
+mistral-large, llava); :func:`gustify` refuses the others (gemma3's
+local/global pattern, the MoE and recurrent stacks) with the reference's
+message, and they serve dense.  :func:`dryrun_specs` sizes the stream from the
 paper's Eq. 9 bound (:meth:`GustPlan.spec_for`) on the meta device,
 without running the scheduler.
 """

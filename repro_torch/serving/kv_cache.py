@@ -1,10 +1,12 @@
 """KV-cache accounting for serving: dtype policy, shapes, bytes.
 
 Counterpart of ``repro.serving.kv_cache``.  The cache structure lives
-with the blocks (``models/attention.py``, stacked by
-``models/transformer.py``); this module sizes it per (arch × shape)
-without allocating: :func:`cache_specs` builds the tree on the meta
-device.  ``cache_shardings`` (placement over a device mesh) comes with
+with the blocks (``models/attention.py`` for K/V, ``models/recurrent.py``
+for the recurrent states, stacked by ``models/transformer.py``); this
+module sizes it per (arch × shape) without allocating: :func:`cache_specs`
+builds the tree on the meta device.  K/V and the recurrent conv states
+take the policy's dtype; the recurrent ``h``, ``C``, ``n`` and ``m`` stay
+float32.  ``cache_shardings`` (placement over a device mesh) comes with
 the multi-GPU slice (ROADMAP §1 item 8).
 """
 
@@ -23,7 +25,7 @@ __all__ = ["CachePolicy", "cache_specs", "cache_bytes"]
 
 @dataclasses.dataclass(frozen=True)
 class CachePolicy:
-    dtype: str = "bfloat16"  # KV dtype
+    dtype: str = "bfloat16"  # KV dtype (recurrent f32 states keep f32)
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -23,13 +23,20 @@ continuous batching over fixed decode slots:
     TIMEOUT / SHED / CANCELLED).
 
 The decode writes each layer's new K/V into the caches in place (the
-reference rebinds new ones after a step succeeds).  A batched-decode
-fault still leaves the step repeatable: the retried step writes the same
-values into the same cells before reading them (``attention.decode_step``),
-so it gives the bits of a step that never failed.  Per-request outputs
-are bit-identical to a solo run of the same request on an engine of the
-same batch: decode compute is row-independent at a fixed batch shape and
-admission writes are slot-local.
+reference rebinds new ones after a step succeeds) and returns every
+recurrent state as a new tensor (``transformer.stack_decode``); the loop
+rebinds ``self.caches`` only after the step and the sampler succeeded.
+A batched-decode fault still leaves the step repeatable: the retried
+step writes the same K/V values into the same cells before reading them
+(``attention.decode_step``) and starts from the states the failed step
+did not touch, so it gives the bits of a step that never failed.
+Per-request outputs are bit-identical to a solo run of the same request
+on an engine of the same batch: decode compute is row-independent at a
+fixed batch shape and admission writes are slot-local.  For MoE stacks
+this holds at a batch of at most ``MoESpec.min_capacity`` (4): no expert
+can then receive more tokens than its capacity, so no pair is dropped;
+at a larger batch co-scheduled requests compete for capacity, as in the
+reference.
 """
 
 from __future__ import annotations

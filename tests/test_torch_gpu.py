@@ -38,7 +38,11 @@ their fresh or plain counterparts bit for bit; a fault at
 ``kernel.execute`` reaches the caller with no fallback.  A reduced yi-6b
 ``ServeLoop`` on the card (dense, GUST padded and ragged) gives the CPU
 path's greedy streams, launches kernel 5 or 7 once per GUST product, and
-serves one request alone as in the mixed run, bit for bit.
+serves one request alone as in the mixed run, bit for bit.  The MoE
+and recurrent stacks (reduced dbrx, llama4, recurrentgemma, xlstm)
+decode on the card within 1e-4 of the largest logit of the CPU path;
+dbrx's top-2 ``moe_ffn`` and decode give the same bits twice; a decode
+step that fails in the middle of the stack is retried to the same bits.
 """
 
 import dataclasses
@@ -1136,3 +1140,110 @@ def test_temperature_sampling_on_card_is_keyed(cuda):
     assert int(alone[0]) == int(first[1])
     big = torch.tensor([[1000.0, 0.0, -500.0]], device=cuda)
     assert sampler(big, 0, [(0, 0)]).tolist() == [0]
+
+
+def _family_model(arch, cuda, **overrides):
+    """(LM, its params on the CPU, the same params on the card) for
+    ``arch``'s reduced config, drawn from a seeded CPU generator."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.tree import tree_map
+
+    lm = build_model(dataclasses.replace(get_arch(arch).reduced(), **overrides))
+    p_cpu = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    return lm, p_cpu, tree_map(lambda t: t.to(cuda), p_cpu)
+
+
+def _decode_steps(lm, params, dev, steps=3):
+    """Prefill 8 tokens on 4 rows, then ``steps`` decode steps at per-row
+    positions; the logits of every step, on the host."""
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, lm.cfg.vocab, (4, 8 + steps)).astype(np.int32))
+    caches = lm.init_caches(4, 32, torch.float32, device=dev)
+    _, caches = lm.prefill(params, {"tokens": toks[:, :8].to(dev)}, caches,
+                           dtype=torch.float32)
+    out = []
+    for s in range(steps):
+        logits, caches = lm.decode_step(params, caches, toks[:, 8 + s:9 + s].to(dev),
+                                        torch.full((4,), 8 + s, device=dev),
+                                        dtype=torch.float32)
+        out.append(logits.cpu())
+    return torch.stack(out)
+
+
+def _close_to_cpu(got, want, tol=1e-4):
+    """Card vs CPU float32 (products summed in another order): within
+    ``tol`` of the largest |value|."""
+    err = float((got - want).abs().max())
+    assert np.isfinite(err) and err <= tol * float(want.abs().max()), err
+
+
+def test_moe_combine_is_deterministic_on_card(cuda):
+    """Reduced dbrx (top-2 of 4 experts): ``moe_ffn`` and the decode
+    steps run twice on the card give the same bits (the combine adds each
+    token's rows in slot order, with no atomics), and agree with the CPU."""
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.tree import tree_map
+
+    lm, p_cpu, p_card = _family_model("dbrx_132b", cuda)
+    spec = lm.stack.pattern[0].moe
+    assert spec.top_k == 2
+    moe_cpu = tree_map(lambda a: a[0], p_cpu["stack"]["reps"][0]["moe"])
+    moe_card = tree_map(lambda a: a.to(cuda), moe_cpu)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 24, lm.cfg.d_model)).astype(np.float32))
+    y1, a1 = moe_ffn(moe_card, x.to(cuda), spec)
+    y2, a2 = moe_ffn(moe_card, x.to(cuda), spec)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    y, a = moe_ffn(moe_cpu, x, spec)
+    _close_to_cpu(y1.cpu(), y)
+    _close_to_cpu(a1.cpu()[None], a[None])
+    first = _decode_steps(lm, p_card, cuda)
+    assert torch.equal(first, _decode_steps(lm, p_card, cuda))
+    _close_to_cpu(first, _decode_steps(lm, p_cpu, "cpu"))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "xlstm_125m",
+                                  "llama4_scout_17b_a16e"])
+def test_family_decode_on_card_equals_the_cpu_path(cuda, arch):
+    """Prefill and three decode steps of reduced recurrentgemma (RG-LRU),
+    xlstm (mLSTM, sLSTM) and llama4 (MoE top-1) on the card agree with
+    the CPU's plain path."""
+    lm, p_cpu, p_card = _family_model(arch, cuda)
+    _close_to_cpu(_decode_steps(lm, p_card, cuda), _decode_steps(lm, p_cpu, "cpu"))
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "dbrx_132b",
+                                  "recurrentgemma_9b", "xlstm_125m"])
+def test_failed_decode_step_on_card_is_retried_to_the_same_bits(cuda, arch, monkeypatch):
+    """A decode step that fails in the middle of the stack on the card
+    (after earlier layers wrote K/V in place and returned new recurrent
+    states) is retried by ``ServeLoop`` to the bits of a run with no
+    failure."""
+    import repro_torch.models.transformer as T
+    from repro_torch.serving import ServeConfig, ServeLoop
+
+    lm, _, p_card = _family_model(arch, cuda)
+    sc = ServeConfig(batch=4, seq_len=64, dtype="float32")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, lm.cfg.vocab, n).astype(np.int32) for n in (5, 9, 7)]
+
+    def serve(loop):
+        rids = [loop.enqueue(x, max_new=6) for x in prompts]
+        loop.run_to_completion()
+        return [loop.completed[r] for r in rids]
+
+    clean = serve(ServeLoop(lm, p_card, sc))
+    n, calls, block_decode = lm.stack.n_layers, [], T.block_decode
+
+    def failing(params, x, bc, cache, pos):
+        out = block_decode(params, x, bc, cache, pos)
+        calls.append(1)
+        if len(calls) == 2 * n + n // 2 + 1:
+            raise RuntimeError("injected failure in the middle of the stack")
+        return out
+
+    monkeypatch.setattr(T, "block_decode", failing)
+    loop = ServeLoop(lm, p_card, sc)
+    assert serve(loop) == clean
+    assert loop.stats["decode_retries"] == 1

@@ -7,9 +7,12 @@ the same token inputs from ``np.random.default_rng``.
 Checked for the ``attn_mlp`` archs' ``reduced()`` configs (yi-6b, phi3,
 mistral-large here; gemma3 and llava, the blocked softmax, chunked
 attention, ring eviction, bf16 and the padded vocab in
-``test_torch_models_paths.py``):
-``train_logits``, ``prefill`` logits and caches, and three ``decode_step``
-logits at per-row positions.  Tolerances: float32 ``rtol=1e-4,
+``test_torch_models_paths.py``; the MoE and recurrent archs in
+``test_torch_families*.py``):
+``train_logits`` and its aux (0.0 without MoE), ``prefill`` logits and
+caches, and three ``decode_step`` logits at per-row positions.  The init
+tree is held to the reference's for every decoder-only arch; only the
+encdec arch's ``enc``/``xattn`` blocks still raise.  Tolerances: float32 ``rtol=1e-4,
 atol=1e-5`` (the two packages sum each product in another order); bf16
 activations, max ``|port - reference|`` within 2% of the largest logit
 (bf16 keeps 8 bits of mantissa, and the two round at other points).
@@ -40,7 +43,10 @@ torch.set_num_threads(1)
 F32 = dict(rtol=1e-4, atol=1e-5)
 ATTN_MLP_ARCHS = ("yi_6b", "phi3_mini_3_8b", "mistral_large_123b", "gemma3_4b",
                   "llava_next_mistral_7b")
-OTHER_ARCHS = tuple(a for a in ARCH_IDS if a not in ATTN_MLP_ARCHS)
+#: MoE and recurrent stacks (parity in ``test_torch_families*.py``).
+FAMILY_ARCHS = ("llama4_scout_17b_a16e", "dbrx_132b", "recurrentgemma_9b", "xlstm_125m")
+#: The encoder-decoder arch, whose enc/xattn blocks are not ported yet.
+OTHER_ARCHS = tuple(a for a in ARCH_IDS if a not in ATTN_MLP_ARCHS + FAMILY_ARCHS)
 
 
 class Jitted:
@@ -118,10 +124,11 @@ def check_forward_prefill_decode(model):
     cfg = lm.cfg
     b, s = 2, 24
     rb, tb = inputs(cfg, b, s)
-    rl, _ = rlm.train_logits(rp, rb, dtype=jnp.float32, remat=False)
+    rl, raux = rlm.train_logits(rp, rb, dtype=jnp.float32, remat=False)
     tl, aux = lm.train_logits(p, tb, dtype=torch.float32)
-    assert tl.shape == (b, s, cfg.padded_vocab) and aux == 0.0
+    assert tl.shape == (b, s, cfg.padded_vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(rl), **F32)
+    np.testing.assert_allclose(float(aux), float(raux), **F32)  # MoE aux, else 0.0
 
     rc = rlm.init_caches(b, 48, jnp.float32)
     tc = lm.init_caches(b, 48, torch.float32, device="cpu")
@@ -165,7 +172,7 @@ def test_from_reference_params_is_bitwise_and_checks_the_tree():
         from_reference_params(missing, lm.cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ATTN_MLP_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_MLP_ARCHS + FAMILY_ARCHS)
 def test_init_has_the_reference_tree(arch):
     """Names, nesting, shapes and dtypes of ``LM.init`` equal the
     reference's ``lm.init`` (its shapes from ``jax.eval_shape``); the meta
@@ -197,13 +204,13 @@ def test_configs_are_the_reference_configs():
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_make_block_cfg_parses_every_block_type(arch):
-    """Every block type of all ten archs parses to the reference's kind
-    and attention specs."""
+    """Every block type of all ten archs parses to the reference's kind,
+    attention, MoE and recurrent specs."""
     cfg, rcfg = get_arch(arch), ref_get_arch(arch)
     for block_type in set(cfg.pattern) | ({"enc", "xattn"} if cfg.is_encdec else set()):
         got, want = T.make_block_cfg(cfg, block_type), RT.make_block_cfg(rcfg, block_type)
         assert got.kind == want.kind
-        for name in ("attn", "cross"):
+        for name in ("attn", "cross", "moe", "mlstm", "slstm", "rglru"):
             g, w = getattr(got, name), getattr(want, name)
             assert (g is None) == (w is None)
             if g is not None:
@@ -217,15 +224,17 @@ def test_make_block_cfg_parses_every_block_type(arch):
 
 @pytest.mark.parametrize("arch", OTHER_ARCHS)
 def test_unported_block_kinds_raise(arch):
+    """Only the encdec frontend and its enc/xattn blocks raise."""
     cfg = get_arch(arch).reduced()
+    assert cfg.is_encdec
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
         LM(cfg)
-    bc = T.make_block_cfg(cfg, next(b for b in cfg.pattern if not b in (
-        "global", "local", "chunked")) if not cfg.is_encdec else "xattn")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        T.init_block(torch.Generator(), bc)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        T.init_block_cache(bc, 1, 8, device="cpu")
+    for kind in ("enc", "xattn"):
+        bc = T.make_block_cfg(cfg, kind)
+        with pytest.raises(NotImplementedError, match="enc/xattn"):
+            T.init_block(torch.Generator(), bc)
+        with pytest.raises(NotImplementedError, match="enc/xattn"):
+            T.init_block_cache(bc, 1, 8, device="cpu")
 
 
 def test_entry_points_default_to_the_card():

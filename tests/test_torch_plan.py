@@ -139,6 +139,7 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.resilience.lifecycle, repro_torch.resilience.fallback, "
         "repro_torch.configs, repro_torch.models, repro_torch.models.layers, "
         "repro_torch.models.attention, repro_torch.models.transformer, "
+        "repro_torch.models.moe, repro_torch.models.recurrent, "
         "repro_torch.models.model_zoo, repro_torch.models.tree, repro_torch.serving, "
         "repro_torch.serving.kv_cache, repro_torch.serving.gust_serve, "
         "repro_torch.serving.serve_loop, repro_torch.launch, repro_torch.launch.serve; "

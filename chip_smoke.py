@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``repro_torch/kernels/csrc`` (one
-``nvcc`` per source, in parallel), then drives six paths of the port,
+``nvcc`` per source, in parallel), then drives seven paths of the port,
 each (and each phase of the fourth, fifth and sixth) with the launch
 counts zeroed just before it and read just after:
 
@@ -85,6 +85,30 @@ counts zeroed just before it and read just after:
    * ``families.xlstm``: xlstm-125m (d_model 768, 4 heads, vocab 50,304),
      all 12 layers (mLSTM, sLSTM), 134 M.
 
+7. **The encoder-decoder model** ``encdec``: seamless-m4t-medium at its
+   published widths and depth (``src/repro/configs/seamless_m4t_medium.py``,
+   arXiv:2308.11596: 12 encoder and 12 decoder layers, d_model 1,024, 16
+   heads of 64, GELU d_ff 4,096, vocab 256,206 padded to 256,256, tied
+   table, ``enc_seq`` 4,096; 614,854,656 parameters from
+   ``torch.Generator`` seed 0 on the card), float32 at batch 4 and
+   ``seq_len`` 512: source frames (4, 4,096, 1,024) from numpy seed 0
+   standing in for the stubbed speech frontend, prompts of 64 tokens, a
+   prefill, then 32 greedy decode steps (``LM.prefill`` /
+   ``LM.decode_step``; the reference's ``ServeLoop`` feeds no source
+   frames, so this path drives the model's own entry points).
+
+Before its first launch every artifact the smoke builds passes the
+artifact verifier (``GustPlan.verify()``, the ``GUST-Pxx`` rules) with no
+finding: crankseg_2's eight (padded/ragged × float32/int8 ×
+balanced/unbalanced), G's two streams, the three yi-6b MLP layers, the
+stacked slices, the store's, the rescheduled and the tuned plans and the
+gustified layers of the serving path; a seeded collision on a copy of a
+card artifact fires exactly GUST-P14.  Every library's ``ptxas`` report
+and every launch plan the smoke used pass the Hopper resource audit
+(``repro_torch.analysis.kernel_audit``, ``GUST-Hxx``).  The paper's own
+metric, ``baselines.model_gust``'s utilization on crankseg_2's schedules
+(the paper's FPGA cycle model, not a card number), is printed beside.
+
 Checks, each fatal:
   * every SpMV kernel against its plain PyTorch version on the card, at
     the main path's shapes (B = 1 and 8): per element
@@ -117,8 +141,15 @@ Checks, each fatal:
     ragged; ``pagerank(G)`` converged and within 2e-5 in L1 of scipy's
     float64 iteration run to its fixed point; ``feature_propagation``
     within ``1e-4 * (|Â|·|Â|·|H|)`` per element of scipy in float64;
-  * no function of any library spills (ptxas): the four SpMV libraries,
-    ``gust_spgemm`` and ``gather_fill``;
+  * the resource audit (``GUST-H01``..``H06``): no function of any
+    library spills or passes 255 registers or 48 KiB of static shared
+    memory, and every launch plan fits the SM's shared memory and
+    registers and keeps its grid within its stream;
+  * the verifier: no finding on any artifact before its first launch;
+    the seeded collision fires exactly GUST-P14; the store's verifying
+    warm load colors nothing, a stored file with a padding value flipped
+    (it still parses) is a counted corrupt miss, and the plan rebuilt
+    fresh equals the original bitwise;
   * the lifecycle path: every layer's output within ``1e-4 * (|W|·|x|)``
     per element of float64, bitwise the same plan's plain version on the
     CPU at B=1, and each B=8 row bitwise the same layer at B=1; the warm
@@ -147,7 +178,15 @@ Checks, each fatal:
     batch 4 = ``min_capacity``: no pair is dropped); the first decode
     step on the card within ``2e-4`` of the largest logit of the CPU's
     plain path with the same first token, at one layer for the MoE archs
-    and at the phase's depth for the recurrent ones.
+    and at the phase's depth for the recurrent ones;
+  * the encdec path: the published widths and parameter count; the
+    decode of token 64 after the prefill within ``2e-4`` of the largest
+    logit of ``train_logits`` at position 64 (the reference's own
+    yardstick); rows 0, 2 and 3 bitwise the same in every step when row
+    1's frames and tokens change; at 1 encoder and 1 decoder layer, a
+    prefill and a decode step on the card within ``2e-4`` of the largest
+    logit of the CPU's plain path (a 256-frame source) with the same
+    first token; no kernel launched.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
@@ -173,7 +212,11 @@ schedule / pack), cycles per layer, streamed slots and stream
 utilization; for each families phase the same serving numbers, the
 bytes bound of a decode step (every parameter read once), peak device
 memory and the card-vs-CPU error, also on a ``{"families": {...}}``
-line before the card's name; and as its last line
+line; for the encdec path the encoder, prefill and decode-step ms, a
+profile of 8 decode steps, peak memory and a step's bytes bound, on an
+``{"encdec": {...}}`` line; the audit's report and an ``{"audit":
+{...}}`` line, the verifier's seconds per artifact, the paper metric;
+the card's name; and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 """
@@ -239,10 +282,6 @@ SPREAD = {"gust_spmv": "single", "gust_spmv_ragged": "single",
           "gust_spmv_db": "double", "gust_spmv_ragged_db": "double",
           "gust_spmv_local": "single", "gust_spmv_ragged_local": "single",
           "gust_spmv_local_db": "double", "gust_spmv_ragged_local_db": "double"}
-#: Library -> the part of a function's name that holds it to no spill
-#: (ptxas): "" for every function of the library.
-NO_SPILL = {"gust_spmv": "", "gust_spmv_local": "", "gust_spmv_local_db": "",
-            "gust_spmv_db": "", "gust_spgemm": "", "gather_fill": ""}
 #: The kernels off the SpMV path: name -> (source, TPU kernel it replaces).
 OTHER_KERNELS = {
     "gather_fill": ("gather_fill.cu", "src/repro/kernels/gather_fill.py:57"),
@@ -262,6 +301,34 @@ PHASE_SCHEDULES = {"resident": (True, False), "local": (False,)}
 
 def log(msg):
     print(msg, flush=True)
+
+
+def audited(report, plan):
+    """Keep ``plan`` (a launch plan the smoke read) for the resource audit
+    at the end; return it."""
+    report.setdefault("launch_plans", []).append(plan)
+    return plan
+
+
+def verified(report, tag, plan):
+    """Run the artifact verifier over ``plan``'s artifact (a GustPlan or
+    an artifact) before its first launch: no finding, or the smoke fails.
+    Records the seconds (the host copy of the leaves included)."""
+    import torch
+
+    from repro_torch.analysis.verify import verify
+
+    t0 = time.perf_counter()
+    findings = verify(plan)
+    seconds = time.perf_counter() - t0
+    if findings:
+        raise AssertionError(f"verify {tag}: {len(findings)} finding(s): "
+                             + "; ".join(str(f) for f in findings[:5]))
+    art = getattr(plan, "artifact", plan)
+    report.setdefault("verify", {})[tag] = {"seconds": seconds,
+                                            "slots": art.streamed_slots}
+    torch.cuda.synchronize()
+    return plan
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -383,6 +450,7 @@ def main() -> int:
     from repro_torch.kernels.gather_fill import gather_fill
     from repro_torch.kernels.gust_spmv import spread_launch_plan
     from repro_torch.kernels.ops import _prep_x
+    from repro_torch.analysis.kernel_audit import audit_kernels
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -401,25 +469,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     report["build_s"] = time.perf_counter() - t0
-    report["ptxas"] = {}
+    # every library's ptxas report (kept beside a cached build too): no
+    # spill, registers and static shared memory within the card's limits
+    early = audit_kernels()
+    report["ptxas"] = early.to_dict()
     for lib, info in _build.build_log.items():
-        lines = info["log"].splitlines()
-        regs = [int(r) for ln in lines for r in re.findall(r"Used (\d+) registers", ln)]
-        spills = spilling_functions(lines)
-        report["ptxas"][lib] = {"seconds": info["seconds"], "kernels": len(regs),
-                                "max_registers": max(regs, default=None),
-                                "spilling": [f"{fn}: {ln}" for fn, ln in spills]}
-        log(f"build {lib}: {info['seconds']:.1f} s, {len(regs)} kernels, "
-            f"max {max(regs, default=0)} registers, {len(spills)} with spills")
-        held = [f"{fn}: {ln}" for fn, ln in spills
-                if lib in NO_SPILL and NO_SPILL[lib] in (fn or "")]
-        if held:
-            raise AssertionError(f"{lib} spills (ptxas): {held}")
-    report["ptxas_unchecked"] = sorted(set(NO_SPILL) - set(_build.build_log))
-    if report["ptxas_unchecked"]:
-        log(f"no spill check for {report['ptxas_unchecked']}: built before this run, "
-            "so ptxas reported nothing")
-    log(f"build: {report['build_s']:.1f} s")
+        log(f"build {lib}: {info['seconds']:.1f} s, max "
+            f"{report['ptxas']['max_registers'][lib]} registers")
+    if early.findings:
+        raise AssertionError("resource audit of the builds: "
+                             + "; ".join(str(f) for f in early.findings))
+    log(f"build: {report['build_s']:.1f} s; {early.to_dict()['functions']} functions "
+        "audited from ptxas: no spill, registers and static shared memory in bounds")
 
     # -- matrix, schedules, packs ----------------------------------------------
     spec = REAL_WORLD_SUITE[0]
@@ -478,6 +539,25 @@ def main() -> int:
                 f"{p.gather_mode!r}, not {want!r}: the run would not drive the "
                 "kernels it claims")
     log(f"packs: {report['pack_s']:.1f} s")
+
+    # -- the verifier: every artifact before its first launch ---------------------
+    seen = {}
+    for (mode, lb, layout, vdt), p in plans.items():
+        if id(p.artifact) not in seen:
+            seen[id(p.artifact)] = f"crankseg_2/lb={lb}/{layout}/{vdt}"
+            verified(report, seen[id(p.artifact)], p)
+    log("verify: " + ", ".join(f"{k} {v['seconds']:.2f} s ({v['slots']} slots)"
+                               for k, v in report["verify"].items()) + "; no finding")
+    report["seeded_collision"] = seeded_collision(plans["default", True, "padded",
+                                                        "float32"].artifact)
+    log(f"verify: a seeded collision on a copy of the balanced padded artifact fires "
+        f"{report['seeded_collision']['rules']} ({report['seeded_collision']['count']} "
+        "slots)")
+    report["paper_model"] = paper_model(coo, cache)
+    log("paper model (the paper's FPGA cycle model, baselines.model_gust, not a card "
+        f"number) on crankseg_2 at l={L}: " + ", ".join(
+            f"{k}: {v['cycles']:.0f} cycles, utilization {v['utilization']:.4f}"
+            for k, v in report["paper_model"].items()))
 
     rng = np.random.default_rng(0)
     v = rng.standard_normal(n).astype(np.float32)
@@ -559,9 +639,9 @@ def main() -> int:
                         bytes_and_ops(name, art, xp, b, coo.nnz),
                     ))
                     row["x_tile_bytes"] = x_tile_bytes(name, art, b)
-                    row.update(spread_launch_plan(art.m_blk, args[1], art.row_blk, xp,
-                                                  l=art.l, c_blk=art.c_blk, gather=gather,
-                                                  pipeline=SPREAD[name]))
+                    row.update(audited(report, spread_launch_plan(
+                        art.m_blk, args[1], art.row_blk, xp, l=art.l, c_blk=art.c_blk,
+                        gather=gather, pipeline=SPREAD[name])))
                     log(f"kernel {tag}: max |kernel - plain| = {row['max_abs_err']:.3e}; "
                         + ", ".join(k for k, val in row.items()
                                     if k.startswith("bitwise") and val))
@@ -706,6 +786,23 @@ def main() -> int:
     report["families_seconds"] = time.perf_counter() - t0
     log(f"families path: {report['families_seconds']:.1f} s")
 
+    # -- path 7: the encoder-decoder model, seamless-m4t-medium at full size ---------
+    t0 = time.perf_counter()
+    encdec = encdec_path(report, launch_counts)
+    report["encdec_seconds"] = encdec["seconds"] = time.perf_counter() - t0
+    log(f"encdec path: {report['encdec_seconds']:.1f} s")
+
+    # -- the resource audit: every library and every launch plan used ----------------
+    audit = audit_kernels(plans=report["launch_plans"])
+    log(audit.report())
+    report["audit"] = audit.to_dict()
+    if audit.findings:
+        raise AssertionError(f"resource audit: {len(audit.findings)} finding(s)")
+    verify_s = [v["seconds"] for v in report["verify"].values()]
+    report["verify_seconds"] = sum(verify_s)
+    log(f"verify: {len(verify_s)} artifacts, no finding, {sum(verify_s):.1f} s in all "
+        f"(largest {max(verify_s):.2f} s)")
+
     kernels = []
     heads = {name: (KERNELS[name][2], KERNELS[name][3], PHASE_SCHEDULES[KERNELS[name][1]][0])
              for name in KERNELS}
@@ -742,6 +839,12 @@ def main() -> int:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"encdec": encdec}))
+    print(json.dumps({"audit": report["audit"],
+                      "verify": {"artifacts": len(verify_s),
+                                 "seconds": report["verify_seconds"],
+                                 "seeded_collision": report["seeded_collision"]["rules"]},
+                      "paper_model": report["paper_model"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -865,6 +968,7 @@ def lifecycle_path(report, launch_counts, crank):
             t0 = time.perf_counter()
             lin = repro_torch.GustLinear(w, config=cfg, density=YI_DENSITY, cache=cache)
             construct_s = time.perf_counter() - t0  # prune again; schedule and pack cached
+            verified(report, f"yi-6b/{name}", lin.plan)
             csr = sp.csr_matrix((coo.vals.astype(np.float64), (coo.rows, coo.cols)),
                                 shape=(m, n))
             layers[name] = dict(lin=lin, coo=coo, csr=csr, w=pruned, cache=cache)
@@ -938,10 +1042,9 @@ def lifecycle_path(report, launch_counts, crank):
             row["device_split"] = split
             row["idle_share"] = max(0.0, 1.0 - row["device_ms"] / row["forward_ms"])
             if p.device.type == "cuda":
-                row.update(spread_launch_plan(art.m_blk, args[1], art.row_blk, xp,
-                                              l=art.l, c_blk=art.c_blk,
-                                              gather=p.gather_mode,
-                                              pipeline=p._pipeline()))
+                row.update(audited(report, spread_launch_plan(
+                    art.m_blk, args[1], art.row_blk, xp, l=art.l, c_blk=art.c_blk,
+                    gather=p.gather_mode, pipeline=p._pipeline())))
             row.update(built[name])
             rows[f"{name}/B={b}"] = row
             log(f"linear {name} {m}x{n} B={b}: forward {row['forward_ms']:.4f} ms "
@@ -968,13 +1071,13 @@ def lifecycle_path(report, launch_counts, crank):
             cold_s = time.perf_counter() - t0
             file_bytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
             before = dict(sched_counters)
-            warm_store = repro_torch.PlanStore(tmp)
+            warm_store = repro_torch.PlanStore(tmp, verify="load")
             t0 = time.perf_counter()
             warm = repro_torch.plan(up["coo"], cfg, cache=ScheduleCache(), store=warm_store)
             torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
+            warm_s = time.perf_counter() - t0  # the verifier on load included
             if dict(sched_counters) != before or not warm._store_loaded:
-                raise AssertionError("store: the warm load colored or missed "
+                raise AssertionError("store: the verifying warm load colored or missed "
                                      f"({before} -> {dict(sched_counters)})")
             if not leaves_equal(warm.artifact, cold.artifact):
                 raise AssertionError("store: warm leaves differ from the cold plan's")
@@ -983,10 +1086,26 @@ def lifecycle_path(report, launch_counts, crank):
                 if not torch.equal(warm.spmm(x), cold.spmm(x)):
                     raise AssertionError(f"store: warm spmm differs at B={b}")
             stats = warm_store.stats()
-        log(f"store: {file_bytes} bytes, cold {cold_s:.2f} s, warm {warm_s:.2f} s; "
-            "zero coloring on the warm load, leaves and spmm bitwise")
+            # a stored file that still parses, with a padding value flipped:
+            # the verifying store counts a corrupt miss and the plan is
+            # rebuilt fresh (the layer's schedule cached), bit for bit
+            flipped = flip_padding_value(cold_store, cold_store.keys()[0])
+            checking = repro_torch.PlanStore(tmp, verify="load")
+            rebuilt = repro_torch.plan(up["coo"], cfg, cache=up["cache"], store=checking)
+            if rebuilt._store_loaded or (checking.corrupt, checking.misses) != (1, 1):
+                raise AssertionError(f"store: the flipped file was not a counted corrupt "
+                                     f"miss ({checking.stats()})")
+            verified(report, "yi-6b/up/store-rebuilt", rebuilt)
+            if not leaves_equal(rebuilt.artifact, cold.artifact):
+                raise AssertionError("store: the rebuilt plan differs from the original")
+            flipped_store = checking.stats()
+        log(f"store: {file_bytes} bytes, cold {cold_s:.2f} s, warm {warm_s:.2f} s with "
+            "verify='load'; zero coloring on the warm load, leaves and spmm bitwise; a "
+            f"file with a padding value flipped ({flipped}) is a counted corrupt miss, "
+            "rebuilt fresh bit for bit")
         return {"file_bytes": file_bytes, "cold_s": cold_s, "warm_s": warm_s,
-                "warm_store": stats, "writes": cold_store.writes}
+                "warm_store": stats, "writes": cold_store.writes,
+                "flipped_rules": flipped, "flipped_store": flipped_store}
 
     phase(report, launch_counts, "store", store)
 
@@ -1001,6 +1120,8 @@ def lifecycle_path(report, launch_counts, crank):
                 sl = repro_torch.GustPlan.from_spec(
                     {"leaves": {k: v[i] for k, v in stacked["leaves"].items()},
                      "meta": stacked["meta"]}, config=c)
+                if gather == "auto":  # the local slices hold the same leaves
+                    verified(report, f"yi-6b/stack/{i}", sl)
                 ref = repro_torch.GustPlan.from_artifact(base.artifact, config=c)
                 for b in (1, BATCH):
                     x = xs[b][:, :n_up].T.contiguous()
@@ -1029,6 +1150,7 @@ def lifecycle_path(report, launch_counts, crank):
         tuned = up["lin"].plan.tune(x)
         tune_s = time.perf_counter() - t0
         res = tuned.tuning
+        verified(report, "yi-6b/up/tuned", tuned)
         err = check_gate("tune", tuned.spmm(x).T, up["csr"], x.T)
         log(f"tune: {tune_s:.1f} s; choice {res.choice}, baseline {res.baseline}, "
             f"improvement {res.improvement:.4f}, {len(res.measurements)} measured, "
@@ -1054,6 +1176,8 @@ def lifecycle_path(report, launch_counts, crank):
         r = p2.resched
         if not r.spliced or r.full_fallback or r.dirty_windows != len(EDIT_WINDOWS):
             raise AssertionError(f"reschedule: {r}")
+        verified(report, "crankseg_2/rescheduled", p2)
+        verified(report, "crankseg_2/rescheduled-fresh", fresh)
         if not leaves_equal(p2.artifact, fresh.artifact):
             raise AssertionError("reschedule: leaves differ from the fresh plan's")
         v = torch.from_numpy(np.random.default_rng(2).standard_normal(m2.shape[1])
@@ -1309,6 +1433,14 @@ def decode_profile(loop, prompts, steps, step_ms, launch_counts, kernel):
                              f"steps in the window, not {steps}")
     loop.run_to_completion()
     check_run(loop, rids, launches, kernel, steps, "profiled decode steps")
+    return dict(profile_split(prof, steps, wall_ms, step_ms), launches=launches)
+
+
+def profile_split(prof, steps, wall_ms, step_ms):
+    """A ``torch.profiler`` window of ``steps`` decode steps: device ms a
+    step by kernel and by group, device ops a step, and the idle share
+    ``1 - device / wall`` against the window's wall ms a step and against
+    ``step_ms``, the unprofiled run's median step."""
     by_kernel, launched = {}, 0
     for evt in prof.key_averages():
         total = getattr(evt, "device_time_total", None)
@@ -1328,7 +1460,7 @@ def decode_profile(loop, prompts, steps, step_ms, launch_counts, kernel):
             groups["other"] += ms
     device_ms = sum(by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    return {"steps": steps, "launches": launches,
+    return {"steps": steps,
             "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_ops_per_step": launched / steps,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
@@ -1417,6 +1549,9 @@ def serve_path(report, launch_counts):
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         plans = loop.gust_tree["plans"]
+        for name, ps in plans.items():
+            for i, p in enumerate(ps):
+                verified(report, f"serve.gust_{layout}/{name}/{i}", p)
         kernels = {plan_kernel(p) for ps in plans.values() for p in ps}
         want = "gust_spmv_ragged_db" if layout == "ragged" else "gust_spmv_db"
         if kernels != {want}:
@@ -1601,6 +1736,304 @@ def families_path(report, launch_counts):
     return summary
 
 
+#: seamless-m4t-medium as the encdec path drives it (src/repro/configs/
+#: seamless_m4t_medium.py, arXiv:2308.11596): the published widths and
+#: depth it must have, its parameter count, and the traffic.
+SEAMLESS_WIDTHS = dict(d_model=1024, n_heads=16, n_kv=16, head_dim=64, d_ff=4096,
+                       vocab=256_206, padded_vocab=256_256, n_layers=12, n_enc_layers=12,
+                       enc_seq=4096, mlp_kind="gelu", tie_embeddings=True)
+SEAMLESS_PARAMS = 614_854_656
+ENCDEC = dict(batch=4, seq_len=512, prompt_len=64, max_new=32, timed=3, profile_steps=8,
+              cpu_frames=256)
+#: Decode after prefill against the full forward, of the largest |logit|
+#: (the reference's own yardstick, tests/test_models.py).
+TOL_DECODE_VS_FORWARD = 2e-4
+
+
+def event_ms(fn):
+    """(fn(), its milliseconds between two CUDA events, synchronized)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def encdec_layers(params, n):
+    """The parameter tree of the first ``n`` encoder and decoder layers
+    (views)."""
+    from repro_torch.models.tree import tree_map
+
+    cut = {part: {"reps": tuple(tree_map(lambda a: a[:n], r)
+                                for r in params[part]["reps"]), "tail": []}
+           for part in ("encoder", "decoder")}
+    return dict(params, **cut)
+
+
+def greedy(lm, params, frames, prompts, steps, seq_len):
+    """Prefill then ``steps`` greedy decode steps on the card, each timed
+    with CUDA events; returns the logits of the prefill's last position and
+    of every step, the prefill ms, the step ms and the caches."""
+    import torch
+
+    caches = lm.init_caches(prompts.shape[0], seq_len, torch.float32, device=frames.device)
+    (first, caches), prefill_ms = event_ms(lambda: lm.prefill(
+        params, {"src_frames": frames, "tokens": prompts}, caches, dtype=torch.float32))
+    logits = [first[:, -1]]
+    step_ms = []
+    for i in range(steps):
+        tok = torch.argmax(logits[-1], dim=-1).to(torch.int32)[:, None]
+        (out, caches), ms = event_ms(lambda: lm.decode_step(
+            params, caches, tok, prompts.shape[1] + i, dtype=torch.float32))
+        logits.append(out[:, 0])
+        step_ms.append(ms)
+    return logits, prefill_ms, step_ms, caches
+
+
+def encdec_path(report, launch_counts):
+    """seamless-m4t-medium at its published widths and depth on the card
+    (random weights from ``torch.Generator`` seed 0), float32 at batch 4:
+    the encoder over 4,096 source frames, a prefill of 64-token prompts,
+    32 greedy decode steps.  Gates: decode == the full forward at position
+    64, rows independent bitwise, the card == the CPU's plain path at 1 +
+    1 layers, no kernel launched.  Returns the ``encdec`` line's summary."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.serving import CachePolicy, cache_bytes
+
+    dev = torch.device(SERVE_DEVICE)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the float32 products would not be float32")
+    cfg = get_arch("seamless_m4t_medium")
+    widths = {k: getattr(cfg, k) for k in SEAMLESS_WIDTHS}
+    if widths != SEAMLESS_WIDTHS:
+        raise AssertionError(f"seamless widths {widths} != the published {SEAMLESS_WIDTHS}")
+    lm = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()  # what the earlier paths still hold
+    zero_launches(launch_counts)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "params": lm.param_count(params),
+           "start_memory_bytes": start_bytes}
+    if out["params"] != SEAMLESS_PARAMS:
+        raise AssertionError(f"seamless: {out['params']} parameters, not {SEAMLESS_PARAMS}")
+    b, seq_len, steps = ENCDEC["batch"], ENCDEC["seq_len"], ENCDEC["max_new"]
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal((b, cfg.enc_seq, cfg.d_model))
+                              .astype(np.float32)).to(dev)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (b, ENCDEC["prompt_len"]))
+                               .astype(np.int32)).to(dev)
+    out["cache_bytes"] = cache_bytes(lm, b, seq_len, CachePolicy("float32"))
+    caches = lm.init_caches(b, seq_len, torch.float32, device="meta")
+    out["cross_cache_bytes"] = sum(
+        c[k].numel() * 4 for c in caches["reps"] for k in ("ck", "cv"))
+    # what a decode step must read once: the decoder, the tied table (the
+    # logits), the final norm and every cache leaf; beside it, every
+    # parameter (the encoder's too) with the caches
+    step_params = sum(x.numel() for x in tree_leaves(
+        (params["decoder"], params["embed"], params["final_norm"])))
+    out["decode_bytes"] = step_params * 4 + out["cache_bytes"]
+    out["decode_bytes_bound_ms"] = out["decode_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["all_params_bytes_bound_ms"] = (out["params"] * 4 + out["cache_bytes"]) / \
+        HBM_BYTES_PER_S * 1e3
+
+    enc_ms = [event_ms(lambda: lm._encode(params, frames))[1]
+              for _ in range(ENCDEC["timed"])]
+    out["encoder_ms"] = float(np.median(enc_ms))
+    t0 = time.perf_counter()
+    logits, prefill_ms, step_ms, caches = greedy(lm, params, frames, prompts, steps, seq_len)
+    out["generate_s"] = time.perf_counter() - t0
+    out["prefill_ms"] = prefill_ms
+    out["decode_step_ms"] = {"median": float(np.median(step_ms)), "min": float(min(step_ms)),
+                             "max": float(max(step_ms)), "mean": float(np.mean(step_ms))}
+    finite = all(bool(torch.isfinite(x[:, :cfg.vocab]).all()) for x in logits)
+    shapes = {tuple(x.shape) for x in logits}
+    if not finite or shapes != {(b, cfg.padded_vocab)}:
+        raise AssertionError(f"encdec: logits finite={finite}, shapes {shapes}")
+
+    # decode of token 64 after the prefill == the full forward at position 64
+    tok64 = torch.argmax(logits[0], dim=-1).to(torch.int32)[:, None]
+    full, _ = lm.train_logits(params, {"src_frames": frames,
+                                       "tokens": torch.cat([prompts, tok64], dim=1)},
+                              dtype=torch.float32)
+    want, got = full[:, -1, :cfg.vocab], logits[1][:, :cfg.vocab]
+    err = float((want - got).abs().max())
+    scale = float(want.abs().max())
+    del full
+    if not np.isfinite(err) or err > TOL_DECODE_VS_FORWARD * scale:
+        raise AssertionError(f"encdec: decode of token 64 is {err:.3e} off the full "
+                             f"forward (max |logit| {scale:.3e})")
+    out["decode_vs_forward"] = {"max_abs_err": err, "max_abs_logit": scale}
+
+    # rows are independent: change row 1's frames and tokens
+    other = np.random.default_rng(1)
+    frames2, prompts2 = frames.clone(), prompts.clone()
+    frames2[1] = torch.from_numpy(other.standard_normal((cfg.enc_seq, cfg.d_model))
+                                  .astype(np.float32)).to(dev)
+    prompts2[1] = torch.from_numpy(other.integers(0, cfg.vocab, ENCDEC["prompt_len"])
+                                   .astype(np.int32)).to(dev)
+    logits2, _, _, caches2 = greedy(lm, params, frames2, prompts2, steps, seq_len)
+    keep = [0, 2, 3]
+    for i, (a, c) in enumerate(zip(logits, logits2)):
+        if not torch.equal(a[keep], c[keep]):
+            raise AssertionError(f"encdec: step {i}: rows 0, 2, 3 changed when row 1's "
+                                 "frames and tokens did")
+    if torch.equal(logits[0][1], logits2[0][1]):
+        raise AssertionError("encdec: row 1's logits did not change with its input")
+    del logits, logits2, caches
+
+    # torch.profiler over 8 further decode steps
+    k = ENCDEC["profile_steps"]
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    pos0 = ENCDEC["prompt_len"] + steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(k):
+            _, caches2 = lm.decode_step(params, caches2, tok, pos0 + i, dtype=torch.float32)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / k
+    out["profile"] = profile_split(prof, k, wall_ms, out["decode_step_ms"]["median"])
+    del caches2
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+
+    # the card against the CPU's plain path at 1 encoder + 1 decoder layer
+    lm1 = build_model(dataclasses.replace(cfg, n_layers=1, n_enc_layers=1))
+    p1 = encdec_layers(params, 1)
+    src = frames[:1, :ENCDEC["cpu_frames"]]
+    got = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = p1 if d == dev else tree_map(lambda a: a.cpu(), p1)
+        c = lm1.init_caches(1, seq_len, torch.float32, device=d)
+        first, c = lm1.prefill(p, {"src_frames": src.to(d), "tokens": prompts[:1].to(d)}, c,
+                               dtype=torch.float32)
+        t = torch.argmax(first[:, -1], dim=-1).to(torch.int32)[:, None]
+        step, _ = lm1.decode_step(p, c, t, ENCDEC["prompt_len"], dtype=torch.float32)
+        got[name] = (first.cpu(), t.cpu(), step.cpu())
+        del p, c
+    if not torch.equal(got["card"][1], got["cpu"][1]):
+        raise AssertionError("encdec: card and CPU prefill pick different first tokens")
+    checks = {}
+    for i, what in ((0, "prefill"), (2, "decode")):
+        card, host = got["card"][i][..., :cfg.vocab], got["cpu"][i][..., :cfg.vocab]
+        e, sc = float((card - host).abs().max()), float(host.abs().max())
+        if not np.isfinite(e) or e > TOL_SERVE_CPU * sc:
+            raise AssertionError(f"encdec: the 1+1-layer {what} on the card is {e:.3e} "
+                                 f"off the CPU's (max |logit| {sc:.3e})")
+        checks[what] = {"max_abs_err": e, "max_abs_logit": sc}
+    out["cpu_check"] = dict(checks, layers="1+1", frames=ENCDEC["cpu_frames"])
+    launches = read_launches(launch_counts)
+    if launches:
+        raise AssertionError(f"encdec: a GUST kernel launched ({launches})")
+    del params, p1, frames, frames2
+    report["encdec"] = out
+    prof_ = out["profile"]
+    log(f"encdec: seamless-m4t-medium {widths}, {out['params']} parameters, init "
+        f"{out['init_s']:.1f} s; caches {out['cache_bytes']} bytes (ck/cv "
+        f"{out['cross_cache_bytes']}); encoder {out['encoder_ms']:.1f} ms, prefill "
+        f"{prefill_ms:.1f} ms, decode step {json.dumps(out['decode_step_ms'])} ms (bytes "
+        f"bound {out['decode_bytes_bound_ms']:.3f} ms, every parameter "
+        f"{out['all_params_bytes_bound_ms']:.3f} ms); decode vs forward "
+        f"{err:.3e} (max |logit| {scale:.3e}); rows 0, 2, 3 bitwise when row 1 changes; "
+        f"card vs CPU (1+1 layers) {json.dumps(checks)}; no kernel; peak memory "
+        f"{out['peak_memory_bytes']} bytes ({start_bytes} at the start); profile "
+        f"{json.dumps({k_: v for k_, v in prof_.items() if k_ != 'top_kernels_ms'})}")
+    return {"arch": "seamless_m4t_medium", "layers": "12+12", "params": out["params"],
+            "encoder_ms": out["encoder_ms"], "prefill_ms": prefill_ms,
+            "decode_step_ms": out["decode_step_ms"]["median"],
+            "decode_bytes_bound_ms": out["decode_bytes_bound_ms"],
+            "device_ms_per_step": prof_["device_ms_per_step"],
+            "device_ops_per_step": prof_["device_ops_per_step"],
+            "idle_share": prof_["idle_share"],
+            "peak_memory_bytes": out["peak_memory_bytes"], "start_memory_bytes": start_bytes,
+            "decode_vs_forward_max_abs_err": err,
+            "cpu_check_max_abs_err": checks["decode"]["max_abs_err"]}
+
+
+def seeded_collision(art):
+    """GUST-P14 on a copy of a card artifact: the second real slot of the
+    first stream row holding two takes the first one's adder.  The
+    verifier must fire that rule and no other."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis.verify import verify
+
+    real = art.m_blk != 0
+    r = int(torch.nonzero(real.sum(dim=1) >= 2)[0, 0])
+    j1, j2 = (int(j) for j in torch.nonzero(real[r])[:2, 0])
+    row = art.row_blk.clone()
+    row[r, j2] = row[r, j1]
+    findings = verify(dataclasses.replace(art, row_blk=row))
+    rules = sorted({f.rule for f in findings})
+    if rules != ["GUST-P14"]:
+        raise AssertionError(f"a seeded collision fired {rules}, not GUST-P14")
+    return {"rules": rules, "row": r, "lanes": [j1, j2], "count": findings[0].count}
+
+
+def paper_model(coo, cache):
+    """The paper's own metric on crankseg_2: ``baselines.model_gust``'s
+    cycles and utilization (2·nnz over 2·l units × cycles) for both
+    schedules, through the smoke's ScheduleCache (nothing is scheduled
+    twice).  The paper's FPGA cycle model, not a measurement of the card."""
+    from repro_torch.core.baselines import model_gust
+    from repro_torch.core.scheduler import sched_counters
+
+    before = dict(sched_counters)
+    out = {}
+    for lb in (True, False):
+        r = model_gust(coo, L, load_balance=lb, cache=cache, device="cuda")
+        out[r.design] = {"cycles": r.cycles, "utilization": r.utilization}
+    if dict(sched_counters) != before:
+        raise AssertionError("paper model: a schedule was computed again")
+    return out
+
+
+def flip_padding_value(store, key):
+    """Re-put the record under ``key`` with one padding value flipped to
+    1.0, in a window's padding rows after another padding row (the
+    reference's GUST-P01 mutation): the file still parses.  Returns the
+    rules the verifier fires on the flipped leaves."""
+    import torch
+
+    from repro_torch.analysis.verify import verify
+
+    rec = store.get(key)
+    spec = rec["spec"]
+    meta = spec["meta"]
+    if meta[0] == "ragged":
+        raise AssertionError("flip_padding_value takes a padded artifact")
+    c_pad, c_blk = meta[2], meta[5]
+    leaves = {k: v.clone() for k, v in spec["leaves"].items()}
+    m, seg = leaves["m_blk"], leaves["seg_blk"]
+    zero = (m == 0).all(dim=1)
+    r = torch.arange(m.shape[0])
+    cand = zero & torch.roll(zero, 1) & (r % c_pad != 0) & (seg[r // c_blk, 0] == 0)
+    if not bool(cand.any()):
+        raise AssertionError("no padding row after a padding row to flip")
+    m[int(torch.nonzero(cand)[-1, 0]), 0] = 1.0
+    rules = sorted({f.rule for f in verify(leaves, meta)})
+    if rules != ["GUST-P01"]:
+        raise AssertionError(f"the flipped padding value fired {rules}, not GUST-P01")
+    store.put(key, {"leaves": leaves, "meta": meta, "config": spec["config"]},
+              tuning=rec["tuning"], summary=rec["summary"])
+    return rules
+
+
 def edited_coo(coo, l, windows, seed=0):
     """``coo`` with an edit confined to the rows of ``windows``: about 1% of
     their values rescaled, three of their edges dropped and three added."""
@@ -1626,20 +2059,6 @@ def edited_coo(coo, l, windows, seed=0):
                      np.concatenate([rows[keep], np.asarray(add_r, np.int64)]),
                      np.concatenate([cols[keep], np.asarray(add_c, np.int64)]),
                      np.concatenate([vals[keep], np.ones(len(add_r), np.float32)]))
-
-
-def spilling_functions(lines):
-    """(function, line) of each function whose ptxas report (``-v``)
-    shows a spill: ptxas names a function ("Function properties for
-    NAME") just before its stack and spill line."""
-    out, fn = [], None
-    for ln in lines:
-        named = re.search(r"Function properties for (\S+)", ln)
-        if named:
-            fn = named.group(1)
-        elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
-            out.append((fn, ln.strip()))
-    return out
 
 
 def library_ms(run_library, heavy, row):
@@ -1689,8 +2108,8 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
     gplans = {layout: repro_torch.plan(G, repro_torch.PlanConfig(l=L, layout=layout),
                                        device="cuda") for layout in ("padded", "ragged")}
     default_layout = repro_torch.plan(G, repro_torch.PlanConfig(l=L), device="cuda").layout
-    for p in gplans.values():
-        p.artifact
+    for layout, p in gplans.items():
+        verified(report, f"G/{layout}", p)
     offs = row_offsets(G, L, device="cuda")
     torch.cuda.synchronize()
     sched = gplans["ragged"].sched
@@ -1763,7 +2182,7 @@ def spgemm_path(report, launch_counts, launches, variants, timed):
             run = functools.partial(gust_spgemm, *args, **kkw)
             stats = {}
             gust_spgemm(*args, **kkw, stats=stats)
-            row.update(spgemm_launch_plan(torch.device("cuda")))
+            row.update(audited(report, spgemm_launch_plan(torch.device("cuda"))))
             per_cta = sorted(stats.pop("cta_longest_unit_cycles"))
             row.update(stats, median_cta_longest_unit_cycles=per_cta[len(per_cta) // 2],
                        shortest_cta_longest_unit_cycles=per_cta[0])

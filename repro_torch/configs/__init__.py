@@ -1,4 +1,4 @@
-"""Config registry: one module per assigned architecture (copied from
-``repro.configs``; ``gust_paper`` waits for ``core/hardware_model``)."""
+"""Config registry: one module per assigned architecture, and
+``gust_paper``'s five accelerator specs (copied from ``repro.configs``)."""
 
 from .base import ArchConfig, ShapeConfig, SHAPES, get_arch, list_archs, ARCH_IDS

@@ -463,6 +463,15 @@ class GustPlan:
             self._store_put()
         return self._artifact
 
+    def verify(self):
+        """Run the static artifact verifier over the packed leaves and
+        return the list of :class:`~repro_torch.analysis.verify.Finding`
+        violations (empty on a healthy artifact).  Packs a lazy plan;
+        host numpy over one copy of each leaf, never a kernel."""
+        from ..analysis.verify import verify as _verify
+
+        return _verify(self.artifact)
+
     def _store_put(self) -> None:
         """Write-behind of the artifact (plus tuning and a schedule
         summary).  A failed write (``OSError``, an injected store fault)

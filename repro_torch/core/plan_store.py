@@ -54,10 +54,6 @@ arrays: [{name, dtype, shape, offset, nbytes}]}``; leaf bytes follow
 concatenated in ``arrays`` order.  A bespoke container instead of
 ``np.savez`` because the value leaves may be ``bfloat16``, which numpy's
 own format can't round-trip.
-
-``verify="load"`` needs the artifact verifier (``analysis/verify.py``),
-which the port does not have yet: it raises ``NotImplementedError``
-rather than load without verifying.
 """
 
 from __future__ import annotations
@@ -142,9 +138,11 @@ class PlanStore:
     also a subset of misses), ``io_retries`` (transient read attempts
     that were retried).
 
-    ``verify="load"`` (the static artifact verifier on every parse)
-    waits for the port of ``analysis/verify.py`` and raises
-    ``NotImplementedError`` until then.
+    ``verify="load"`` runs the static artifact verifier
+    (:mod:`repro_torch.analysis.verify`) on every parsed record: an
+    artifact that parses but breaks a ``GUST-Pxx`` contract counts in
+    ``corrupt`` and reads as a miss, never served.  A crash inside the
+    verifier itself is not counted as corrupt: the record is served.
     """
 
     def __init__(
@@ -158,12 +156,6 @@ class PlanStore:
     ):
         if verify not in ("off", "load"):
             raise ValueError(f"verify must be 'off' or 'load', got {verify!r}")
-        if verify == "load":
-            raise NotImplementedError(
-                "PlanStore(verify='load') needs the artifact verifier "
-                "(analysis/verify.py, ROADMAP §1 item 7), which the port does "
-                "not have yet; use verify='off'"
-            )
         self.path = os.fspath(path)
         self.verify = verify
         self.read_retries = read_retries
@@ -320,6 +312,17 @@ class PlanStore:
             self.corrupt += 1
             self.misses += 1
             return None
+        if self.verify == "load":
+            try:
+                from ..analysis.verify import verify as _verify
+
+                findings = _verify(leaves, spec["meta"])
+            except Exception:
+                findings = None  # verifier crash != corrupt artifact
+            if findings:
+                self.corrupt += 1
+                self.misses += 1
+                return None
         self.hits += 1
         return {
             "spec": spec,

@@ -6,7 +6,11 @@ that includes PyTorch's headers (``torch.utils.cpp_extension.load``)
 takes minutes.  Libraries land in ``build/kernels/`` at the repository
 root (listed in ``.gitignore``) under a name that carries a hash of the
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source or header is rebuilt and never loaded stale.  Nothing is built or imported when this module is imported.
+source or header is rebuilt and never loaded stale.  Beside each library
+lies ``ptxas``' report of its build (``-Xptxas=-v``: registers, spills,
+shared memory per function), so a cached library can be audited too
+(``repro_torch.analysis.kernel_audit``).  Nothing is built or imported
+when this module is imported.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "bind", "load", "build_log"]
+__all__ = ["BUILD_DIR", "SOURCES", "build", "bind", "load", "build_log", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -115,6 +119,17 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def _report_path(lib: Path) -> Path:
+    """Where ``ptxas``' report of the library at ``lib`` lies."""
+    return lib.with_name(f"{lib.name}.ptxas.txt")
+
+
+def ptxas_report(name: str) -> str:
+    """``ptxas``' report (``-v``) of the current build of library
+    ``name``, built first if needed."""
+    return _report_path(build([name])[name]).read_text()
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -135,7 +150,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     running = {}
     for name in names:
         out = _lib_path(name)
-        if out.exists():
+        if out.exists() and _report_path(out).exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
@@ -150,6 +165,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
             failed.append(f"nvcc failed for {SOURCES[name]}:\n{log}")
             continue
+        report = _report_path(out)
+        report_tmp = report.with_name(f"{report.name}.{os.getpid()}.tmp")
+        report_tmp.write_text(log)
+        os.replace(report_tmp, report)  # the report first: a library never lacks one
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         build_log[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:

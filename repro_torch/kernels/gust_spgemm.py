@@ -150,7 +150,8 @@ def _workspace_bytes(num_windows, l, c_blk, rows, r_rows, n_out, slots) -> int:
 def spgemm_launch_plan(device) -> dict:
     """The launch of the SpGEMM kernel's row-tile kernel on ``device``:
     CTAs per SM (from the occupancy calculator), the grid, shared bytes per
-    CTA, warps per CTA and output columns of a warp's tile (``n_t``)."""
+    CTA, warps per CTA, output columns of a warp's tile (``n_t``) and
+    ``launch``, its context for the resource audit."""
     from ._build import load
 
     out = (ctypes.c_int * 5)()
@@ -160,4 +161,8 @@ def spgemm_launch_plan(device) -> dict:
     if err != 0:
         msg = lib.gust_error_string(err).decode()
         raise RuntimeError(f"gust_spgemm_plan failed: {msg} (cudaError {err})")
-    return dict(zip(("ctas_per_sm", "grid", "smem_bytes", "warps_per_cta", "n_t"), out))
+    plan = dict(zip(("ctas_per_sm", "grid", "smem_bytes", "warps_per_cta", "n_t"), out))
+    plan["launch"] = {"library": "gust_spgemm", "kernel": "row_tiles_kernel",
+                      "threads": plan["warps_per_cta"] * 32,
+                      "sms": torch.cuda.get_device_properties(device).multi_processor_count}
+    return plan

@@ -374,8 +374,10 @@ def spread_launch_plan(
     (0 for the resident gather), the cycles per chunk and the stream
     stages (2: the slots come through the bulk-copy ring, which the
     resident double-buffered kernels 5/7 take at B > 1 where the leaves'
-    rows are whole 16-byte runs; 0: register prefetch), and
-    ``partial_bytes``, the size of the scratch of block tiles."""
+    rows are whole 16-byte runs; 0: register prefetch),
+    ``partial_bytes``, the size of the scratch of block tiles, and
+    ``launch``, the launch's context for the resource audit
+    (``repro_torch.analysis.kernel_audit``)."""
     import ctypes
 
     from ._build import load
@@ -402,4 +404,11 @@ def spread_launch_plan(
             "chunk_cycles", "stream_stages")
     plan = dict(zip(keys, out))
     plan["partial_bytes"] = t_blk * l * b * 4
+    plan["launch"] = {  # what the resource audit needs to know of this launch
+        "library": name, "kernel": "spread_partials", "threads": l,
+        "sms": torch.cuda.get_device_properties(m_blocks.device).multi_processor_count,
+        "value_dtype": str(m_blocks.dtype).removeprefix("torch."),
+        "index_dtype": str(cols.dtype).removeprefix("torch."),
+        "gather": gather, "pipeline": pipeline, "b": b, "t_blk": t_blk, "l": l,
+    }
     return plan

@@ -1,8 +1,8 @@
 """Attention: GQA with global / sliding-window / chunked-local masking.
 
-Counterpart of ``repro.models.attention`` (self-attention; the
-cross-attention of encoder-decoder blocks comes with the ``xattn``
-slice).  Query/output heads live on one flat ``H`` axis and the ``KV``
+Counterpart of ``repro.models.attention``: self-attention and the
+cross-attention of the encoder-decoder blocks.  Query/output heads live
+on one flat ``H`` axis and the ``KV``
 heads are repeated to ``H`` at compute time; caches hold only the ``KV``
 heads.  The softmax is the reference's own code, op for op (no fused
 library attention), so the two packages agree within float32 tolerance:
@@ -13,7 +13,10 @@ library attention), so the two packages agree within float32 tolerance:
   * ``prefill_into_cache`` — the same pass, returning a new cache filled
     with the prompt's last ``cache_len`` positions (dense or ring);
   * ``decode_step`` — one token per row against the cache, at per-row
-    positions, in the reference's ``(KV, G)`` score form.
+    positions, in the reference's ``(KV, G)`` score form;
+  * ``cross_kv`` / ``attend_cross`` — the encoder memory projected once,
+    and non-causal, non-rotary attention of the decoder over it (the
+    blocked path for a memory longer than ``2·block_size``).
 
 ``decode_step`` writes the new token's K/V/position into the cache **in
 place** (the reference rebinds a new cache).  Each write lands in the
@@ -31,11 +34,14 @@ import numpy as np
 import torch
 
 from .layers import _f32, _he, _matmul_to, rope
+from .tree import tree_map
 
 __all__ = [
     "AttnSpec",
     "init_attention",
     "attend_train",
+    "cross_kv",
+    "attend_cross",
     "cache_len",
     "init_cache",
     "insert_slot",
@@ -200,6 +206,26 @@ def attend_train(p, x, spec: AttnSpec, positions=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_kv(p, memory, spec: AttnSpec):
+    """Project the encoder memory (B, Sk, d) once: (k, v), each (B, Sk,
+    KV, dh) in the memory's dtype; every decode step reuses them."""
+    return _project(memory, p["wk"]), _project(memory, p["wv"])
+
+
+def attend_cross(p, x, k, v, spec: AttnSpec) -> torch.Tensor:
+    """Full (non-causal, non-rotary) attention of x (B, Sq, d) over the
+    precomputed memory K/V (B, Sk, KV, dh)."""
+    q = _project(x, p["wq"])
+    qpos = _positions(q.shape[1], 0, x.device)
+    kpos = _positions(k.shape[1], 0, x.device)
+    return _attend(p, q, k.to(q.dtype), v.to(q.dtype), spec, qpos, kpos, x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # KV cache (dense or ring) + decode
 # ---------------------------------------------------------------------------
 
@@ -231,9 +257,11 @@ def insert_slot(cache, one, slot: int, axis: int = 0):
     """Slot-local cache insertion, in place: write batch row 0 of the
     batch-1 cache tree ``one`` into batch row ``slot`` of ``cache`` (at
     ``axis``; rep-stacked leaves are ``(R, B, ...)``, so ``axis=1``),
-    leaving every other row untouched.  Returns ``cache``."""
-    for key, full in cache.items():
-        full.select(axis, slot).copy_(one[key].select(axis, 0))
+    leaving every other row untouched.  Every leaf is batch-leading: K/V,
+    the cross-attention memory (``ck``/``cv``) and the recurrent states.
+    Returns ``cache``."""
+    tree_map(lambda full, row: full.select(axis, slot).copy_(row.select(axis, 0)),
+             cache, one)
     return cache
 
 

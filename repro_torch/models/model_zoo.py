@@ -6,12 +6,13 @@ parameter tree that :meth:`LM.init` draws from a ``torch.Generator`` (or
 that :func:`repro_torch.core.convert.from_reference_params` carries
 across from the reference), with the reference's names and nesting.
 
-Frontends: ``token`` (an ordinary token LM) and ``embed`` (llava: the
+Frontends: ``token`` (an ordinary token LM), ``embed`` (llava: the
 prompt arrives as precomputed embeddings (B, S, d); decode continues from
-the token table).  Every block kind of the decoder-only archs runs:
-dense attention + MLP, MoE (llama4, dbrx), RG-LRU (recurrentgemma) and
-mLSTM/sLSTM (xlstm).  The ``encdec`` frontend and its ``enc``/``xattn``
-blocks (seamless) raise ``NotImplementedError`` (ROADMAP §1 item 5).
+the token table) and ``encdec`` (seamless: an encoder over precomputed
+source frames (B, S_enc, d), the speech frontend being a stub, then a
+decoder over tokens with cross-attention into the encoder's memory).
+Every block kind runs: dense attention + MLP, MoE (llama4, dbrx), RG-LRU
+(recurrentgemma), mLSTM/sLSTM (xlstm), ``enc`` and ``xattn`` (seamless).
 Training's loss (``loss_fn``, ``softmax_xent``) comes with the training
 slice; the forward, ``train_logits``, is here.
 """
@@ -34,16 +35,13 @@ __all__ = ["LM", "build_model"]
 class LM(torch.nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        if cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: the encdec frontend is not ported yet (ROADMAP §1 "
-                "item 5, with the enc/xattn blocks)"
-            )
         self.cfg = cfg
         self.stack = T.make_stack_cfg(cfg, cfg.pattern, cfg.n_layers)
-        for bc in self.stack.pattern:
-            T.require_ported(bc)
-        self.enc_stack = self.dec_stack = None
+        if cfg.is_encdec:
+            self.enc_stack = T.make_stack_cfg(cfg, ("enc",), cfg.n_enc_layers)
+            self.dec_stack = T.make_stack_cfg(cfg, ("xattn",), cfg.n_layers)
+        else:
+            self.enc_stack = self.dec_stack = None
 
     # -- params ------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator], device="cuda") -> Dict:
@@ -54,8 +52,13 @@ class LM(torch.nn.Module):
         p = {
             "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model),
             "final_norm": init_norm(cfg.d_model, kind=cfg.norm_kind, gen=gen),
-            "stack": T.init_stack(gen, self.stack),
         }
+        if cfg.is_encdec:
+            p["encoder"] = T.init_stack(gen, self.enc_stack)
+            p["enc_norm"] = init_norm(cfg.d_model, kind=cfg.norm_kind, gen=gen)
+            p["decoder"] = T.init_stack(gen, self.dec_stack)
+        else:
+            p["stack"] = T.init_stack(gen, self.stack)
         if not cfg.tie_embeddings:
             p["lm_head"] = init_embedding(gen, cfg.padded_vocab, cfg.d_model)
         if gen is None:
@@ -89,13 +92,32 @@ class LM(torch.nn.Module):
             return batch["embeds"].to(dtype)
         return self._embed_tokens(params, batch["tokens"], dtype)
 
+    def _encode(self, params, src_frames):
+        """The encoder's memory (B, S_enc, d) from the source frames."""
+        h, _ = T.stack_train(params["encoder"], src_frames, self.enc_stack)
+        return apply_norm(params["enc_norm"], h, kind=self.cfg.norm_kind)
+
+    def _serve_stack(self) -> T.StackCfg:
+        return self.dec_stack if self.cfg.is_encdec else self.stack
+
+    def _stack_params(self, params):
+        return params["decoder" if self.cfg.is_encdec else "stack"]
+
+    def _memory(self, params, batch, dtype):
+        """The encoder's memory for an encdec batch, else None."""
+        if not self.cfg.is_encdec:
+            return None
+        return self._encode(params, batch["src_frames"].to(dtype))
+
     # -- forward -----------------------------------------------------------
     def train_logits(self, params, batch, *, dtype=torch.bfloat16):
         """Full-sequence logits (B, S, padded_vocab) in f32 and the aux
         loss: the MoE blocks' aux summed over the stack (0.0 for a stack
-        without MoE)."""
+        without MoE).  An encdec batch holds ``src_frames`` (B, S_enc, d)
+        and the decoder's ``tokens``."""
+        memory = self._memory(params, batch, dtype)
         x = self._inputs(params, batch, dtype)
-        x, aux = T.stack_train(params["stack"], x, self.stack)
+        x, aux = T.stack_train(self._stack_params(params), x, self._serve_stack(), memory)
         return self._logits(params, x), aux
 
     def forward(self, params, batch, *, dtype=torch.bfloat16):
@@ -103,8 +125,11 @@ class LM(torch.nn.Module):
 
     # -- serving -----------------------------------------------------------
     def init_caches(self, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):
-        """Zeroed caches on ``device`` (``"meta"``: shapes only)."""
-        return T.init_stack_caches(self.stack, batch, seq_len, dtype, _resolve(device))
+        """Zeroed caches on ``device`` (``"meta"``: shapes only); an
+        encdec model's are the decoder's, with the memory's ``ck``/``cv``
+        at ``enc_seq`` frames."""
+        return T.init_stack_caches(self._serve_stack(), batch, seq_len, dtype,
+                                   _resolve(device))
 
     def insert_slot_caches(self, caches, one, slot):
         """Slot-local admission, in place: write batch row 0 of the
@@ -114,9 +139,13 @@ class LM(torch.nn.Module):
 
     def prefill(self, params, batch, caches, *, dtype=torch.bfloat16):
         """Process the prompt; returns (last-position logits, new caches).
-        ``caches`` is not written."""
+        ``caches`` is not written.  An encdec prompt is ``src_frames`` and
+        ``tokens``: the encoder runs once here, and its memory's K/V go
+        into the new caches."""
+        memory = self._memory(params, batch, dtype)
         x = self._inputs(params, batch, dtype)
-        x, caches = T.stack_prefill(params["stack"], x, self.stack, caches)
+        x, caches = T.stack_prefill(self._stack_params(params), x, self._serve_stack(),
+                                    caches, memory)
         return self._logits(params, x[:, -1:]), caches
 
     def decode_step(self, params, caches, tokens, pos, *, dtype=torch.bfloat16):
@@ -127,7 +156,8 @@ class LM(torch.nn.Module):
         tensors and ``caches`` keeps the old ones
         (``transformer.stack_decode``)."""
         x = self._embed_tokens(params, tokens, dtype)
-        x, caches = T.stack_decode(params["stack"], x, self.stack, caches, pos)
+        x, caches = T.stack_decode(self._stack_params(params), x, self._serve_stack(),
+                                   caches, pos)
         return self._logits(params, x), caches
 
 

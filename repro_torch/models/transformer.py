@@ -22,11 +22,12 @@ repeated to the same bits (``recurrent``'s module docstring).
 
 Block kinds: ``attn_mlp`` (global, local and chunked attention + MLP),
 ``attn_moe`` (attention + the MoE FFN: llama4, dbrx), ``rec`` (RG-LRU +
-MLP: recurrentgemma), ``mlstm`` and ``slstm`` (xlstm).
-:func:`make_block_cfg` parses every block type of the ten
-architectures; ``enc`` and ``xattn`` (seamless) raise
-``NotImplementedError`` when they are initialized or run (ROADMAP §1
-item 5 lists them as next).
+MLP: recurrentgemma), ``mlstm`` and ``slstm`` (xlstm), ``enc`` (the
+encoder's non-causal attention + MLP) and ``xattn`` (the decoder's
+causal self-attention, cross-attention over the encoder memory, MLP:
+seamless).  An ``xattn`` cache is ``{"self": K/V cache, "ck", "cv"}``:
+prefill fills ``ck``/``cv`` with the memory's projection (at the
+memory's real length, as the reference does) and decode reads them.
 """
 
 from __future__ import annotations
@@ -48,7 +49,6 @@ __all__ = [
     "StackCfg",
     "make_block_cfg",
     "make_stack_cfg",
-    "require_ported",
     "init_block",
     "block_train",
     "block_prefill",
@@ -63,15 +63,13 @@ __all__ = [
     "rep_slice",
 ]
 
-#: Block kinds that the port runs.
-PORTED_KINDS = ("attn_mlp", "attn_moe", "rec", "mlstm", "slstm")
 #: Kinds whose cache is a recurrent state: new tensors at every decode step.
 STATE_KINDS = ("rec", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
-    kind: str  # attn_mlp | attn_moe | rec | mlstm | slstm | enc | xattn
+    kind: str  # attn_mlp | attn_moe | enc | xattn | rec | mlstm | slstm
     d_model: int
     norm_kind: str = "rms"
     mlp_kind: str = "swiglu"
@@ -140,29 +138,25 @@ def make_block_cfg(cfg: ArchConfig, block_type: str) -> BlockCfg:
     raise ValueError(f"unknown block type {block_type!r}")
 
 
-def require_ported(bc: BlockCfg) -> None:
-    """Raise ``NotImplementedError`` for a block kind the port does not
-    run yet."""
-    if bc.kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {bc.kind!r} is not ported yet (ROADMAP §1 item 5: "
-            "the enc/xattn blocks and the encdec frontend); the port runs "
-            f"{PORTED_KINDS}"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Single block
 # ---------------------------------------------------------------------------
 
 
+#: Kinds whose block is attention then the FFN (``xattn`` with the
+#: cross-attention between them).
+ATTN_KINDS = ("attn_mlp", "attn_moe", "enc", "xattn")
+
+
 def init_block(gen, bc: BlockCfg):
-    require_ported(bc)
     d = bc.d_model
     p = {}
-    if bc.kind in ("attn_mlp", "attn_moe"):
+    if bc.kind in ATTN_KINDS:
         p["ln_attn"] = init_norm(d, kind=bc.norm_kind, gen=gen)
         p["attn"] = A.init_attention(gen, bc.attn)
+        if bc.kind == "xattn":
+            p["ln_cross"] = init_norm(d, kind=bc.norm_kind, gen=gen)
+            p["cross"] = A.init_attention(gen, bc.cross)
         p["ln_mlp"] = init_norm(d, kind=bc.norm_kind, gen=gen)
         if bc.kind == "attn_moe":
             p["moe"] = init_moe(gen, bc.moe)
@@ -173,10 +167,12 @@ def init_block(gen, bc: BlockCfg):
         p["rec"] = R.init_rglru(gen, bc.rglru)
         p["ln_mlp"] = init_norm(d, kind=bc.norm_kind, gen=gen)
         p["mlp"] = init_mlp(gen, d, bc.d_ff, kind=bc.mlp_kind)
-    else:  # mlstm | slstm
+    elif bc.kind in ("mlstm", "slstm"):
         p["ln"] = init_norm(d, kind=bc.norm_kind, gen=gen)
         init = R.init_mlstm if bc.kind == "mlstm" else R.init_slstm
         p["core"] = init(gen, getattr(bc, bc.kind))
+    else:
+        raise ValueError(bc.kind)
     return p
 
 
@@ -199,12 +195,18 @@ _MIXERS = {
 
 
 def _has_ffn(bc: BlockCfg) -> bool:
-    return bc.kind in ("attn_mlp", "attn_moe", "rec")
+    return bc.kind in ATTN_KINDS or bc.kind == "rec"
 
 
-def block_train(p, x, bc: BlockCfg):
-    """Returns (x, aux)."""
-    require_ported(bc)
+def _cross(p, x, bc: BlockCfg, k, v):
+    """The ``xattn`` block's cross-attention residual over memory K/V."""
+    h = apply_norm(p["ln_cross"], x, kind=bc.norm_kind)
+    return x + A.attend_cross(p["cross"], h, k, v, bc.cross)
+
+
+def block_train(p, x, bc: BlockCfg, memory=None):
+    """Returns (x, aux); ``memory`` (B, S_enc, d) feeds an ``xattn``
+    block's cross-attention."""
     if bc.kind in STATE_KINDS:
         ln, core, spec, train, _ = _MIXERS[bc.kind]
         h = apply_norm(p[ln], x, kind=bc.norm_kind)
@@ -212,6 +214,8 @@ def block_train(p, x, bc: BlockCfg):
     else:
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
         x = x + A.attend_train(p["attn"], h, bc.attn)
+        if bc.kind == "xattn":
+            x = _cross(p, x, bc, *A.cross_kv(p["cross"], memory, bc.cross))
     aux = 0.0
     if _has_ffn(bc):
         delta, aux = _ffn(p, x, bc)
@@ -222,8 +226,16 @@ def block_train(p, x, bc: BlockCfg):
 def init_block_cache(bc: BlockCfg, batch: int, seq_len: int, enc_seq: int = 0,
                      dtype=torch.bfloat16, device="cuda"):
     """A zeroed cache: attention K/V and positions, or a recurrent state
-    (float32 ``h``/``C``/``n``/``m``; conv states in ``dtype``)."""
-    require_ported(bc)
+    (float32 ``h``/``C``/``n``/``m``; conv states in ``dtype``); an
+    ``xattn`` block's also holds the memory's K/V, ``ck``/``cv`` of
+    ``(B, enc_seq, KV, dh)``."""
+    if bc.kind == "xattn":
+        shape = (batch, enc_seq, bc.cross.n_kv, bc.cross.d_head)
+        return {
+            "self": A.init_cache(bc.attn, batch, seq_len, dtype, device),
+            "ck": torch.zeros(shape, dtype=dtype, device=device),
+            "cv": torch.zeros(shape, dtype=dtype, device=device),
+        }
     if bc.kind == "rec":
         return R.rglru_init_state(bc.rglru, batch, dtype, device)
     if bc.kind == "mlstm":
@@ -233,17 +245,26 @@ def init_block_cache(bc: BlockCfg, batch: int, seq_len: int, enc_seq: int = 0,
     return A.init_cache(bc.attn, batch, seq_len, dtype, device)
 
 
-def block_prefill(p, x, bc: BlockCfg, cache, start: int = 0):
-    """Returns (x, a new cache); ``cache`` is not written."""
-    require_ported(bc)
+def block_prefill(p, x, bc: BlockCfg, cache, memory=None, start: int = 0):
+    """Returns (x, a new cache); ``cache`` is not written.  An ``xattn``
+    block's new ``ck``/``cv`` are ``memory``'s projection in the cache's
+    dtype."""
     if bc.kind in STATE_KINDS:
         ln, core, spec, train, _ = _MIXERS[bc.kind]
         h = apply_norm(p[ln], x, kind=bc.norm_kind)
         y, cache = train(p[core], h, getattr(bc, spec), cache, return_state=True)
+        x = x + y
+    elif bc.kind == "xattn":
+        h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
+        y, self_cache = A.prefill_into_cache(p["attn"], h, bc.attn, cache["self"], start)
+        k, v = A.cross_kv(p["cross"], memory, bc.cross)
+        x = _cross(p, x + y, bc, k, v)
+        cache = {"self": self_cache, "ck": k.to(cache["ck"].dtype),
+                 "cv": v.to(cache["cv"].dtype)}
     else:
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
         y, cache = A.prefill_into_cache(p["attn"], h, bc.attn, cache, start)
-    x = x + y
+        x = x + y
     if _has_ffn(bc):
         x = x + _ffn(p, x, bc)[0]
     return x, cache
@@ -251,17 +272,22 @@ def block_prefill(p, x, bc: BlockCfg, cache, start: int = 0):
 
 def block_decode(p, x, bc: BlockCfg, cache, pos):
     """Returns (x, cache): attention writes ``cache`` in place and returns
-    it; a recurrent block returns a new state and leaves ``cache`` as it
-    was."""
-    require_ported(bc)
+    it (an ``xattn`` block writes only its ``self`` cache and reads
+    ``ck``/``cv``); a recurrent block returns a new state and leaves
+    ``cache`` as it was."""
     if bc.kind in STATE_KINDS:
         ln, core, spec, _, step = _MIXERS[bc.kind]
         h = apply_norm(p[ln], x, kind=bc.norm_kind)
         y, cache = step(p[core], h, getattr(bc, spec), cache)
+        x = x + y
+    elif bc.kind == "xattn":
+        h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
+        y, _ = A.decode_step(p["attn"], h, bc.attn, cache["self"], pos)
+        x = _cross(p, x + y, bc, cache["ck"], cache["cv"])
     else:
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
         y, cache = A.decode_step(p["attn"], h, bc.attn, cache, pos)
-    x = x + y
+        x = x + y
     if _has_ffn(bc):
         x = x + _ffn(p, x, bc)[0]
     return x, cache
@@ -318,15 +344,15 @@ def init_stack(gen, sc: StackCfg):
     return {"reps": tuple(rep_params), "tail": tail_params}
 
 
-def stack_train(params, x, sc: StackCfg):
+def stack_train(params, x, sc: StackCfg, memory=None):
     """Forward over the stack; returns (x, aux)."""
     aux = 0.0
     for r in range(sc.reps):
         for i, bc in enumerate(sc.pattern):
-            x, a = block_train(rep_slice(params["reps"][i], r), x, bc)
+            x, a = block_train(rep_slice(params["reps"][i], r), x, bc, memory)
             aux = aux + a
     for i in range(sc.n_tail):
-        x, a = block_train(params["tail"][i], x, sc.pattern[i])
+        x, a = block_train(params["tail"][i], x, sc.pattern[i], memory)
         aux = aux + a
     return x, aux
 
@@ -358,13 +384,13 @@ def insert_slot_caches(caches, one, slot: int):
     return caches
 
 
-def stack_prefill(params, x, sc: StackCfg, caches, start: int = 0):
+def stack_prefill(params, x, sc: StackCfg, caches, memory=None, start: int = 0):
     """Prompt pass; returns (x, new caches).  ``caches`` is not written."""
     rep_caches = [[] for _ in sc.pattern]
     for r in range(sc.reps):
         for i, bc in enumerate(sc.pattern):
             x, c = block_prefill(rep_slice(params["reps"][i], r), x, bc,
-                                 rep_slice(caches["reps"][i], r), start)
+                                 rep_slice(caches["reps"][i], r), memory, start)
             rep_caches[i].append(c)
     stacked = tuple(
         tree_map(lambda *layers: torch.stack(layers), *per_layer)
@@ -374,7 +400,7 @@ def stack_prefill(params, x, sc: StackCfg, caches, start: int = 0):
     tail_caches = []
     for i in range(sc.n_tail):
         x, c = block_prefill(
-            params["tail"][i], x, sc.pattern[i], caches["tail"][i], start
+            params["tail"][i], x, sc.pattern[i], caches["tail"][i], memory, start
         )
         tail_caches.append(c)
     return x, {"reps": stacked, "tail": tail_caches}

@@ -19,8 +19,7 @@ Departures from the reference (ROADMAP §3):
     layer scan, which it pays once, at trace time.  Eagerly that would be
     once per layer and decode step, so :func:`gustify` builds the
     per-layer slices once and keeps them in its tree (``"plans"``), and
-    :func:`decode_step_gust` takes no ``cfg``;
-  * ``store_verify="load"`` raises, as ``PlanStore(verify="load")`` does.
+    :func:`decode_step_gust` takes no ``cfg``.
 
 Applies to homogeneous ``attn_mlp`` stacks (pattern length 1: phi3, yi,
 mistral-large, llava); :func:`gustify` refuses the others (gemma3's
@@ -67,7 +66,7 @@ class GustServeConfig:
     ragged: bool = False  # ragged color-block streams: only real blocks
     gather: str = "auto"  # "resident" | "local" | "auto" (measured locality)
     plan_store: Optional[str] = None  # directory of a persistent PlanStore
-    store_verify: str = "off"  # "load" raises until the verifier is ported
+    store_verify: str = "off"  # "load" runs the static artifact verifier
     mats: Tuple[str, ...] = _MLP_MATS
 
     @property

@@ -43,6 +43,12 @@ and recurrent stacks (reduced dbrx, llama4, recurrentgemma, xlstm)
 decode on the card within 1e-4 of the largest logit of the CPU path;
 dbrx's top-2 ``moe_ffn`` and decode give the same bits twice; a decode
 step that fails in the middle of the stack is retried to the same bits.
+Reduced seamless (the encoder-decoder blocks) runs the forward, prefill
+and decode on the card as on the CPU, directly and on the blocked
+softmax.  The artifact verifier finds nothing on card artifacts of every
+layout and dtype and fires GUST-P14 on a seeded collision; the Hopper
+resource audit finds nothing in the built libraries and their launch
+plans.
 """
 
 import dataclasses
@@ -1247,3 +1253,76 @@ def test_failed_decode_step_on_card_is_retried_to_the_same_bits(cuda, arch, monk
     loop = ServeLoop(lm, p_card, sc)
     assert serve(loop) == clean
     assert loop.stats["decode_retries"] == 1
+
+
+def _encdec_run(lm, params, dev, frames, toks, steps=3):
+    """Forward logits, then a prefill of 8 tokens and ``steps`` decode
+    steps, of the encoder-decoder model; every logit on the host."""
+    batch = {"src_frames": frames.to(dev), "tokens": toks.to(dev)}
+    full, _ = lm.train_logits(params, batch, dtype=torch.float32)
+    caches = lm.init_caches(toks.shape[0], 32, torch.float32, device=dev)
+    first, caches = lm.prefill(params, {"src_frames": frames.to(dev),
+                                        "tokens": toks[:, :8].to(dev)}, caches,
+                               dtype=torch.float32)
+    out = [first.cpu()]
+    for s in range(steps):
+        logits, caches = lm.decode_step(params, caches, toks[:, 8 + s:9 + s].to(dev),
+                                        8 + s, dtype=torch.float32)
+        out.append(logits.cpu())
+    return full.cpu(), torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("block", [64, 4], ids=["direct", "blocked"])
+def test_encdec_on_card_equals_the_cpu_path(cuda, block):
+    """Reduced seamless (2 encoder + 2 decoder layers, 16 source frames):
+    the forward, the prefill and three decode steps on the card agree with
+    the CPU's plain path; at block 4 every attention takes the online
+    softmax.  Decode after the prefill equals the forward on the card."""
+    lm, p_cpu, p_card = _family_model("seamless_m4t_medium", cuda, attn_block_size=block)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal((3, lm.cfg.enc_seq, lm.cfg.d_model))
+                              .astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, lm.cfg.vocab, (3, 11)).astype(np.int32))
+    full, steps = _encdec_run(lm, p_card, cuda, frames, toks)
+    full_cpu, steps_cpu = _encdec_run(lm, p_cpu, "cpu", frames, toks)
+    _close_to_cpu(full, full_cpu)
+    _close_to_cpu(steps, steps_cpu)
+    _close_to_cpu(steps[:, 1:], full[:, 8:11], tol=2e-4)
+
+
+@pytest.mark.parametrize("layout", ["padded", "ragged"])
+@pytest.mark.parametrize("vdt,idt", [("float32", "int32"), ("bfloat16", "int32"),
+                                     ("int8", "int32"), ("float32", "int16"),
+                                     ("bfloat16", "int16"), ("int8", "int16")])
+def test_verify_card_artifacts_have_no_finding(cuda, layout, vdt, idt):
+    """The artifact verifier on artifacts whose leaves live on the card
+    (copied to the host once per call): no finding, as on the CPU copy;
+    a seeded collision on a copy fires exactly GUST-P14."""
+    from repro_torch.analysis.verify import verify
+
+    rng = np.random.default_rng(1)
+    d = ((rng.random((300, 260)) < 0.05) * rng.standard_normal((300, 260))).astype(np.float32)
+    cfg = PlanConfig(l=32, layout=layout, value_dtype=vdt, index_dtype=idt)
+    p = plan(d, cfg, cache=None, device=cuda)
+    assert p.artifact.m_blk.device.type == "cuda"
+    assert p.verify() == [] and verify(p.to_spec()["leaves"], p.to_spec()["meta"]) == []
+    art = p.artifact
+    real = (art.m_blk != 0)
+    r = int(torch.nonzero(real.sum(dim=1) >= 2)[0, 0])
+    j1, j2 = (int(j) for j in torch.nonzero(real[r])[:2, 0])
+    row = art.row_blk.clone()
+    row[r, j2] = row[r, j1]
+    assert {f.rule for f in verify(dataclasses.replace(art, row_blk=row))} == {"GUST-P14"}
+
+
+def test_resource_audit_has_no_finding(cuda):
+    """Every library's ptxas report and the launch plans of every spread
+    library (each value type, int16 indices, B = 1 and 8) and of the
+    SpGEMM kernel: no ``GUST-Hxx`` finding."""
+    from repro_torch.analysis.kernel_audit import audit_kernels, default_plans
+
+    result = audit_kernels(plans=default_plans(cuda))
+    assert result.findings == [], result.report()
+    assert {r.library for r in result.reports} == set(k_pad._SPREAD_LIBS.values()) | {
+        "gust_spgemm", "gather_fill"}
+    assert len(result.plans) == 4 * 2 * 4 + 1

@@ -11,8 +11,8 @@ attention, ring eviction, bf16 and the padded vocab in
 ``test_torch_families*.py``):
 ``train_logits`` and its aux (0.0 without MoE), ``prefill`` logits and
 caches, and three ``decode_step`` logits at per-row positions.  The init
-tree is held to the reference's for every decoder-only arch; only the
-encdec arch's ``enc``/``xattn`` blocks still raise.  Tolerances: float32 ``rtol=1e-4,
+tree is held to the reference's for every arch (the encoder-decoder
+model's parity is in ``test_torch_encdec*.py``).  Tolerances: float32 ``rtol=1e-4,
 atol=1e-5`` (the two packages sum each product in another order); bf16
 activations, max ``|port - reference|`` within 2% of the largest logit
 (bf16 keeps 8 bits of mantissa, and the two round at other points).
@@ -45,8 +45,8 @@ ATTN_MLP_ARCHS = ("yi_6b", "phi3_mini_3_8b", "mistral_large_123b", "gemma3_4b",
                   "llava_next_mistral_7b")
 #: MoE and recurrent stacks (parity in ``test_torch_families*.py``).
 FAMILY_ARCHS = ("llama4_scout_17b_a16e", "dbrx_132b", "recurrentgemma_9b", "xlstm_125m")
-#: The encoder-decoder arch, whose enc/xattn blocks are not ported yet.
-OTHER_ARCHS = tuple(a for a in ARCH_IDS if a not in ATTN_MLP_ARCHS + FAMILY_ARCHS)
+#: The encoder-decoder arch (parity in ``test_torch_encdec*.py``).
+ENCDEC_ARCHS = tuple(a for a in ARCH_IDS if a not in ATTN_MLP_ARCHS + FAMILY_ARCHS)
 
 
 class Jitted:
@@ -172,7 +172,7 @@ def test_from_reference_params_is_bitwise_and_checks_the_tree():
         from_reference_params(missing, lm.cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ATTN_MLP_ARCHS + FAMILY_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_MLP_ARCHS + FAMILY_ARCHS + ENCDEC_ARCHS)
 def test_init_has_the_reference_tree(arch):
     """Names, nesting, shapes and dtypes of ``LM.init`` equal the
     reference's ``lm.init`` (its shapes from ``jax.eval_shape``); the meta
@@ -220,21 +220,6 @@ def test_make_block_cfg_parses_every_block_type(arch):
     sc, rsc = T.make_stack_cfg(cfg, cfg.pattern, cfg.n_layers), RT.make_stack_cfg(
         rcfg, rcfg.pattern, rcfg.n_layers)
     assert (sc.reps, sc.n_tail, sc.n_layers) == (rsc.reps, rsc.n_tail, rsc.n_layers)
-
-
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_unported_block_kinds_raise(arch):
-    """Only the encdec frontend and its enc/xattn blocks raise."""
-    cfg = get_arch(arch).reduced()
-    assert cfg.is_encdec
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        LM(cfg)
-    for kind in ("enc", "xattn"):
-        bc = T.make_block_cfg(cfg, kind)
-        with pytest.raises(NotImplementedError, match="enc/xattn"):
-            T.init_block(torch.Generator(), bc)
-        with pytest.raises(NotImplementedError, match="enc/xattn"):
-            T.init_block_cache(bc, 1, 8, device="cpu")
 
 
 def test_entry_points_default_to_the_card():

@@ -142,7 +142,12 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.models.moe, repro_torch.models.recurrent, "
         "repro_torch.models.model_zoo, repro_torch.models.tree, repro_torch.serving, "
         "repro_torch.serving.kv_cache, repro_torch.serving.gust_serve, "
-        "repro_torch.serving.serve_loop, repro_torch.launch, repro_torch.launch.serve; "
+        "repro_torch.serving.serve_loop, repro_torch.launch, repro_torch.launch.serve, "
+        "repro_torch.analysis, repro_torch.analysis.verify, "
+        "repro_torch.analysis.kernel_audit, repro_torch.analysis.__main__, "
+        "repro_torch.core.hardware_model, repro_torch.core.baselines, "
+        "repro_torch.configs.gust_paper; "
+        "[getattr(repro_torch.analysis, n) for n in repro_torch.analysis.__all__]; "
         "[repro_torch.configs.get_arch(a) for a in repro_torch.configs.ARCH_IDS]; "
         "[getattr(repro_torch, n) for n in repro_torch.__all__]; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -22,12 +22,14 @@ import pytest
 import torch
 
 import jax
+import repro.resilience as RR
 import repro.serving as RS
 from repro.serving.gust_serve import gustify as ref_gustify
 
 from repro.configs.base import get_arch as ref_get_arch
 from repro.models.model_zoo import build_model as ref_build
 
+import repro_torch.resilience as TR
 import repro_torch.serving as TS
 from repro_torch.configs import get_arch
 from repro_torch.core.convert import from_reference_params, to_numpy_leaves
@@ -77,6 +79,10 @@ def solo(lm, params, prompt, max_new, *, batch=2, gust=None, **kw):
 
 @pytest.mark.parametrize("mode", list(GUST))
 def test_greedy_streams_equal_reference(model, mode):
+    # resilience_stats() adds each package's process-wide fallback
+    # counters, which other test files in the same worker may have moved
+    RR.reset_fallback_counters()
+    TR.reset_fallback_counters()
     rlm, rp, lm, p = model
     rsc, tsc = configs(gust=GUST[mode])
     ref, port = RS.ServeLoop(rlm, rp, rsc), TS.ServeLoop(lm, p, tsc)

@@ -245,8 +245,11 @@ def test_plan_store_warm_start_colors_nothing(model, tmp_path):
     for name, entry in cold["mats"].items():
         assert all(torch.equal(entry["leaves"][k], warm["mats"][name]["leaves"][k])
                    for k in entry["leaves"])
-    with pytest.raises(NotImplementedError):
-        TS.gustify(lm, p, dataclasses.replace(gcfg, store_verify="load"))
+    clear_cache()
+    verified = TS.gustify(lm, p, dataclasses.replace(gcfg, store_verify="load"))
+    assert dict(sched_counters) == before  # verified warm loads color nothing either
+    assert verified["stats"]["plan_store"]["hits"] == 3 * lm.stack.reps
+    assert verified["stats"]["plan_store"]["corrupt"] == 0
 
 
 def test_serving_entry_points_default_to_the_card(model):

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``repro_torch/kernels/csrc`` (one
-``nvcc`` per source, in parallel), then drives seven paths of the port,
+``nvcc`` per source, in parallel), then drives eight paths of the port,
 each (and each phase of the fourth, fifth and sixth) with the launch
 counts zeroed just before it and read just after:
 
@@ -97,6 +97,26 @@ counts zeroed just before it and read just after:
    ``LM.decode_step``; the reference's ``ServeLoop`` feeds no source
    frames, so this path drives the model's own entry points).
 
+8. **Training** ``train``, under ``torch.use_deterministic_algorithms(True)``
+   (``CUBLAS_WORKSPACE_CONFIG`` is set before torch is imported; the
+   flag is put back after the path), through ``make_train_step`` (AdamW,
+   remat, float32):
+
+   * ``train.yi``: yi-6b at its published widths, 8 of 32 layers
+     (1,646,333,952 parameters: the float32 AdamW state of all 32 would
+     not fit 80 GB), random from ``torch.Generator`` seed 0 on the card,
+     batch 2 x 2,048 tokens from the port's ``TokenPipeline``; six steps
+     at the launcher's learning rate (1e-3, warmup max(6 // 10, 1)), then
+     six at ``AdamWConfig``'s (3e-4), the first of them also as
+     ``microbatches=2``, and a seventh under ``torch.profiler``;
+   * ``train.cpu_check``: one step at 1 layer (batch 1 x 64) from the same
+     parameters on the card and on the CPU;
+   * ``train.xlstm``: xlstm-125m at its published widths and depth, batch
+     4 x 256, four steps with a checkpoint after step 2 (a temporary
+     directory), restored and steps 3-4 run again;
+   * ``train.launcher``: ``python -m repro_torch.launch.train --arch
+     yi_6b --steps 4 --device cuda`` (reduced config, its defaults).
+
 Before its first launch every artifact the smoke builds passes the
 artifact verifier (``GustPlan.verify()``, the ``GUST-Pxx`` rules) with no
 finding: crankseg_2's eight (padded/ragged × float32/int8 ×
@@ -186,7 +206,17 @@ Checks, each fatal:
     1's frames and tokens change; at 1 encoder and 1 decoder layer, a
     prefill and a decode step on the card within ``2e-4`` of the largest
     logit of the CPU's plain path (a 256-frame source) with the same
-    first token; no kernel launched.
+    first token; no kernel launched;
+  * the train path: every loss finite; at 3e-4 yi-6b's step 6 below its
+    step 1 (the 1e-3 run is reported, not gated on learning); the
+    microbatches=2 step and the card-vs-CPU step held by
+    ``step_agreement`` (loss and gradient norm within 1e-5 relative, m
+    within 1e-5 of each leaf's largest, every parameter within the
+    reference's ``rtol=2e-4, atol=2e-5`` plus ``lr * min(2, dg / eps)``,
+    the most a first AdamW step can make of a gradient difference dg);
+    xlstm's resumed losses and state bitwise the uninterrupted run's,
+    the checkpoint restored on the CPU bitwise the card's; the launcher's
+    JSON line finite; no GUST kernel launched.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
@@ -214,7 +244,11 @@ bytes bound of a decode step (every parameter read once), peak device
 memory and the card-vs-CPU error, also on a ``{"families": {...}}``
 line; for the encdec path the encoder, prefill and decode-step ms, a
 profile of 8 decode steps, peak memory and a step's bytes bound, on an
-``{"encdec": {...}}`` line; the audit's report and an ``{"audit":
+``{"encdec": {...}}`` line; for the train path the losses, step ms (CUDA
+events), tokens/s, the step's matmul FLOPs and their rate beside the f32
+peak, a profiled step (device ms, ops, idle share), the peak memory
+beside the state's reckoning, the checkpoint's bytes and seconds and the
+launcher's line, on a ``{"train": {...}}`` line; the audit's report and an ``{"audit":
 {...}}`` line, the verifier's seconds per artifact, the paper metric;
 the card's name; and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -432,6 +466,9 @@ def x_tile_bytes(name, art, b):
 
 def main() -> int:
     start = time.perf_counter()
+    # deterministic cuBLAS products for the train path; cuBLAS reads this
+    # when its first handle is made
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE
     import torch
 
     if not torch.cuda.is_available():
@@ -792,6 +829,12 @@ def main() -> int:
     report["encdec_seconds"] = encdec["seconds"] = time.perf_counter() - t0
     log(f"encdec path: {report['encdec_seconds']:.1f} s")
 
+    # -- path 8: training, yi-6b at full width (8 layers) and xlstm-125m -------------
+    t0 = time.perf_counter()
+    train = train_path(report, launch_counts)
+    report["train_seconds"] = train["seconds"] = time.perf_counter() - t0
+    log(f"train path: {report['train_seconds']:.1f} s")
+
     # -- the resource audit: every library and every launch plan used ----------------
     audit = audit_kernels(plans=report["launch_plans"])
     log(audit.report())
@@ -840,6 +883,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"families": families}))
     print(json.dumps({"encdec": encdec}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"audit": report["audit"],
                       "verify": {"artifacts": len(verify_s),
                                  "seconds": report["verify_seconds"],
@@ -1446,8 +1490,9 @@ def profile_split(prof, steps, wall_ms, step_ms):
         total = getattr(evt, "device_time_total", None)
         if total is None:
             total = evt.cuda_time_total
-        if total:
-            by_kernel[evt.key[:100]] = total / steps / 1e3
+        if total:  # names cut to 100 characters: add, kernels may share a prefix
+            key = evt.key[:100]
+            by_kernel[key] = by_kernel.get(key, 0.0) + total / steps / 1e3
             launched += evt.count
     groups = {"gust_spmv": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in by_kernel.items():
@@ -1961,6 +2006,350 @@ def encdec_path(report, launch_counts):
             "peak_memory_bytes": out["peak_memory_bytes"], "start_memory_bytes": start_bytes,
             "decode_vs_forward_max_abs_err": err,
             "cpu_check_max_abs_err": checks["decode"]["max_abs_err"]}
+
+
+#: The training path (path 8): yi-6b at its published widths, 8 of 32
+#: layers (the f32 AdamW state of all 32, 16 bytes a parameter, would not
+#: fit 80 GB), the card-vs-CPU step at 1 layer, xlstm-125m whole.
+TRAIN = dict(layers=8, batch=2, seq_len=2048, steps=6, cpu_layers=1, cpu_batch=1,
+             cpu_seq_len=64, xlstm_batch=4, xlstm_seq_len=256, xlstm_steps=4,
+             xlstm_ckpt_after=2, launcher_steps=4)
+#: The gated run's learning rate: ``AdamWConfig``'s own default.  The
+#: launcher's 1e-3 (with its warmup of max(steps // 10, 1) = 1 step, so
+#: that step 1 takes the full rate) is also run, reported and not gated
+#: on learning: at this width its first sign-like AdamW steps raise the
+#: loss for the whole run (both packages do the same at smaller widths,
+#: ``tests/test_torch_train_step.py``).
+TRAIN_LR, LAUNCHER_LR = 3e-4, 1e-3
+#: cuBLAS's workspace setting for deterministic products, set before the
+#: first cuBLAS handle exists (``main``).
+CUBLAS_WORKSPACE = ":4096:8"
+#: The reference's own accumulation tolerance (tests/test_training.py).
+TOL_ACCUM = dict(rtol=2e-4, atol=2e-5)
+#: Two runs of one step from the same state (microbatches 2 against 1;
+#: the card against the CPU) sum their products in other orders: the
+#: loss and the gradient norm within this relative tolerance, and m (0.1
+#: times the clipped gradient after a first step) within it of each
+#: leaf's largest |m|.
+TOL_STEP = 1e-5
+
+
+def step_agreement(a, b, ma, mb, lr, eps, b1, tag):
+    """Hold two first AdamW steps from one state against each other
+    (``a``, ``b``: new states; ``ma``, ``mb``: their metrics): the loss and
+    ``grad_norm`` within ``TOL_STEP`` relative; every leaf of m within
+    ``TOL_STEP`` of its largest magnitude; every parameter within the reference's
+    ``TOL_ACCUM`` plus ``lr * min(2, dg / eps)``, where dg is the leaf's
+    largest gradient difference (``|Δm| / (1 - b1)``).  A first AdamW step
+    moves an element by ``lr * g / (|g| + eps)``, whose slope in g is at
+    most ``1 / eps``: an element whose gradient is within rounding of
+    zero may move anywhere in ``[-lr, lr]`` on either side, and no element
+    by more than ``lr * dg / eps``.  Returns the worst ratios to the
+    bounds, and under ``params_vs_reference_tolerance`` (not a gate) the
+    worst parameter against ``TOL_ACCUM`` alone."""
+    import torch
+
+    from repro_torch.models.tree import tree_leaves
+
+    worst = {}
+    for k in ("loss", "grad_norm"):
+        x, y = float(ma[k]), float(mb[k])
+        worst[k] = abs(x - y) / (TOL_STEP * abs(y))
+    worst["m"] = worst["params"] = 0.0
+    plain = 0.0
+    leaves = zip(tree_leaves(a["params"]), tree_leaves(b["params"]),
+                 tree_leaves(a["opt"]["m"]), tree_leaves(b["opt"]["m"]))
+    for pa, pb, m_a, m_b in leaves:
+        pa, m_a = pa.to(pb.device), m_a.to(pb.device)
+        dm = float((m_a - m_b).abs().max())
+        scale = float(m_b.abs().max())
+        worst["m"] = max(worst["m"], dm / (TOL_STEP * scale) if scale else float(dm > 0) * 2)
+        slack = lr * min(2.0, dm / (1 - b1) / eps)
+        ref_bound = TOL_ACCUM["atol"] + TOL_ACCUM["rtol"] * pb.abs()
+        worst["params"] = max(worst["params"],
+                              float(((pa - pb).abs() / (ref_bound + slack)).max()))
+        plain = max(plain, float(((pa - pb).abs() / ref_bound).max()))
+        del pa, m_a
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in worst.items() if not (v <= 1.0)}
+    if bad:
+        raise AssertionError(f"train: {tag}: beyond the stated tolerance {bad}")
+    return dict(worst, params_vs_reference_tolerance=plain)
+
+
+def train_flops(cfg, batch, seq_len, remat):
+    """Matmul FLOPs of one train step of a dense ``global`` stack, from the
+    shapes: per layer the q, k, v, o projections, the full (S, S) scores
+    and their product with V (the direct path computes every entry, the
+    masked ones too) and the three SwiGLU products; the tied logits; the
+    backward twice the forward; with remat the stack's forward once more.
+    Elementwise work is not counted."""
+    t = batch * seq_len
+    d, hd, kvd = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
+    layer = (2 * t * d * hd * 2 + 2 * t * d * kvd * 2
+             + 2 * 2 * batch * cfg.n_heads * seq_len * seq_len * cfg.head_dim
+             + 3 * 2 * t * d * cfg.d_ff)
+    stack = cfg.n_layers * layer
+    logits = 2 * t * d * cfg.padded_vocab
+    return 3 * (stack + logits) + (stack if remat else 0)
+
+
+def train_batch(vocab, batch, seq_len, step, dev):
+    """Batch ``step`` of the port's ``TokenPipeline`` (seed 0) on ``dev``."""
+    import torch
+
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+
+    pipe = TokenPipeline(PipelineConfig(vocab_size=vocab, seq_len=seq_len,
+                                        global_batch=batch))
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
+
+
+def train_steps(step_fn, run, batches):
+    """Run ``step_fn`` over ``batches`` from ``run["state"]``, replacing it
+    after each step (no caller holds a state a step was given, so only
+    one old state is alive at a time); returns (losses, each step's ms by
+    CUDA events)."""
+    losses, ms = [], []
+    for batch in batches:
+        (run["state"], m), t = event_ms(lambda: step_fn(run["state"], batch))
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    return losses, ms
+
+
+def train_path(report, launch_counts):
+    """Training on the card under deterministic algorithms: (a) yi-6b at
+    its published widths, 8 of 32 layers, six steps of ``make_train_step``
+    (remat, f32, batch 2 x 2,048) at the launcher's learning rate, then at
+    ``AdamWConfig``'s, with a microbatches=2 step, a profiled step and the
+    peak memory; (b) one step at 1 layer, card against CPU; (c) xlstm-125m
+    at full width and depth, a checkpoint after step 2 and a bitwise
+    resume; (d) the launcher's CLI.  Returns the ``train`` line's
+    summary."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.training import (AdamWConfig, TrainConfig, init_train_state,
+                                      make_train_step, restore_checkpoint, save_checkpoint)
+
+    dev = torch.device(SERVE_DEVICE)
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != CUBLAS_WORKSPACE:
+        raise AssertionError("CUBLAS_WORKSPACE_CONFIG is not set: cuBLAS would not be "
+                             "deterministic")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the float32 products would not be float32")
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    out = report.setdefault("train", {})
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["start_memory_bytes"] = torch.cuda.memory_allocated()
+    zero_launches(launch_counts)
+
+    # -- (a) yi-6b at its published widths, 8 of 32 layers ------------------------
+    base = get_arch("yi_6b")
+    widths = {k: getattr(base, k) for k in YI_WIDTHS}
+    if widths != YI_WIDTHS:
+        raise AssertionError(f"yi-6b widths {widths} != the published {YI_WIDTHS}")
+    cfg = dataclasses.replace(base, n_layers=TRAIN["layers"])
+    lm = build_model(cfg)
+    b, s, n = TRAIN["batch"], TRAIN["seq_len"], TRAIN["steps"]
+    batches = [train_batch(cfg.vocab, b, s, i, dev) for i in range(n + 1)]
+
+    def config(lr, microbatches=1):
+        return TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=max(n // 10, 1), total_steps=n),
+                           microbatches=microbatches, dtype="float32", remat=True)
+
+    def fresh(tc):
+        return init_train_state(lm, torch.Generator(device=dev).manual_seed(0), tc, device=dev)
+
+    yi = {"arch": "yi_6b", "layers": cfg.n_layers, "of_layers": base.n_layers,
+          "batch": b, "seq_len": s}
+    run = {"state": fresh(config(LAUNCHER_LR))}
+    yi["params"] = lm.param_count(run["state"]["params"])
+    losses, _ = train_steps(make_train_step(lm, config(LAUNCHER_LR)), run, batches[:n])
+    yi["launcher_lr"] = {"lr": LAUNCHER_LR, "losses": losses}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: yi-6b at lr {LAUNCHER_LR}: losses {losses}")
+    del run["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tc = config(TRAIN_LR)
+    run["state"] = fresh(tc)
+    # microbatches=2 against 1: the same state and batch
+    s2, m2 = make_train_step(lm, config(TRAIN_LR, 2))(run["state"], batches[0])
+    s2 = {"params": s2["params"], "opt": {"m": s2["opt"]["m"]}}  # v is not compared
+    step_fn = make_train_step(lm, tc)
+    (run["state"], m1), first_ms = event_ms(lambda: step_fn(run["state"], batches[0]))
+    yi["microbatches_2_vs_1"] = step_agreement(s2, run["state"], m2, m1, float(m1["lr"]),
+                                               tc.opt.eps, tc.opt.b1, "microbatches 2 vs 1")
+    del s2
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    yi["steps_start_memory_bytes"] = torch.cuda.memory_allocated()
+    losses, ms = train_steps(step_fn, run, batches[1:n])
+    losses, ms = [float(m1["loss"])] + losses, [first_ms] + ms
+    yi["peak_memory_bytes"] = torch.cuda.max_memory_allocated()  # steps 2-6
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: yi-6b at lr {TRAIN_LR}: losses {losses}")
+    yi["lr"], yi["losses"] = TRAIN_LR, losses
+    yi["step_ms"] = {"median": float(np.median(ms)), "min": float(min(ms)),
+                     "max": float(max(ms)), "all": ms}
+    yi["tokens_per_s"] = b * s / (yi["step_ms"]["median"] / 1e3)
+    yi["flops_per_step"] = train_flops(cfg, b, s, remat=True)
+    yi["tflop_per_s"] = yi["flops_per_step"] / (yi["step_ms"]["median"] / 1e3) / 1e12
+    yi["f32_peak_tflop_per_s"] = FP32_FLOP_PER_S / 1e12
+    # the state (params, m, v), the gradients and the new state: 7 x 4 bytes
+    # a parameter; the activations come on top
+    yi["state_bytes_reckoned"] = 7 * 4 * yi["params"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run["state"], m = step_fn(run["state"], batches[n])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    yi["profile"] = profile_split(prof, 1, wall_ms, yi["step_ms"]["median"])
+    launches = read_launches(launch_counts)
+    if launches:
+        raise AssertionError(f"train: a GUST kernel launched ({launches})")
+    del run["state"], step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["yi"] = yi
+
+    # -- (b) one step at 1 layer on the card and on the CPU, the same params ------
+    lm1 = build_model(dataclasses.replace(base, n_layers=TRAIN["cpu_layers"]))
+    tc1 = TrainConfig(opt=AdamWConfig(lr=LAUNCHER_LR, warmup_steps=1, total_steps=n),
+                      dtype="float32", remat=True)
+    card = init_train_state(lm1, torch.Generator(device=dev).manual_seed(1), tc1, device=dev)
+    host = tree_map(lambda t: t.cpu(), card)
+    batch = train_batch(cfg.vocab, TRAIN["cpu_batch"], TRAIN["cpu_seq_len"], 0, "cpu")
+    t0 = time.perf_counter()
+    host, mh = make_train_step(lm1, tc1)(host, batch)
+    cpu_s = time.perf_counter() - t0
+    card, mc = make_train_step(lm1, tc1)(card, {k: v.to(dev) for k, v in batch.items()})
+    out["cpu_check"] = {"layers": TRAIN["cpu_layers"], "batch": TRAIN["cpu_batch"],
+                        "seq_len": TRAIN["cpu_seq_len"], "cpu_step_s": cpu_s,
+                        "loss": [float(mc["loss"]), float(mh["loss"])],
+                        "grad_norm": [float(mc["grad_norm"]), float(mh["grad_norm"])],
+                        "worst_vs_bound": step_agreement(host, card, mh, mc, float(mc["lr"]),
+                                                         tc1.opt.eps, tc1.opt.b1,
+                                                         "card vs CPU")}
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) xlstm-125m at full width and depth: checkpoint and bitwise resume ------
+    arch, xwidths, _, _ = FAMILIES["xlstm"]
+    xcfg = get_arch(arch)
+    got = {k: getattr(xcfg, k) for k in xwidths}
+    if got != xwidths:
+        raise AssertionError(f"train: {arch} widths {got} != the published {xwidths}")
+    xlm = build_model(xcfg)
+    xn, after = TRAIN["xlstm_steps"], TRAIN["xlstm_ckpt_after"]
+    xtc = TrainConfig(opt=AdamWConfig(lr=LAUNCHER_LR, warmup_steps=max(xn // 10, 1),
+                                      total_steps=xn), dtype="float32", remat=True)
+    xb = [train_batch(xcfg.vocab, TRAIN["xlstm_batch"], TRAIN["xlstm_seq_len"], i, dev)
+          for i in range(xn)]
+    xstep = make_train_step(xlm, xtc)
+    xrun = {"state": init_train_state(xlm, torch.Generator(device=dev).manual_seed(0), xtc,
+                                      device=dev)}
+    xl = {"arch": arch, "params": xlm.param_count(xrun["state"]["params"]),
+          "batch": TRAIN["xlstm_batch"], "seq_len": TRAIN["xlstm_seq_len"]}
+    losses, ms = train_steps(xstep, xrun, xb[:after])
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt, after, xrun["state"], extra={"step": after})
+        xl["save_s"] = time.perf_counter() - t0
+        xl["checkpoint_bytes"] = sum(os.path.getsize(os.path.join(r, f))
+                                     for r, _, fs in os.walk(path) for f in fs)
+        tail, tail_ms = train_steps(xstep, xrun, xb[after:])
+        like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                        xrun["state"])
+        t0 = time.perf_counter()
+        resumed, extra = restore_checkpoint(ckpt, after, like, device=dev)
+        torch.cuda.synchronize()
+        xl["restore_s"] = time.perf_counter() - t0
+        on_cpu, _ = restore_checkpoint(ckpt, after, like, device="cpu")
+    if extra != {"step": after} or not all(
+            torch.equal(x.cpu(), y) for x, y in zip(tree_leaves(resumed), tree_leaves(on_cpu))):
+        raise AssertionError("train: the checkpoint restored on the card and on the CPU "
+                             "differ")
+    del on_cpu
+    rrun = {"state": resumed}
+    del resumed
+    again, again_ms = train_steps(xstep, rrun, xb[after:])
+    if again != tail or not all(torch.equal(x, y) for x, y in
+                                zip(tree_leaves(rrun["state"]), tree_leaves(xrun["state"]))):
+        raise AssertionError(f"train: {arch}: the resumed steps {again} differ from the "
+                             f"uninterrupted {tail}")
+    xl["losses"], xl["resumed_losses"] = losses + tail, again
+    if not all(np.isfinite(xl["losses"])):
+        raise AssertionError(f"train: {arch}: losses {xl['losses']}")
+    all_ms = ms + tail_ms + again_ms
+    xl["step_ms"] = {"median": float(np.median(all_ms)), "min": float(min(all_ms)),
+                     "max": float(max(all_ms))}
+    launches = read_launches(launch_counts)
+    if launches:
+        raise AssertionError(f"train: a GUST kernel launched ({launches})")
+    del xrun, rrun, xstep, xb
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["xlstm"] = xl
+
+    # -- (d) the launcher's CLI, reduced config, its defaults ----------------------
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi_6b", "--steps",
+         str(TRAIN["launcher_steps"]), "--device", "cuda"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if cli.returncode != 0:
+        raise AssertionError(f"train: the launcher exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    line = json.loads(cli.stdout.strip().splitlines()[-1])
+    if set(line) != {"first_loss", "last_loss"} or not all(np.isfinite(list(line.values()))):
+        raise AssertionError(f"train: the launcher printed {line}")
+    out["launcher"] = dict(line, seconds=time.perf_counter() - t0)
+    torch.use_deterministic_algorithms(deterministic)
+
+    prof_ = yi["profile"]
+    log(f"train: yi-6b {widths} at {cfg.n_layers} of {base.n_layers} layers, {yi['params']} "
+        f"parameters; lr {LAUNCHER_LR}: losses {yi['launcher_lr']['losses']}; lr {TRAIN_LR}: "
+        f"losses {yi['losses']}; step {json.dumps(yi['step_ms'])} ms, {yi['tokens_per_s']:.0f} "
+        f"tokens/s, {yi['flops_per_step'] / 1e12:.2f} TFLOP a step = "
+        f"{yi['tflop_per_s']:.1f} TFLOP/s (f32 peak {yi['f32_peak_tflop_per_s']:.0f}); "
+        f"microbatches 2 vs 1 {json.dumps(yi['microbatches_2_vs_1'])}; profile "
+        f"{json.dumps({k: v for k, v in prof_.items() if k != 'top_kernels_ms'})}; peak "
+        f"{yi['peak_memory_bytes']} bytes (state, grads, new state reckoned "
+        f"{yi['state_bytes_reckoned']}); card vs CPU {json.dumps(out['cpu_check'])}; "
+        f"{arch}: losses {xl['losses']}, resumed {again} bitwise, checkpoint "
+        f"{xl['checkpoint_bytes']} bytes, save {xl['save_s']:.2f} s, restore "
+        f"{xl['restore_s']:.2f} s, step {json.dumps(xl['step_ms'])} ms; launcher "
+        f"{json.dumps(out['launcher'])}; no kernel")
+    return {"yi_params": yi["params"], "yi_layers": cfg.n_layers,
+            "yi_losses": yi["losses"], "yi_launcher_lr_losses": yi["launcher_lr"]["losses"],
+            "yi_step_ms": yi["step_ms"]["median"], "yi_tokens_per_s": yi["tokens_per_s"],
+            "yi_tflop_per_s": yi["tflop_per_s"], "yi_flops_per_step": yi["flops_per_step"],
+            "yi_device_ms": prof_["device_ms_per_step"],
+            "yi_device_ops": prof_["device_ops_per_step"], "yi_idle_share": prof_["idle_share"],
+            "yi_peak_memory_bytes": yi["peak_memory_bytes"],
+            "yi_state_bytes_reckoned": yi["state_bytes_reckoned"],
+            "cpu_check_worst_vs_bound": out["cpu_check"]["worst_vs_bound"],
+            "xlstm_losses": xl["losses"], "xlstm_resumed_bitwise": True,
+            "xlstm_step_ms": xl["step_ms"]["median"],
+            "xlstm_checkpoint_bytes": xl["checkpoint_bytes"], "xlstm_save_s": xl["save_s"],
+            "xlstm_restore_s": xl["restore_s"], "launcher": out["launcher"]}
 
 
 def seeded_collision(art):

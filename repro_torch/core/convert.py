@@ -10,7 +10,10 @@ device, bit for bit — so the two packages can run one artifact.
 A model's parameters are the reference's pytree; ``jax.random`` cannot
 be reproduced in torch, so :func:`from_reference_params` takes the tree
 as numpy arrays (``jax.tree.map(np.asarray, lm.init(key))``) and returns
-the port's tree, name for name and bit for bit.
+the port's tree, name for name and bit for bit;
+:func:`from_reference_train_state` does the same for a training state
+(params, AdamW's m, v and step, the compression residual), and
+:func:`train_state_to_numpy` carries one back.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from .packing import (
     resolve_device,
 )
 
-__all__ = ["from_reference_leaves", "from_reference_params", "to_numpy_leaves"]
+__all__ = ["from_reference_leaves", "from_reference_params", "to_numpy_leaves",
+           "from_reference_train_state", "train_state_to_numpy"]
 
 
 def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -93,3 +97,28 @@ def to_numpy_leaves(leaves: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             t = t.view(torch.int16)
         out[k] = t.numpy()
     return out
+
+
+def from_reference_train_state(state, cfg, device="cuda"):
+    """The port's train state from the reference's, as numpy leaves:
+    ``params``, ``opt.m``, ``opt.v`` and ``residual`` (when present) each
+    through :func:`from_reference_params`, ``opt.step`` an int32 scalar.
+    Bits are kept."""
+    device = resolve_device(device)
+    opt = state["opt"]
+    out = {"params": from_reference_params(state["params"], cfg, device),
+           "opt": {"m": from_reference_params(opt["m"], cfg, device),
+                   "v": from_reference_params(opt["v"], cfg, device),
+                   "step": _to_tensor(np.asarray(opt["step"], dtype=np.int32), device)}}
+    if "residual" in state:
+        out["residual"] = from_reference_params(state["residual"], cfg, device)
+    return out
+
+
+def train_state_to_numpy(state):
+    """Host numpy copies of every leaf of a port tree (a train state, a
+    parameter tree), nesting kept: the inverse of
+    :func:`from_reference_train_state` for float32 and integer leaves."""
+    from ..models.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy(), state)

@@ -115,6 +115,9 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} requested but no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch path"
         )
+    if device.type == "cuda" and (device.index or 0) >= torch.cuda.device_count():
+        raise RuntimeError(f"device {str(device)!r} requested but only "
+                           f"{torch.cuda.device_count()} CUDA device(s) exist")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return device

@@ -1,1 +1,2 @@
-"""Sparse-matrix generators (counterpart of ``repro.data.matrices``)."""
+"""Sparse-matrix generators (counterpart of ``repro.data.matrices``) and the
+token pipeline (``repro.data.pipeline``)."""

@@ -13,8 +13,9 @@ source frames (B, S_enc, d), the speech frontend being a stub, then a
 decoder over tokens with cross-attention into the encoder's memory).
 Every block kind runs: dense attention + MLP, MoE (llama4, dbrx), RG-LRU
 (recurrentgemma), mLSTM/sLSTM (xlstm), ``enc`` and ``xattn`` (seamless).
-Training's loss (``loss_fn``, ``softmax_xent``) comes with the training
-slice; the forward, ``train_logits``, is here.
+Training's loss is :meth:`LM.loss_fn` over :func:`softmax_xent`, its
+gradients autograd's through ``train_logits`` (with ``remat``, one
+activation checkpoint per pattern repetition and tail block).
 """
 
 from __future__ import annotations
@@ -29,7 +30,21 @@ from . import transformer as T
 from .layers import apply_norm, embed, init_embedding, init_norm, unembed
 from .tree import tree_leaves, tree_map
 
-__all__ = ["LM", "build_model"]
+__all__ = ["LM", "build_model", "softmax_xent"]
+
+
+def softmax_xent(logits, labels, mask, z_coef: float = 1e-4):
+    """Masked mean cross-entropy plus z-loss, in float32.  Returns (loss,
+    ``{"xent"}``).  The gold logit is gathered (the reference selects it
+    with an iota compare and a sum over the vocabulary: the same value)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    xent = logz - gold
+    zloss = z_coef * (logz ** 2)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = ((xent + zloss) * mask).sum() / denom
+    return loss, {"xent": (xent * mask).sum() / denom}
 
 
 class LM(torch.nn.Module):
@@ -92,9 +107,9 @@ class LM(torch.nn.Module):
             return batch["embeds"].to(dtype)
         return self._embed_tokens(params, batch["tokens"], dtype)
 
-    def _encode(self, params, src_frames):
+    def _encode(self, params, src_frames, remat=False):
         """The encoder's memory (B, S_enc, d) from the source frames."""
-        h, _ = T.stack_train(params["encoder"], src_frames, self.enc_stack)
+        h, _ = T.stack_train(params["encoder"], src_frames, self.enc_stack, remat=remat)
         return apply_norm(params["enc_norm"], h, kind=self.cfg.norm_kind)
 
     def _serve_stack(self) -> T.StackCfg:
@@ -103,25 +118,38 @@ class LM(torch.nn.Module):
     def _stack_params(self, params):
         return params["decoder" if self.cfg.is_encdec else "stack"]
 
-    def _memory(self, params, batch, dtype):
+    def _memory(self, params, batch, dtype, remat=False):
         """The encoder's memory for an encdec batch, else None."""
         if not self.cfg.is_encdec:
             return None
-        return self._encode(params, batch["src_frames"].to(dtype))
+        return self._encode(params, batch["src_frames"].to(dtype), remat)
 
     # -- forward -----------------------------------------------------------
-    def train_logits(self, params, batch, *, dtype=torch.bfloat16):
+    def train_logits(self, params, batch, *, dtype=torch.bfloat16, remat=False):
         """Full-sequence logits (B, S, padded_vocab) in f32 and the aux
         loss: the MoE blocks' aux summed over the stack (0.0 for a stack
         without MoE).  An encdec batch holds ``src_frames`` (B, S_enc, d)
-        and the decoder's ``tokens``."""
-        memory = self._memory(params, batch, dtype)
+        and the decoder's ``tokens``.  ``remat`` checkpoints the stacks'
+        activations for a backward pass (the values are the same)."""
+        memory = self._memory(params, batch, dtype, remat)
         x = self._inputs(params, batch, dtype)
-        x, aux = T.stack_train(self._stack_params(params), x, self._serve_stack(), memory)
+        x, aux = T.stack_train(self._stack_params(params), x, self._serve_stack(), memory,
+                               remat=remat)
         return self._logits(params, x), aux
 
     def forward(self, params, batch, *, dtype=torch.bfloat16):
         return self.train_logits(params, batch, dtype=dtype)
+
+    # -- training ----------------------------------------------------------
+    def loss_fn(self, params, batch, *, dtype=torch.bfloat16, remat=True):
+        """(total, metrics): the masked cross-entropy and z-loss of
+        ``batch["labels"]`` under ``batch["loss_mask"]``, plus ``1e-2`` times
+        the MoE aux loss; the metrics carry ``xent`` and ``aux``."""
+        logits, aux = self.train_logits(params, batch, dtype=dtype, remat=remat)
+        loss, metrics = softmax_xent(logits, batch["labels"], batch["loss_mask"])
+        total = loss + 1e-2 * aux
+        metrics["aux"] = aux
+        return total, metrics
 
     # -- serving -----------------------------------------------------------
     def init_caches(self, batch: int, seq_len: int, dtype=torch.bfloat16, device="cuda"):

@@ -36,6 +36,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import attention as A
@@ -344,16 +345,32 @@ def init_stack(gen, sc: StackCfg):
     return {"reps": tuple(rep_params), "tail": tail_params}
 
 
-def stack_train(params, x, sc: StackCfg, memory=None):
-    """Forward over the stack; returns (x, aux)."""
-    aux = 0.0
-    for r in range(sc.reps):
+def stack_train(params, x, sc: StackCfg, memory=None, remat: bool = False):
+    """Forward over the stack; returns (x, aux).  With ``remat`` each
+    repetition of the pattern and each tail block is one activation
+    checkpoint, as the reference's ``jax.checkpoint`` of its scan body and
+    tail blocks: backward keeps only their inputs and recomputes the rest
+    (the same ops, so the same bits)."""
+    def rep(r, x, aux):
         for i, bc in enumerate(sc.pattern):
             x, a = block_train(rep_slice(params["reps"][i], r), x, bc, memory)
             aux = aux + a
-    for i in range(sc.n_tail):
+        return x, aux
+
+    def tail(i, x, aux):
         x, a = block_train(params["tail"][i], x, sc.pattern[i], memory)
-        aux = aux + a
+        return x, aux + a
+
+    def run(fn, *args):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    aux = 0.0
+    for r in range(sc.reps):
+        x, aux = run(rep, r, x, aux)
+    for i in range(sc.n_tail):
+        x, aux = run(tail, i, x, aux)
     return x, aux
 
 

@@ -48,7 +48,11 @@ and decode on the card as on the CPU, directly and on the blocked
 softmax.  The artifact verifier finds nothing on card artifacts of every
 layout and dtype and fires GUST-P14 on a seeded collision; the Hopper
 resource audit finds nothing in the built libraries and their launch
-plans.
+plans.  Training: a reduced yi-6b step on the card agrees with the CPU's
+(``chip_smoke.step_agreement``); under deterministic algorithms a run
+resumed from a checkpoint (restored on the card, and saved from a CPU
+restore) gives the uninterrupted losses and state bit for bit for
+yi-6b, xlstm and llama4's MoE; a card that does not exist raises.
 """
 
 import dataclasses
@@ -1326,3 +1330,93 @@ def test_resource_audit_has_no_finding(cuda):
     assert {r.library for r in result.reports} == set(k_pad._SPREAD_LIBS.values()) | {
         "gust_spgemm", "gather_fill"}
     assert len(result.plans) == 4 * 2 * 4 + 1
+
+
+def _train_setup(dev, seed=0, arch="yi_6b"):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.training import AdamWConfig, TrainConfig, init_train_state
+
+    lm = build_model(get_arch(arch).reduced())
+    tc = TrainConfig(opt=AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=100),
+                     dtype="float32")
+    return lm, tc, init_train_state(lm, torch.Generator().manual_seed(seed), tc, device=dev)
+
+
+def _train_batches(lm, n, dev, start=0):
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+
+    pipe = TokenPipeline(PipelineConfig(vocab_size=lm.cfg.vocab, seq_len=16, global_batch=8))
+    return [{k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(start + i).items()}
+            for i in range(n)]
+
+
+def test_train_step_on_card_equals_the_cpu_path(cuda):
+    """One reduced yi-6b train step from the same state on the card and on
+    the CPU, held by ``chip_smoke.step_agreement``: loss and gradient norm
+    within 1e-5 relative, m within 1e-5 of each leaf's largest, every
+    parameter within the reference's accumulation tolerance plus what the
+    first AdamW step's ``1 / eps`` slope makes of the gradients'
+    difference."""
+    import chip_smoke
+    from repro_torch.models.tree import tree_map
+    from repro_torch.training import make_train_step
+
+    lm, tc, host = _train_setup("cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    batch = _train_batches(lm, 1, "cpu")[0]
+    step = make_train_step(lm, tc)
+    host, mh = step(host, batch)
+    card, mc = step(card, {k: v.to(cuda) for k, v in batch.items()})
+    assert card["params"]["embed"]["table"].device.type == "cuda"
+    chip_smoke.step_agreement(host, card, mh, mc, float(mc["lr"]), tc.opt.eps, tc.opt.b1,
+                              "reduced yi-6b")
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(before)
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "xlstm_125m", "llama4_scout_17b_a16e"])
+def test_train_resume_on_card_is_bitwise(cuda, deterministic, tmp_path, arch):
+    """Under deterministic algorithms: two steps, a checkpoint, two more;
+    restored from the checkpoint (on the card, and through the CPU), the
+    last two steps give the same losses and state bit for bit.  The
+    checkpoint restores on the CPU bit for bit too."""
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.training import make_train_step, restore_checkpoint, save_checkpoint
+
+    lm, tc, state = _train_setup(cuda, arch=arch)
+    step = make_train_step(lm, tc)
+    batches = _train_batches(lm, 4, cuda)
+    losses = []
+    for i, b in enumerate(batches):
+        state, m = step(state, b)
+        losses.append(m["loss"])
+        if i == 1:
+            save_checkpoint(str(tmp_path), 2, state)
+            saved = [t.cpu() for t in tree_leaves(state)]
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), state)
+    on_cpu, _ = restore_checkpoint(str(tmp_path), 2, like, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(saved, tree_leaves(on_cpu)))
+    save_checkpoint(str(tmp_path / "from_cpu"), 2, on_cpu)
+    for resumed in (restore_checkpoint(str(tmp_path), 2, like, device=cuda)[0],
+                    restore_checkpoint(str(tmp_path / "from_cpu"), 2, like, device=cuda)[0]):
+        again = []
+        for b in batches[2:]:
+            resumed, m = step(resumed, b)
+            again.append(m["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(losses[2:], again))
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(state), tree_leaves(resumed)))
+
+
+def test_training_on_a_card_that_does_not_exist_raises(cuda):
+    from repro_torch.launch.train import run_training
+
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        run_training("yi_6b", steps=1, device=f"cuda:{torch.cuda.device_count()}")

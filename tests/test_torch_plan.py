@@ -146,7 +146,11 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.analysis, repro_torch.analysis.verify, "
         "repro_torch.analysis.kernel_audit, repro_torch.analysis.__main__, "
         "repro_torch.core.hardware_model, repro_torch.core.baselines, "
-        "repro_torch.configs.gust_paper; "
+        "repro_torch.configs.gust_paper, repro_torch.training, "
+        "repro_torch.training.optimizer, repro_torch.training.compression, "
+        "repro_torch.training.train_loop, repro_torch.training.checkpoint, "
+        "repro_torch.training.fault_tolerance, repro_torch.data.pipeline, "
+        "repro_torch.launch.train; "
         "[getattr(repro_torch.analysis, n) for n in repro_torch.analysis.__all__]; "
         "[repro_torch.configs.get_arch(a) for a in repro_torch.configs.ARCH_IDS]; "
         "[getattr(repro_torch, n) for n in repro_torch.__all__]; "

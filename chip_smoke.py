@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``repro_torch/kernels/csrc`` (one
-``nvcc`` per source, in parallel), then drives eight paths of the port,
+``nvcc`` per source, in parallel), then drives nine paths of the port,
 each (and each phase of the fourth, fifth and sixth) with the launch
 counts zeroed just before it and read just after:
 
@@ -117,6 +117,26 @@ counts zeroed just before it and read just after:
    * ``train.launcher``: ``python -m repro_torch.launch.train --arch
      yi_6b --steps 4 --device cuda`` (reduced config, its defaults).
 
+9. **The multi-device layer** ``shard`` (one card cannot hold k ranks at
+   once, so they run one after another):
+
+   * crankseg_2's four ragged plans of path 1 (kernels 2 and 7 on the
+     load-balanced schedule, 4 and 8 on the unbalanced one) split by
+     block count into k = 1, 2, 4, 8 ranks (``GustPlan.shard``'s layout,
+     ``rank_artifact``), each rank's artifact verified, run at B=1 through
+     ``GustPlan.rank_spmv`` and reassembled (``emulated_ranks``); then
+     each rank's kernel ms (its wrapper on the rank's artifact, CUDA
+     events over 20 calls queued behind a spinning kernel,
+     ``queued_ms``), blocks, windows and the imbalance;
+   * a one-rank NCCL process group (file rendezvous) and its ``data``
+     mesh: ``plan.shard(mesh).spmv`` for the four plans,
+     ``ring_all_reduce`` and ``compressed_psum`` on a CUDA tensor, and one
+     data-parallel ``make_train_step(lm, tc, mesh)`` step of yi-6b at its
+     widths, 1 layer, batch 2 x 512, under deterministic algorithms;
+   * the dry-run account (``launch/cost_account.account_cell``) of the
+     serve (yi-6b), train (yi-6b, 8 layers) and encdec (seamless) cells
+     on a (1, 1) mesh.
+
 Before its first launch every artifact the smoke builds passes the
 artifact verifier (``GustPlan.verify()``, the ``GUST-Pxx`` rules) with no
 finding: crankseg_2's eight (padded/ragged × float32/int8 ×
@@ -216,7 +236,15 @@ Checks, each fatal:
     the most a first AdamW step can make of a gradient difference dg);
     xlstm's resumed losses and state bitwise the uninterrupted run's,
     the checkpoint restored on the CPU bitwise the card's; the launcher's
-    JSON line finite; no GUST kernel launched.
+    JSON line finite; no GUST kernel launched;
+  * the shard path: each plan resolves the kernel named above; every
+    k's reassembled ranks, and each sharded plan under the NCCL group,
+    bitwise the unsharded plan's result; the ring and the compressed sum
+    of one rank exact; the data-parallel step's loss and state bitwise
+    the plain step's; kernels 2/4/7/8 launched (those launches count
+    toward their ``kernels`` rows); the account's parameter, optimizer
+    and cache bytes equal, exactly, to the bytes of the trees the serve,
+    train and encdec paths allocated.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
@@ -248,7 +276,10 @@ profile of 8 decode steps, peak memory and a step's bytes bound, on an
 events), tokens/s, the step's matmul FLOPs and their rate beside the f32
 peak, a profiled step (device ms, ops, idle share), the peak memory
 beside the state's reckoning, the checkpoint's bytes and seconds and the
-launcher's line, on a ``{"train": {...}}`` line; the audit's report and an ``{"audit":
+launcher's line, on a ``{"train": {...}}`` line; for the shard path the
+per-rank times and imbalance per plan and k, the DP step, and per
+account cell the bytes, the reckoned peak beside ``max_memory_allocated``
+and the matmul FLOPs, on a ``{"shard": {...}}`` line; the audit's report and an ``{"audit":
 {...}}`` line, the verifier's seconds per artifact, the paper metric;
 the card's name; and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -835,6 +866,14 @@ def main() -> int:
     report["train_seconds"] = train["seconds"] = time.perf_counter() - t0
     log(f"train path: {report['train_seconds']:.1f} s")
 
+    # -- path 9: the multi-device layer: ranks on the card, a one-rank NCCL group -----
+    t0 = time.perf_counter()
+    shard = shard_path(report, launch_counts, {"plans": plans, "v": v})
+    report["shard_seconds"] = shard["seconds"] = time.perf_counter() - t0
+    for name, count in shard["launches"].items():
+        launches[name] += count
+    log(f"shard path: {report['shard_seconds']:.1f} s")
+
     # -- the resource audit: every library and every launch plan used ----------------
     audit = audit_kernels(plans=report["launch_plans"])
     log(audit.report())
@@ -884,6 +923,7 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"encdec": encdec}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"shard": {k: v for k, v in shard.items() if k != "ranks"}}))
     print(json.dumps({"audit": report["audit"],
                       "verify": {"artifacts": len(verify_s),
                                  "seconds": report["verify_seconds"],
@@ -1561,8 +1601,11 @@ def serve_path(report, launch_counts):
         f"seq_len {sc.seq_len}: {out['kv_cache_bytes']} bytes")
 
     # -- serve.dense: all 32 layers ---------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
     loop = ServeLoop(lm, params, sc)
     streams, dense = serve_run(loop, prompts, launch_counts, None)
+    dense["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["tree_bytes"] = {"params": tree_nbytes(params), "caches": tree_nbytes(loop.caches)}
     solo_equals(loop, prompts, streams, 1, launch_counts, None)
     dense["profile"] = decode_profile(loop, prompts, SERVE["profile_steps"],
                                       dense["decode_step_ms"]["median"], launch_counts,
@@ -1795,6 +1838,13 @@ ENCDEC = dict(batch=4, seq_len=512, prompt_len=64, max_new=32, timed=3, profile_
 TOL_DECODE_VS_FORWARD = 2e-4
 
 
+def tree_nbytes(tree):
+    """Bytes of every tensor of ``tree``."""
+    from repro_torch.models.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
 def event_ms(fn):
     """(fn(), its milliseconds between two CUDA events, synchronized)."""
     import torch
@@ -1900,6 +1950,7 @@ def encdec_path(report, launch_counts):
     out["encoder_ms"] = float(np.median(enc_ms))
     t0 = time.perf_counter()
     logits, prefill_ms, step_ms, caches = greedy(lm, params, frames, prompts, steps, seq_len)
+    out["tree_bytes"] = {"params": tree_nbytes(params), "caches": tree_nbytes(caches)}
     out["generate_s"] = time.perf_counter() - t0
     out["prefill_ms"] = prefill_ms
     out["decode_step_ms"] = {"median": float(np.median(step_ms)), "min": float(min(step_ms)),
@@ -2184,6 +2235,8 @@ def train_path(report, launch_counts):
 
     tc = config(TRAIN_LR)
     run["state"] = fresh(tc)
+    yi["tree_bytes"] = {"params": tree_nbytes(run["state"]["params"]),
+                        "optimizer": tree_nbytes(run["state"]["opt"])}
     # microbatches=2 against 1: the same state and batch
     s2, m2 = make_train_step(lm, config(TRAIN_LR, 2))(run["state"], batches[0])
     s2 = {"params": s2["params"], "opt": {"m": s2["opt"]["m"]}}  # v is not compared
@@ -2350,6 +2403,256 @@ def train_path(report, launch_counts):
             "xlstm_step_ms": xl["step_ms"]["median"],
             "xlstm_checkpoint_bytes": xl["checkpoint_bytes"], "xlstm_save_s": xl["save_s"],
             "xlstm_restore_s": xl["restore_s"], "launcher": out["launcher"]}
+
+
+#: The shard path's rank counts, emulated one rank after another on the card.
+SHARD_KS = (1, 2, 4, 8)
+#: The crankseg_2 plans the shard path splits, (mode, load_balance) of the
+#: main path's plans -> the kernel each rank's artifact runs through.
+SHARD_PLANS = {("single", True): "gust_spmv_ragged",
+               ("default", True): "gust_spmv_ragged_db",
+               ("single-local", False): "gust_spmv_ragged_local",
+               ("default", False): "gust_spmv_ragged_local_db"}
+#: The data-parallel step under the one-rank NCCL group: yi-6b at its
+#: widths, 1 layer, batch 2 x 512.
+SHARD_TRAIN = dict(layers=1, batch=2, seq_len=512)
+
+
+def emulated_ranks(p, v, k):
+    """``p``'s ragged artifact as ``k`` ranks, run one after another on
+    ``p``'s device: each rank's artifact (``rank_artifact``) through
+    ``GustPlan.rank_spmv``, the padded outputs concatenated in rank order
+    (what the all-gather gives), then ``GustPlan.reassemble``.  Returns (y,
+    the rank artifacts (None for a rank without a window), the layout)."""
+    import torch
+
+    from repro_torch.core.plan import _shard_layout, rank_artifact
+
+    lay = _shard_layout(p.artifact, k)
+    arts = [rank_artifact(p.artifact, lay, d) for d in range(k)]
+    y_dev = torch.cat([p.rank_spmv(a, v, lay.w_max) for a in arts])
+    return p.reassemble(y_dev, lay), arts, lay
+
+
+def account_cells(report):
+    """The cells this smoke ran, for the dry-run account: name -> (model,
+    kind, batch, seq_len, dtypes, the bytes of the trees the path
+    allocated, the path's peak memory)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+
+    f32 = dict(param_dtype=torch.float32, cache_dtype=torch.float32,
+               compute_dtype=torch.float32)
+    yi = get_arch("yi_6b")
+    yi_train = report["train"]["yi"]
+    return {
+        "serve_yi": (build_model(yi), "decode", SERVE["batch"], SERVE["seq_len"], f32,
+                     report["serve"]["tree_bytes"],
+                     report["serve"]["dense"]["peak_memory_bytes"]),
+        "train_yi": (build_model(dataclasses.replace(yi, n_layers=TRAIN["layers"])), "train",
+                     TRAIN["batch"], TRAIN["seq_len"], f32, yi_train["tree_bytes"],
+                     yi_train["peak_memory_bytes"]),
+        "serve_seamless": (build_model(get_arch("seamless_m4t_medium")), "decode",
+                           ENCDEC["batch"], ENCDEC["seq_len"], f32,
+                           report["encdec"]["tree_bytes"],
+                           report["encdec"]["peak_memory_bytes"]),
+    }
+
+
+#: Cycles of the spinning kernel ``queued_ms`` puts ahead of the timed
+#: calls (about 10 ms at the H100's clocks: longer than the host takes to
+#: enqueue 20 calls).
+QUEUE_SLEEP_CYCLES = 20_000_000
+
+
+def queued_ms(run, iters=20):
+    """Milliseconds of one call of ``run`` on the card by CUDA events, the
+    calls enqueued behind a spinning kernel so that they run back to back
+    on the card: the host's launch cost, which paces back-to-back calls
+    shorter than it, drops out (a call that synchronizes would bring it
+    back, never the spin: the start event follows the spin)."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def shard_path(report, launch_counts, crank):
+    """The multi-device layer on one card.  (a) crankseg_2's balanced and
+    unbalanced ragged plans split into k = 1, 2, 4, 8 ranks run one after
+    another (each rank's artifact verified first), reassembled bitwise to
+    the unsharded plan; (b) under a one-rank NCCL group, ``plan.shard(mesh)
+    .spmv`` bitwise the unsharded plan, the collectives on the card, a
+    data-parallel yi-6b step (1 layer) bitwise the plain step; then the
+    per-rank times.  (c) The dry-run account of the cells this smoke ran,
+    its parameter, optimizer and cache bytes equal to the trees' exactly."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.plan import _shard_layout, rank_artifact
+    from repro_torch.distributed.collectives import compressed_psum, ring_all_reduce
+    from repro_torch.distributed.sharding import MeshLayout
+    from repro_torch.kernels.ops import _prep_x
+    from repro_torch.launch.cost_account import account_cell
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.training import AdamWConfig, TrainConfig, init_train_state, make_train_step
+    from repro_torch.training.compression import _quant
+
+    dev = torch.device(SERVE_DEVICE)
+    out = {"ks": list(SHARD_KS), "ranks": {}, "plans": {}}
+    v = torch.from_numpy(crank["v"]).to(dev)
+    plans = {key: crank["plans"][key[0], key[1], "ragged", "float32"] for key in SHARD_PLANS}
+    for (mode, lb), name in SHARD_PLANS.items():
+        if plan_kernel(plans[mode, lb]) != name:
+            raise AssertionError(f"shard: the {mode} lb={lb} plan resolves "
+                                 f"{plan_kernel(plans[mode, lb])}, not {name}")
+
+    # -- (a) ranks emulated one after another: each artifact verified first ---------
+    whole = {key: p.spmv(v) for key, p in plans.items()}
+    torch.cuda.synchronize()
+    rank_arts, layouts = {}, {}
+    for (mode, lb), p in plans.items():
+        for k in SHARD_KS:
+            if (lb, k) not in layouts:
+                lay = layouts[lb, k] = _shard_layout(p.artifact, k)
+                rank_arts[lb, k] = [rank_artifact(p.artifact, lay, d) for d in range(k)]
+                for d, a in enumerate(rank_arts[lb, k]):
+                    if a is not None:
+                        verified(report, f"shard/crankseg_2/lb={lb}/k={k}/rank={d}", a)
+    zero_launches(launch_counts)
+    for (mode, lb), p in plans.items():
+        for k in SHARD_KS:
+            y, _, _ = emulated_ranks(p, v, k)
+            if not torch.equal(y, whole[mode, lb]):
+                raise AssertionError(f"shard: {mode} lb={lb} k={k}: the reassembled ranks "
+                                     "differ from the unsharded plan")
+
+    # -- (b) a one-rank NCCL group: the sharded plan, the collectives, a DP step ---
+    if dev.type == "cuda":
+        # the communicator's device, set before the mesh is made
+        torch.cuda.set_device(torch.cuda.current_device())
+    with tempfile.TemporaryDirectory() as rdv:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{rdv}/rdv", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+            for key, p in plans.items():
+                if not torch.equal(p.shard(mesh).spmv(v), whole[key]):
+                    raise AssertionError(f"shard: {key}: plan.shard(mesh).spmv differs from "
+                                         "the unsharded plan under the NCCL group")
+            launches = read_launches(launch_counts)
+            group = mesh.get_group("data")
+            x = torch.from_numpy(np.random.default_rng(1).standard_normal((1000, 7))
+                                 .astype(np.float32)).to(dev)
+            red, res = compressed_psum(x, torch.zeros_like(x), group)
+            _, _, deq = _quant(x, 8)
+            if not (torch.equal(ring_all_reduce(x, group), x) and torch.equal(red, deq)
+                    and torch.equal(res, x - deq)):
+                raise AssertionError("shard: the collectives of one rank are not the identity")
+            cfg = dataclasses.replace(get_arch("yi_6b"), n_layers=SHARD_TRAIN["layers"])
+            lm = build_model(cfg)
+            tc = TrainConfig(opt=AdamWConfig(lr=LAUNCHER_LR, warmup_steps=1, total_steps=2),
+                             dtype="float32", remat=True)
+            state = init_train_state(lm, torch.Generator(device=dev).manual_seed(2), tc,
+                                     device=dev)
+            batch = train_batch(cfg.vocab, SHARD_TRAIN["batch"], SHARD_TRAIN["seq_len"], 0,
+                                dev)
+            deterministic = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True)
+            plain, mp = make_train_step(lm, tc)(state, batch)
+            (dp, md), dp_ms = event_ms(lambda: make_train_step(lm, tc, mesh)(state, batch))
+            torch.use_deterministic_algorithms(deterministic)
+            same = float(mp["loss"]) == float(md["loss"]) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(plain), tree_leaves(dp)))
+            if not same:
+                raise AssertionError("shard: the data-parallel step at world 1 differs from "
+                                     "the plain step")
+            out["dp_step"] = {"layers": cfg.n_layers, "batch": SHARD_TRAIN["batch"],
+                              "seq_len": SHARD_TRAIN["seq_len"], "loss": float(md["loss"]),
+                              "ms": dp_ms, "bitwise_vs_plain": True}
+            del state, plain, dp, batch
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in SHARD_PLANS.values():
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"shard: the path never launched {name}")
+    out["launches"] = launches
+
+    # -- per-rank kernel times (after the counted run) ----------------------------
+    # each rank's kernel on its artifact, 20 calls queued behind a spinning
+    # kernel (``queued_ms``: the card's own time; back to back, calls this
+    # short are paced by the host's launch cost)
+    xp = _prep_x(v[:, None], v.shape[0], L)
+    for (mode, lb), p in plans.items():
+        name = SHARD_PLANS[mode, lb]
+        kernel, _ = wrappers()[name]
+
+        def times(art):
+            args, _, kw = kernel_args(name, art)
+            return queued_ms(functools.partial(kernel, *args, xp, **kw))
+
+        whole_ms = times(p.artifact)
+        row = {"kernel": name, "whole_queued_ms": whole_ms, "k": {}}
+        for k in SHARD_KS:
+            lay = layouts[lb, k]
+            ms = [times(a) if a is not None else 0.0 for a in rank_arts[lb, k]]
+            blocks = [int(b) for b in lay.b_cnt]
+            row["k"][str(k)] = {
+                "blocks": blocks, "windows": [int(w) for w in lay.w_cnt],
+                "rank_queued_ms": ms, "imbalance": max(blocks) / (sum(blocks) / k),
+                "max_rank_queued_ms": max(ms), "queued_speedup_bound": whole_ms / max(ms)}
+        out["plans"][f"{mode}/lb={lb}"] = row
+        log(f"shard {mode} lb={lb} ({name}): whole {whole_ms:.4f} ms queued; " + "; ".join(
+            f"k={k}: max rank {r['max_rank_queued_ms']:.4f} ms, imbalance "
+            f"{r['imbalance']:.3f}, bound {r['queued_speedup_bound']:.2f}x"
+            for k, r in row["k"].items()))
+    out["ranks"] = {f"lb={lb}/k={k}": len([a for a in arts if a is not None])
+                    for (lb, k), arts in rank_arts.items()}
+
+    # -- (c) the dry-run account against the trees the smoke allocated ------------
+    one = MeshLayout((1, 1), ("data", "model"))
+    out["account"] = {}
+    for name, (lm, kind, b, seq_len, dtypes, allocated, peak) in account_cells(report).items():
+        t0 = time.perf_counter()
+        rec = account_cell(lm, kind, b, seq_len, one, **dtypes)
+        got = {part: rec["bytes_per_device"][part] for part in allocated}
+        if got != allocated:
+            raise AssertionError(f"shard: the account of {name} reckons {got}, the smoke "
+                                 f"allocated {allocated}")
+        out["account"][name] = {
+            "bytes": got, "bytes_equal_allocated": True,
+            "reckoned_peak_bytes": rec["peak_bytes"], "reckoned_temp_bytes": rec["peak_temp_bytes"],
+            "measured_peak_bytes": peak, "matmul_flops": rec["matmul_flops_per_device"],
+            "memory_limit": rec["memory_limit"], "seconds": time.perf_counter() - t0}
+        log(f"shard account {name}: bytes {got} equal the allocated trees; reckoned peak "
+            f"{rec['peak_bytes']} (temporaries {rec['peak_temp_bytes']}), measured "
+            f"max_memory_allocated {peak}; {rec['matmul_flops_per_device']} matmul FLOPs")
+    log(f"shard: NCCL one-rank group: sharded spmv == unsharded bitwise; ring and "
+        f"compressed sums of one rank exact; DP step == plain bitwise "
+        f"({out['dp_step']['ms']:.1f} ms); launches {launches}")
+    return out
 
 
 def seeded_collision(art):

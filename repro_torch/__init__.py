@@ -41,6 +41,7 @@ _EXPORTS = {
     "spmv_scheduled": "repro_torch.core.spmv",
     "spmm_scheduled": "repro_torch.core.spmv",
     "spmm_ragged": "repro_torch.core.spmv",
+    "distributed_spmv": "repro_torch.core.spmv",
     "gust_spmm": "repro_torch.kernels.ops",
     "gust_spmm_auto": "repro_torch.kernels.ops",
     "ScheduleCache": "repro_torch.core.packing",
@@ -67,6 +68,7 @@ _EXPORTS = {
     "CachePolicy": "repro_torch.serving.kv_cache",
     "cache_bytes": "repro_torch.serving.kv_cache",
     "cache_specs": "repro_torch.serving.kv_cache",
+    "cache_shardings": "repro_torch.serving.kv_cache",
     "GustServeConfig": "repro_torch.serving.gust_serve",
     "gustify": "repro_torch.serving.gust_serve",
     "decode_step_gust": "repro_torch.serving.gust_serve",
@@ -112,7 +114,12 @@ if TYPE_CHECKING:  # pragma: no cover
         dryrun_specs,
         gustify,
     )
-    from repro_torch.serving.kv_cache import CachePolicy, cache_bytes, cache_specs
+    from repro_torch.serving.kv_cache import (
+        CachePolicy,
+        cache_bytes,
+        cache_shardings,
+        cache_specs,
+    )
     from repro_torch.serving.serve_loop import (
         ServeConfig,
         ServeLoop,
@@ -148,7 +155,13 @@ if TYPE_CHECKING:  # pragma: no cover
     )
     from repro_torch.core.plan_store import PlanStore
     from repro_torch.core.scheduler import schedule
-    from repro_torch.core.spmv import spmm_ragged, spmm_scheduled, spmv, spmv_scheduled
+    from repro_torch.core.spmv import (
+        distributed_spmv,
+        spmm_ragged,
+        spmm_scheduled,
+        spmv,
+        spmv_scheduled,
+    )
     from repro_torch.kernels.ops import gust_spmm, gust_spmm_auto
     from repro_torch.resilience.faults import FaultPlan, FaultSpec
     from repro_torch.resilience.lifecycle import RequestResult, RequestStatus

@@ -14,6 +14,7 @@ vectors.
     >>> stacked = repro_torch.GustPlan.stack([p, q])   # serving stacks
     >>> tuned = p.tune(X)                     # measured autotuning
     >>> p2 = repro_torch.reschedule(p, matrix2)       # dirty windows only
+    >>> p.shard(mesh).spmv(v)  # k parallel length-l GUSTs (paper §5.5)
 
 The device decides the execution path: ``device="cuda"`` (the default;
 it raises when no card is present) runs the hand-written kernels,
@@ -97,8 +98,8 @@ class PlanConfig:
 
     ``backend`` and ``interpret`` choose between the reference's Pallas
     and jnp paths; in the port the plan's device chooses, so they must be
-    left at ``"auto"`` and ``None``.  ``mesh_axis`` is kept for
-    :meth:`GustPlan.shard`, which comes with a later slice.  With
+    left at ``"auto"`` and ``None``.  ``mesh_axis`` is the default mesh
+    dim of :meth:`GustPlan.shard`.  With
     ``gather="auto"`` and ``pipeline="auto"`` the reference's decision
     points run unchanged; every combination of ``layout``, ``gather`` and
     ``pipeline`` runs on the card.
@@ -394,7 +395,8 @@ class GustPlan:
     :class:`COOMatrix` the plan was scheduled from, when known (``tune``
     sweeps ``l`` and ``reschedule`` diffs windows through it).  A plan
     built from a shape-only artifact lives on the meta device and does
-    not execute."""
+    not execute.  A plan from :meth:`shard` carries ``mesh`` and
+    ``axis`` and executes only :meth:`spmv`."""
 
     def __init__(
         self,
@@ -405,12 +407,16 @@ class GustPlan:
         cache: Optional[ScheduleCache] = None,
         device="cuda",
         source: Optional[COOMatrix] = None,
+        mesh=None,
+        axis: Optional[str] = None,
     ):
         if sched is None and artifact is None:
             raise ValueError("a GustPlan needs a schedule or a packed artifact")
         self.config = config
         self.sched = sched
         self.cache = cache
+        self.mesh = mesh
+        self.axis = axis
         if artifact is not None and artifact.device.type == "meta":
             self.device = artifact.device
         else:
@@ -534,6 +540,11 @@ class GustPlan:
         ``x (B, n) -> y (B, m)`` with ``transpose_io=True``.  ``x`` (a
         tensor or numpy array) is moved to the plan's device.  A failure
         propagates: no other path is tried."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "sharded plans execute single vectors; use .spmv(v) "
+                "(the §5.5 row-window split concatenates per-device outputs)"
+            )
         x = torch.as_tensor(x, device=self.device)
         return execute_spmm(
             self.artifact,
@@ -545,11 +556,15 @@ class GustPlan:
         )
 
     def spmv(self, v) -> torch.Tensor:
-        """Single-vector execution: ``v (n,) -> y (m,)``."""
+        """Single-vector execution: ``v (n,) -> y (m,)``.  On a sharded
+        plan (:meth:`shard`) each rank runs its own window range and the
+        outputs are gathered over the mesh dim."""
         v = torch.as_tensor(v, device=self.device)
         n = self.shape[1]
         if tuple(v.shape) != (n,):
             raise ValueError(f"vector shape {tuple(v.shape)} != ({n},)")
+        if self.mesh is not None:
+            return self._spmv_sharded(v)
         return self.spmm(v[:, None])[:, 0]
 
     def spgemm(self, other) -> COOMatrix:
@@ -561,6 +576,11 @@ class GustPlan:
         planned.  See :mod:`repro_torch.core.spgemm`."""
         from .spgemm import spgemm as _spgemm
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "spgemm on a sharded plan is not supported; call it on "
+                "the unsharded plan"
+            )
         return _spgemm(self, other)
 
     def spgemm_cost(self, other) -> SpgemmCost:
@@ -571,6 +591,109 @@ class GustPlan:
         from .spgemm import spgemm_cost as _spgemm_cost
 
         return _spgemm_cost(self, other)
+
+    # -- distributed execution ------------------------------------------------
+
+    def shard(self, mesh, axis: Optional[str] = None) -> "GustPlan":
+        """A plan that executes as ``mesh``'s ``axis`` size parallel
+        length-l GUSTs (paper §5.5: "the Edge-Coloring schedule would not
+        need to change").  ``mesh`` is a ``DeviceMesh``; this process is
+        one rank of its ``axis`` dim.  Ranks own contiguous window ranges
+        balanced by ragged-stream block count (:func:`_shard_layout`);
+        each runs its range, a :class:`RaggedSchedule` of its own
+        (:func:`rank_artifact`), through the kernel the unsharded plan
+        would pick, on this plan's device.  The layout is memoized in the
+        plan's :class:`ScheduleCache` next to the pack.  Sharding needs
+        the ragged stream: a padded plan re-packs ragged through the
+        cache, and a padded spec-plan (no schedule) cannot be sharded."""
+        axis = axis if axis is not None else self.config.mesh_axis
+        ragged_art = self._artifact if isinstance(self._artifact, RaggedSchedule) else None
+        if ragged_art is None and self.sched is None:
+            raise ValueError(
+                "cannot shard a padded spec-plan: the ragged stream needs "
+                "the schedule (build the plan with plan(...) or a ragged "
+                "artifact)"
+            )
+        return GustPlan(
+            dataclasses.replace(self.config, layout="ragged", mesh_axis=axis),
+            self.sched,
+            artifact=ragged_art,
+            cache=self.cache,
+            device=self.device,
+            mesh=mesh,
+            axis=axis,
+        )
+
+    def _cached_layout(self, n_dev: int) -> "ShardLayout":
+        c = self.config
+        if self.cache is not None and self.sched is not None:
+            # one entry per (schedule content, c_blk, dtypes, n_dev)
+            return self.cache.memo(
+                ("shard_layout", self.cache.schedule_key(self.sched),
+                 c.c_blk, c.value_dtype, c.index_dtype, n_dev),
+                lambda: _shard_layout(self.artifact, n_dev),
+            )
+        return _shard_layout(self.artifact, n_dev)
+
+    def _rank_part(self, n_dev: int, rank: int):
+        """(layout with its ``idx`` on this plan's device, this rank's
+        artifact), memoized in the cache beside the layout: a sharded
+        ``spmv`` slices and copies nothing after its first call."""
+        def build():
+            layout = self._cached_layout(n_dev)
+            return (dataclasses.replace(layout, idx=layout.idx.to(self.device)),
+                    rank_artifact(self.artifact, layout, rank))
+
+        c = self.config
+        if self.cache is not None and self.sched is not None:
+            return self.cache.memo(
+                ("shard_rank", self.cache.schedule_key(self.sched), c.c_blk,
+                 c.value_dtype, c.index_dtype, n_dev, rank, str(self.device)),
+                build,
+            )
+        return build()
+
+    def _spmv_sharded(self, v: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        group = self.mesh.get_group(self.axis)
+        n_dev = dist.get_world_size(group)
+        rank = self.mesh.get_local_rank(self.axis)
+        layout, art = self._rank_part(n_dev, rank)
+        y_pad = self.rank_spmv(art, v, layout.w_max)
+        y_dev = torch.empty(n_dev * y_pad.numel(), dtype=torch.float32, device=self.device)
+        dist.all_gather_into_tensor(y_dev, y_pad, group=group)
+        return self.reassemble(y_dev, layout).to(v.dtype)
+
+    def rank_spmv(self, art: Optional[RaggedSchedule], v: torch.Tensor,
+                  w_max: int) -> torch.Tensor:
+        """One rank's part of a sharded ``spmv``: its artifact (from
+        :func:`rank_artifact`) through the kernel this plan's gather and
+        pipeline pick, its ``w_cnt * l`` rows zero-padded to ``w_max * l``
+        (f32).  A rank with no window (``art`` None) launches nothing."""
+        l = self.config.l
+        y_pad = torch.zeros(w_max * l, dtype=torch.float32, device=self.device)
+        if art is not None:
+            y_pad[: art.num_windows * l] = execute_spmm(
+                art, v[:, None], c_blk=self.config.c_blk, gather=self.config.gather,
+                pipeline=self._pipeline(),
+            )[:, 0].float()
+        return y_pad
+
+    def reassemble(self, y_dev: torch.Tensor, layout: "ShardLayout") -> torch.Tensor:
+        """The ranks' padded outputs, concatenated in rank order (what the
+        all-gather gives), as ``y`` (m,): rank d's first ``w_cnt[d] * l``
+        rows are its window range in order; then the load-balancing row
+        sort is undone as the unsharded executor undoes it."""
+        a = self.artifact
+        y_sorted = y_dev[layout.idx.to(self.device)]
+        m = self.shape[0]
+        if a.identity_perm:
+            return y_sorted[:m]
+        out = torch.zeros(max(m, a.num_windows * a.l), dtype=torch.float32,
+                          device=self.device)
+        out[a.row_perm.long()] = y_sorted
+        return out[:m]
 
     # -- multi-layer serving -------------------------------------------------
 
@@ -736,6 +859,8 @@ class GustPlan:
         ``ls`` defaults to the plan's ``l`` plus ``l/2`` when the plan
         holds its source matrix (another ``l`` means rescheduling).
         """
+        if self.mesh is not None:
+            raise NotImplementedError("tune a plan before sharding it")
         if self.sched is None:
             raise ValueError(
                 "tune() needs the schedule; deserialized/spec plans carry "
@@ -889,10 +1014,90 @@ class GustPlan:
     def __repr__(self) -> str:
         m, n = self.shape
         packed = "lazy" if self._artifact is None else self.layout
+        shard = f", sharded[{self.axis}]" if self.mesh is not None else ""
         return (
             f"GustPlan({m}x{n}, l={self.l}, layout={self.config.layout}"
-            f"->{packed}, device={self.device})"
+            f"->{packed}, device={self.device}{shard})"
         )
+
+
+# ---------------------------------------------------------------------------
+# Distributed execution internals (owned by GustPlan.shard)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Contiguous window ranges of a ragged stream over ``n_dev`` ranks:
+    rank ``d`` owns windows ``w_bound[d]:w_bound[d+1]`` (``w_cnt[d]`` of
+    them, ``b_cnt[d]`` blocks); ``b_max`` / ``w_max`` are the largest
+    counts (at least 1), and ``idx`` gathers the ranks' ``w_max * l``-row
+    outputs, concatenated in rank order, into scheduled row order."""
+
+    w_bound: np.ndarray
+    w_cnt: np.ndarray
+    b_cnt: np.ndarray
+    b_max: int
+    w_max: int
+    idx: torch.Tensor
+
+
+def _shard_layout(ragged: RaggedSchedule, n_dev: int) -> ShardLayout:
+    """The host part of the reference's ``_shard_layout``: window
+    boundaries hitting equal block-count targets (``searchsorted`` on
+    ``block_starts``), then the counts and the reassembly index.  A pure
+    function of (ragged stream, n_dev)."""
+    l, W, t_blk = ragged.l, ragged.num_windows, ragged.num_blocks
+    block_starts = ragged.block_starts.cpu().numpy().astype(np.int64)
+    targets = (np.arange(1, n_dev) * t_blk) // n_dev
+    w_bound = np.concatenate(
+        [[0], np.searchsorted(block_starts, targets, side="left"), [W]]
+    )
+    w_bound = np.maximum.accumulate(np.minimum(w_bound, W))
+    w_cnt = np.diff(w_bound)
+    b_cnt = block_starts[w_bound[1:]] - block_starts[w_bound[:-1]]
+    b_max = max(int(b_cnt.max()) if n_dev else 1, 1)
+    w_max = max(int(w_cnt.max()) if n_dev else 1, 1)
+    idx = np.concatenate(
+        [d * w_max * l + np.arange(w_cnt[d] * l) for d in range(n_dev)]
+    ) if W else np.zeros(0, np.int64)
+    return ShardLayout(w_bound, w_cnt, b_cnt, b_max, w_max, torch.from_numpy(idx))
+
+
+def rank_artifact(ragged: RaggedSchedule, layout: ShardLayout,
+                  rank: int) -> Optional[RaggedSchedule]:
+    """Rank ``rank``'s window range of ``ragged`` as a ragged stream of its
+    own, on the stream's device (its leaves are row ranges of the whole
+    stream's): ``block_starts`` rebased to the range's first block,
+    ``block_window`` to its first window, the identity row order over
+    ``w_cnt * l`` rows.  None for a rank that owns no window."""
+    w0, w1 = int(layout.w_bound[rank]), int(layout.w_bound[rank + 1])
+    if w1 == w0:
+        return None
+    bs = ragged.block_starts
+    g0, g1 = int(bs[w0]), int(bs[w1])
+    cb, l = ragged.c_blk, ragged.l
+    rows = slice(g0 * cb, g1 * cb)
+    return RaggedSchedule(
+        m_blk=ragged.m_blk[rows],
+        col_blk=ragged.col_blk[rows],
+        row_blk=ragged.row_blk[rows],
+        row_perm=torch.arange((w1 - w0) * l, dtype=ragged.row_perm.dtype,
+                              device=ragged.device),
+        seg_blk=ragged.seg_blk[g0:g1],
+        col_loc=ragged.col_loc[rows],
+        block_window=ragged.block_window[g0:g1] - w0,
+        block_starts=bs[w0:w1 + 1] - g0,
+        l=l,
+        num_windows=w1 - w0,
+        c_blk=cb,
+        num_blocks=g1 - g0,
+        shape=((w1 - w0) * l, ragged.shape[1]),
+        fusable=ragged.fusable,
+        s_blk=ragged.s_blk,
+        identity_perm=True,
+        scale_blk=None if ragged.scale_blk is None else ragged.scale_blk[g0:g1],
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ shims that build a :class:`~repro_torch.core.plan.GustPlan` and delegate;
 new code calls ``repro_torch.plan(matrix, config).spmv(v)`` / ``.spmm(x)``.
 Every entry point runs on the card unless ``device="cpu"`` is asked for
 (``spmm_ragged`` runs on its artifact's device).  ``distributed_spmv``
-comes with the multi-GPU slice.
+is the §5.5 scale-out shim over :meth:`GustPlan.shard`.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ __all__ = [
     "spmv",
     "spmm_scheduled",
     "spmm_ragged",
+    "distributed_spmv",
 ]
 
 
@@ -135,3 +136,36 @@ def spmv(
         coo, PlanConfig(l=l, colorer=method, load_balance=load_balance),
         device=device,
     ).spmv(v)
+
+
+def distributed_spmv(
+    sched: GustSchedule,
+    v,
+    mesh,
+    axis: str = "data",
+    *,
+    c_blk: int = 1,
+    cache="default",
+    device="cuda",
+) -> torch.Tensor:
+    """Legacy shim for the paper's §5.5 "k parallel length-l GUSTs": the
+    row windows split over ``mesh``'s ``axis`` dim (contiguous ranges
+    balanced by ragged-stream block count; the schedule is untouched),
+    each rank running its range on ``device``, the outputs gathered over
+    the dim.  Every rank of the dim calls it with the same ``sched`` and
+    ``v``.  Routes through ``repro_torch.plan(sched, ...).shard(mesh,
+    axis).spmv(v)``; ``cache="default"`` uses the process-wide
+    :class:`~repro_torch.core.packing.ScheduleCache`, ``None`` re-packs
+    every call."""
+    from .packing import default_cache
+    from .plan import PlanConfig, plan
+
+    if cache == "default":
+        cache = default_cache
+    p = plan(
+        sched,
+        PlanConfig(l=sched.l, layout="ragged", c_blk=c_blk, mesh_axis=axis),
+        cache=cache,
+        device=device,
+    )
+    return p.shard(mesh, axis).spmv(v)

@@ -33,16 +33,19 @@ from .tree import tree_leaves, tree_map
 __all__ = ["LM", "build_model", "softmax_xent"]
 
 
-def softmax_xent(logits, labels, mask, z_coef: float = 1e-4):
+def softmax_xent(logits, labels, mask, z_coef: float = 1e-4, denom=None):
     """Masked mean cross-entropy plus z-loss, in float32.  Returns (loss,
     ``{"xent"}``).  The gold logit is gathered (the reference selects it
-    with an iota compare and a sum over the vocabulary: the same value)."""
+    with an iota compare and a sum over the vocabulary: the same value).
+    ``denom`` is the mask count to divide by (default ``mask.sum()``): a
+    data-parallel rank passes the count over every rank's rows, so that
+    the ranks' losses add up to the global masked mean."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     xent = logz - gold
     zloss = z_coef * (logz ** 2)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(mask.sum() if denom is None else denom, min=1.0)
     loss = ((xent + zloss) * mask).sum() / denom
     return loss, {"xent": (xent * mask).sum() / denom}
 
@@ -141,13 +144,19 @@ class LM(torch.nn.Module):
         return self.train_logits(params, batch, dtype=dtype)
 
     # -- training ----------------------------------------------------------
-    def loss_fn(self, params, batch, *, dtype=torch.bfloat16, remat=True):
+    def loss_fn(self, params, batch, *, dtype=torch.bfloat16, remat=True, denom=None,
+                shards: int = 1):
         """(total, metrics): the masked cross-entropy and z-loss of
         ``batch["labels"]`` under ``batch["loss_mask"]``, plus ``1e-2`` times
-        the MoE aux loss; the metrics carry ``xent`` and ``aux``."""
+        the MoE aux loss; the metrics carry ``xent`` and ``aux``.  A
+        data-parallel rank, one of ``shards``, passes ``denom``, the mask
+        count over every rank's rows: its cross-entropy is its rows' masked
+        sum over ``denom`` and its aux weighs ``1/shards``, so that the
+        ranks' totals add up to the global masked mean plus the mean of the
+        ranks' aux losses."""
         logits, aux = self.train_logits(params, batch, dtype=dtype, remat=remat)
-        loss, metrics = softmax_xent(logits, batch["labels"], batch["loss_mask"])
-        total = loss + 1e-2 * aux
+        loss, metrics = softmax_xent(logits, batch["labels"], batch["loss_mask"], denom=denom)
+        total = loss + 1e-2 * (aux / shards)
         metrics["aux"] = aux
         return total, metrics
 
@@ -187,6 +196,36 @@ class LM(torch.nn.Module):
         x, caches = T.stack_decode(self._stack_params(params), x, self._serve_stack(),
                                    caches, pos)
         return self._logits(params, x), caches
+
+    # -- input specs (meta tensors for the dry-run account) ------------------
+    def input_specs(self, seq_len: int, batch: int, kind: str) -> Dict:
+        """Meta-device stand-ins for every model input of a shape cell
+        (``kind``: ``train``, ``prefill`` or ``decode``), with the
+        reference's dtypes: bf16 ``embeds`` / ``src_frames``, int32 tokens
+        and labels, f32 ``loss_mask``."""
+        cfg = self.cfg
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        i32 = torch.int32
+        if kind in ("train", "prefill"):
+            specs: Dict = {}
+            if cfg.frontend == "embed":
+                specs["embeds"] = meta((batch, seq_len, cfg.d_model), torch.bfloat16)
+            elif cfg.is_encdec:
+                enc_s = min(seq_len, cfg.enc_seq or seq_len)
+                specs["src_frames"] = meta((batch, enc_s, cfg.d_model), torch.bfloat16)
+                specs["tokens"] = meta((batch, seq_len), i32)
+            else:
+                specs["tokens"] = meta((batch, seq_len), i32)
+            if kind == "train":
+                specs["labels"] = meta((batch, seq_len), i32)
+                specs["loss_mask"] = meta((batch, seq_len), torch.float32)
+            return specs
+        if kind == "decode":
+            return {"tokens": meta((batch, 1), i32)}
+        raise ValueError(kind)
 
 
 def _resolve(device) -> torch.device:

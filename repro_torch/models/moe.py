@@ -140,15 +140,18 @@ def _moe_tokens(p, xf: torch.Tensor, spec: MoESpec) -> Tuple[torch.Tensor, torch
     cap = r.cap
 
     # dispatch by the inverse index: token ids scattered onto the kept
-    # pairs' slots (unique: ranks are distinct within an expert), dropped
-    # pairs filtered out first; an empty slot keeps the sentinel row t
-    kept = r.keep.reshape(-1)
-    slots = r.dest.reshape(-1)[kept]
-    tokens = torch.arange(t, device=xf.device).repeat_interleave(k)[kept]
-    inv = torch.full((e * cap,), t, dtype=torch.long, device=xf.device)
+    # pairs' slots (unique: ranks are distinct within an expert); every
+    # dropped pair writes the spare slot E·cap, cut off after, so no shape
+    # depends on the routing (no host sync; a meta-device run has the
+    # shapes); an empty slot keeps the sentinel row t
+    slots = r.dest.reshape(-1)
+    tokens = torch.arange(t, device=xf.device).repeat_interleave(k)
+    inv = torch.full((e * cap + 1,), t, dtype=torch.long, device=xf.device)
     inv[slots] = tokens
-    w_slot = torch.zeros((e * cap,), dtype=torch.float32, device=xf.device)
-    w_slot[slots] = r.gate_vals.reshape(-1)[kept].float()
+    inv = inv[:e * cap]
+    w_slot = torch.zeros((e * cap + 1,), dtype=torch.float32, device=xf.device)
+    w_slot[slots] = r.gate_vals.reshape(-1).float()
+    w_slot = w_slot[:e * cap]
     xf_pad = torch.cat([xf, xf.new_zeros((1, d))])
     gx = _f32(xf_pad[inv].reshape(e, cap, d))
 

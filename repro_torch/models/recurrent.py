@@ -322,14 +322,20 @@ def _slstm_cell(p, xt, state, spec: SLSTMSpec):
     return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}, h_new
 
 
+def _slstm_scan(p, xin, spec: SLSTMSpec, state):
+    """The time loop over xin (B, S, 4, d): (h (B, S, d) f32, last state)."""
+    hs = []
+    for i in range(xin.shape[1]):
+        state, h = _slstm_cell(p, xin[:, i], state, spec)
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
 def _slstm_core(p, x, spec: SLSTMSpec, state):
     b, s, d = x.shape
     xin = (_f32(x).reshape(b * s, d) @ p["w_in"].reshape(d, 4 * d)).reshape(b, s, 4, d)
-    hs = []
-    for i in range(s):
-        state, h = _slstm_cell(p, xin[:, i], state, spec)
-        hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype), state
+    hs, state = _slstm_scan(p, xin, spec, state)
+    return hs.to(x.dtype), state
 
 
 def _slstm_out(p, x, hs):
@@ -420,6 +426,17 @@ def _rglru_branches(p, x):
     return branch, gate
 
 
+def _rglru_scan(a_seq, gated, h0):
+    """The time loop ``h_t = a_t · h_{t-1} + gated_t`` from ``h0``:
+    (h (B, S, d), last h)."""
+    h = gated[:, 0] + a_seq[:, 0] * h0  # the carried state folded into step 0
+    hs = [h]
+    for t in range(1, a_seq.shape[1]):
+        h = a_seq[:, t] * h + gated[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
 def rglru_train(p, x, spec: RGLRUSpec, state=None, return_state: bool = False):
     """Griffin's recurrent block: a gated two-branch block around the
     RG-LRU recurrence, run in time order (module docstring)."""
@@ -428,13 +445,7 @@ def rglru_train(p, x, spec: RGLRUSpec, state=None, return_state: bool = False):
     branch, gate = _rglru_branches(p, x)
     u, conv_state = _causal_conv(branch, p["conv"], state["conv"])
     log_a, gated = _rglru_gates(p, u, spec)
-    a_seq = torch.exp(log_a)
-    h = gated[:, 0] + a_seq[:, 0] * state["h"]  # the carried state folded into step 0
-    hs = [h]
-    for t in range(1, x.shape[1]):
-        h = a_seq[:, t] * h + gated[:, t]
-        hs.append(h)
-    h_seq = torch.stack(hs, dim=1)
+    h_seq, h = _rglru_scan(torch.exp(log_a), gated, state["h"])
     y = (h_seq * _f32(gate)).to(x.dtype)
     out = _matmul_to(y, p["w_out"], x.dtype)
     if return_state:

@@ -1,6 +1,6 @@
 """Serving layer: KV-cache accounting, serve loop, GUST-sparse decode."""
 
-from .kv_cache import CachePolicy, cache_specs, cache_bytes
+from .kv_cache import CachePolicy, cache_specs, cache_shardings, cache_bytes
 from .serve_loop import (
     RequestResult,
     RequestStatus,

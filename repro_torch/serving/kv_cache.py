@@ -6,8 +6,8 @@ for the recurrent states, stacked by ``models/transformer.py``); this
 module sizes it per (arch × shape) without allocating: :func:`cache_specs`
 builds the tree on the meta device.  K/V and the recurrent conv states
 take the policy's dtype; the recurrent ``h``, ``C``, ``n`` and ``m`` stay
-float32.  ``cache_shardings`` (placement over a device mesh) comes with
-the multi-GPU slice (ROADMAP §1 item 8).
+float32.  :func:`cache_shardings` gives each leaf's spec over a device
+mesh (``distributed.sharding.cache_spec_overrides``).
 """
 
 from __future__ import annotations
@@ -17,10 +17,11 @@ import math
 
 import torch
 
+from ..distributed.sharding import cache_spec_overrides, map_with_path
 from ..models.model_zoo import LM
 from ..models.tree import tree_leaves
 
-__all__ = ["CachePolicy", "cache_specs", "cache_bytes"]
+__all__ = ["CachePolicy", "cache_specs", "cache_shardings", "cache_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +36,14 @@ class CachePolicy:
 def cache_specs(lm: LM, batch: int, seq_len: int, policy: CachePolicy = CachePolicy()):
     """The serving cache tree as meta-device tensors (no allocation)."""
     return lm.init_caches(batch, seq_len, policy.torch_dtype, device="meta")
+
+
+def cache_shardings(lm: LM, mesh, batch: int, seq_len: int,
+                    policy: CachePolicy = CachePolicy()):
+    """The spec of every cache leaf over ``mesh`` (a ``DeviceMesh`` or a
+    ``MeshLayout``): batch over DP, the cache length over "model"."""
+    return map_with_path(cache_spec_overrides(mesh, batch),
+                     cache_specs(lm, batch, seq_len, policy))
 
 
 def cache_bytes(lm: LM, batch: int, seq_len: int,

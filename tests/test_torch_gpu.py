@@ -1420,3 +1420,85 @@ def test_training_on_a_card_that_does_not_exist_raises(cuda):
 
     with pytest.raises(RuntimeError, match="CUDA device"):
         run_training("yi_6b", steps=1, device=f"cuda:{torch.cuda.device_count()}")
+
+
+# -- the multi-device layer on one card ---------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL process group (file rendezvous, 60 s timeout) and its
+    1-D ``data`` mesh; the group is destroyed after the test."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+SHARD_CFGS = {"resident-single": dict(gather="resident", pipeline="single"),
+              "resident-double": dict(gather="resident", pipeline="double"),
+              "local-single": dict(load_balance=False, gather="local", pipeline="single"),
+              "local-double": dict(load_balance=False, gather="local", pipeline="double")}
+
+
+def _shard_plan(dev, name, vdt="float32"):
+    dense = _dense(11, 700, 500, 0.03)
+    cfg = PlanConfig(l=32, c_blk=8, layout="ragged", value_dtype=vdt, **SHARD_CFGS[name])
+    v = torch.from_numpy(np.random.default_rng(12).standard_normal(500).astype(np.float32))
+    return plan(dense, cfg, cache=None, device=dev), v.to(dev)
+
+
+@pytest.mark.parametrize("name", list(SHARD_CFGS))
+def test_sharded_plan_under_one_rank_nccl_group_is_bitwise(cuda, nccl_mesh, name):
+    """``plan.shard(mesh).spmv`` (its rank's artifact through kernel 2, 7, 4
+    or 8, the all-gather over NCCL) equals the unsharded plan's kernel
+    result bitwise."""
+    p, v = _shard_plan(cuda, name)
+    assert torch.equal(p.shard(nccl_mesh).spmv(v), p.spmv(v))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("vdt", ["float32", "int8"])
+@pytest.mark.parametrize("name", list(SHARD_CFGS))
+def test_emulated_ranks_reassemble_bitwise(cuda, name, vdt, k):
+    """Each of k ranks' artifacts, verified and run one after another on the
+    card (``chip_smoke.emulated_ranks``), reassembles to the unsharded
+    plan's kernel result bitwise."""
+    import chip_smoke
+    from repro_torch.analysis.verify import verify
+
+    p, v = _shard_plan(cuda, name, vdt)
+    y, arts, lay = chip_smoke.emulated_ranks(p, v, k)
+    assert all(verify(a) == [] for a in arts if a is not None)
+    assert sum(a.num_blocks for a in arts if a is not None) == p.artifact.num_blocks
+    assert torch.equal(y, p.spmv(v))
+
+
+def test_data_parallel_step_at_world_one_is_bitwise(cuda, nccl_mesh, deterministic):
+    """A reduced yi-6b step through ``make_train_step(lm, tc, mesh)`` on a
+    one-rank NCCL group (the DP batch split, the masked-sum loss, the
+    gradient ring, the collectives on the card) equals the plain step bit
+    for bit, with and without compression."""
+    import dataclasses
+
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.compression import CompressionConfig
+
+    lm, tc, _ = _train_setup(cuda)
+    batch = _train_batches(lm, 1, cuda)[0]
+    for comp in (CompressionConfig(), CompressionConfig(enable=True)):
+        tcc = dataclasses.replace(tc, compression=comp, microbatches=2)
+        state = init_train_state(lm, torch.Generator().manual_seed(0), tcc, device=cuda)
+        plain, mp = make_train_step(lm, tcc)(state, batch)
+        dp, md = make_train_step(lm, tcc, nccl_mesh)(state, batch)
+        assert torch.equal(mp["loss"], md["loss"])
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(plain), tree_leaves(dp)))

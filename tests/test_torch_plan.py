@@ -150,7 +150,10 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.training.optimizer, repro_torch.training.compression, "
         "repro_torch.training.train_loop, repro_torch.training.checkpoint, "
         "repro_torch.training.fault_tolerance, repro_torch.data.pipeline, "
-        "repro_torch.launch.train; "
+        "repro_torch.launch.train, repro_torch.distributed, "
+        "repro_torch.distributed.sharding, repro_torch.distributed.collectives, "
+        "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+        "repro_torch.launch.cost_account; "
         "[getattr(repro_torch.analysis, n) for n in repro_torch.analysis.__all__]; "
         "[repro_torch.configs.get_arch(a) for a in repro_torch.configs.ARCH_IDS]; "
         "[getattr(repro_torch, n) for n in repro_torch.__all__]; "

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``repro_torch/kernels/csrc`` (one
-``nvcc`` per source, in parallel), then drives nine paths of the port,
+``nvcc`` per source, in parallel), then drives ten paths of the port,
 each (and each phase of the fourth, fifth and sixth) with the launch
 counts zeroed just before it and read just after:
 
@@ -48,8 +48,10 @@ counts zeroed just before it and read just after:
    * ``stack``: ``GustPlan.stack([gate, up])`` and each layer's slice
      through ``from_spec``, with the gather at ``"auto"`` and forced
      ``"local"``;
-   * ``tune``: ``up.plan.tune(x)`` at B = 8 over the default candidates
-     (c_blk 4/8/16, l 256/128, both layouts, both gathers);
+   * ``tune``: ``up.plan.tune(x, ls=(256,))`` at B = 8 over the default
+     c_blk 4/8/16, both layouts and both gathers (the default's l=128
+     candidates, which reschedule the layer on the host, are left out to
+     keep the smoke in its time);
    * ``reschedule``: crankseg_2's unbalanced ragged plan after an edit of
      three windows (about 1% of their values rescaled, three edges each
      dropped and added);
@@ -62,7 +64,7 @@ counts zeroed just before it and read just after:
    64, 96 and 128 tokens from numpy seed 0, 32 new tokens each):
 
    * ``serve.dense``: all 32 layers;
-   * ``serve.gust``: the first 2 layers (the host schedule of all 96 MLP
+   * ``serve.gust``: the first layer (the host schedule of all 96 MLP
      matrices would take over half an hour), gustified at
      ``GustServeConfig()`` (density 0.1, l=256, load-balanced, padded:
      kernel 5), then with ``ragged=True`` (kernel 7).
@@ -112,8 +114,8 @@ counts zeroed just before it and read just after:
    * ``train.cpu_check``: one step at 1 layer (batch 1 x 64) from the same
      parameters on the card and on the CPU;
    * ``train.xlstm``: xlstm-125m at its published widths and depth, batch
-     4 x 256, four steps with a checkpoint after step 2 (a temporary
-     directory), restored and steps 3-4 run again;
+     4 x 256, three steps with a checkpoint after step 2 (a temporary
+     directory), restored and step 3 run again;
    * ``train.launcher``: ``python -m repro_torch.launch.train --arch
      yi_6b --steps 4 --device cuda`` (reduced config, its defaults).
 
@@ -136,6 +138,27 @@ counts zeroed just before it and read just after:
    * the dry-run account (``launch/cost_account.account_cell``) of the
      serve (yi-6b), train (yi-6b, 8 layers) and encdec (seamless) cells
      on a (1, 1) mesh.
+
+10. **Tensor, expert and fully-sharded parallelism** ``tp``: four
+    processes (``python3 chip_smoke.py tp-rank ...``, ``tp_rank``) share
+    the one card, each with ``cuda:0``, as the ranks of a ("data",
+    "model") mesh of (2, 2) over gloo (file rendezvous, 60 s group
+    timeout; NCCL takes one rank a card).  Each draws the whole state on
+    the card in its turn and keeps its shards (``shard_train_state``),
+    then runs two sharded steps of ``make_train_step(lm, tc, mesh)``
+    (remat, float32): the heads, ``d_ff`` and the vocabulary over "model"
+    (tensor parallel), the experts over "model" (expert parallel), the
+    stacked leaves over "data" (FSDP, gathered per block):
+
+    * ``tp.yi``: yi-6b at its published widths, 1 layer, batch 2 x 512;
+    * ``tp.llama4``: llama4-scout at its published widths, 1 layer (8 of
+      16 experts a rank), batch 2 x 256, its table cut to 8,192 rows
+      (``TP_MODELS``: the account reckons the published table's step at
+      31.0 GB a rank, 124 GB for four).
+
+    The same steps run whole in the smoke's own process from the same
+    seeded state (llama4's with each data rank's rows routed on their
+    own, ``per_data_rank_step``, as the sharded step routes them).
 
 Before its first launch every artifact the smoke builds passes the
 artifact verifier (``GustPlan.verify()``, the ``GUST-Pxx`` rules) with no
@@ -205,10 +228,10 @@ Checks, each fatal:
   * the serving path: every request DONE with no retry, no failure and
     every fallback counter 0; one request served alone on the idle engine
     of the same batch equals its stream in the mixed run bitwise (both
-    phases); the first decode step at two layers on the card within
+    phases); the first decode step at one layer on the card within
     ``2e-4`` of the largest logit of the same step on the CPU's plain path
     (float32, TF32 off); each GUST phase launches its kernel exactly once
-    per GUST product (3 x 2 layers x decode steps) and no other kernel,
+    per GUST product (3 x 1 layer x decode steps) and no other kernel,
     so no product ran a plain version; padded == ragged token streams
     bitwise; a GUST decode step within ``1e-4`` of the largest logit of a
     dense decode step on the same pruned MLP weights;
@@ -245,6 +268,13 @@ Checks, each fatal:
     toward their ``kernels`` rows); the account's parameter, optimizer
     and cache bytes equal, exactly, to the bytes of the trees the serve,
     train and encdec paths allocated.
+  * the tp path: every rank's loss and gradient norm within ``1e-5``
+    relative of the whole step's, its final parameter shards within
+    ``1e-5`` of the whole step's parameters cut the same way, its shards
+    of ``local_shape``'s shapes, its parameter and optimizer bytes
+    ``tree_bytes_per_device``'s, no whole stacked leaf allocated in its
+    first step (an allocation watch); no GUST kernel launched by the whole
+    steps; a rank that fails or outlives its timeout fails the path.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
@@ -279,13 +309,18 @@ beside the state's reckoning, the checkpoint's bytes and seconds and the
 launcher's line, on a ``{"train": {...}}`` line; for the shard path the
 per-rank times and imbalance per plan and k, the DP step, and per
 account cell the bytes, the reckoned peak beside ``max_memory_allocated``
-and the matmul FLOPs, on a ``{"shard": {...}}`` line; the audit's report and an ``{"audit":
+and the matmul FLOPs, on a ``{"shard": {...}}`` line; for the tp path per
+model and rank the step ms, the peak memory beside the account's, the
+collective bytes a step by collective and the transport (which
+collectives went through the host), on a ``{"tp": {...}}`` line; the
+audit's report and an ``{"audit":
 {...}}`` line, the verifier's seconds per artifact, the paper metric;
 the card's name; and as its last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a CUDA device.
 """
 
+import contextlib
 import functools
 import gc
 import json
@@ -874,6 +909,12 @@ def main() -> int:
         launches[name] += count
     log(f"shard path: {report['shard_seconds']:.1f} s")
 
+    # -- path 10: tensor, expert and fully-sharded parallelism, ranks on the card -----
+    t0 = time.perf_counter()
+    tp = report["tp"] = tp_path(report, launch_counts)
+    report["tp_seconds"] = tp["seconds"] = time.perf_counter() - t0
+    log(f"tp path: {report['tp_seconds']:.1f} s")
+
     # -- the resource audit: every library and every launch plan used ----------------
     audit = audit_kernels(plans=report["launch_plans"])
     log(audit.report())
@@ -924,6 +965,7 @@ def main() -> int:
     print(json.dumps({"encdec": encdec}))
     print(json.dumps({"train": train}))
     print(json.dumps({"shard": {k: v for k, v in shard.items() if k != "ranks"}}))
+    print(json.dumps({"tp": tp}))
     print(json.dumps({"audit": report["audit"],
                       "verify": {"artifacts": len(verify_s),
                                  "seconds": report["verify_seconds"],
@@ -1231,7 +1273,7 @@ def lifecycle_path(report, launch_counts, crank):
         up = layers["up"]
         x = xs[BATCH][:, :n_up].T.contiguous()
         t0 = time.perf_counter()
-        tuned = up["lin"].plan.tune(x)
+        tuned = up["lin"].plan.tune(x, ls=(L,))
         tune_s = time.perf_counter() - t0
         res = tuned.tuning
         verified(report, "yi-6b/up/tuned", tuned)
@@ -1313,9 +1355,9 @@ def lifecycle_path(report, launch_counts, crank):
 YI_WIDTHS = dict(d_model=4096, n_heads=32, n_kv=4, head_dim=128, d_ff=11008,
                  vocab=64_000, n_layers=32)
 SERVE = dict(batch=4, seq_len=512, prompt_lens=(64, 96, 128), requests=8, max_new=32,
-             gust_layers=2, profile_steps=8)
-#: Tolerances, of the largest |logit|: the card's first decode step at two
-#: layers against the CPU's plain path (float32 products summed in another
+             gust_layers=1, profile_steps=8)
+#: Tolerances, of the largest |logit|: the card's first decode step at one
+#: layer against the CPU's plain path (float32 products summed in another
 #: order), and the GUST decode against a dense decode on the same pruned
 #: MLP weights (the sparse products sum in another order).
 TOL_SERVE_CPU, TOL_SERVE_GUST = 2e-4, 1e-4
@@ -1560,8 +1602,8 @@ def serve_path(report, launch_counts):
     float32, 8 requests (prompts of 64, 96 and 128 tokens, 32 new tokens
     each) through the continuous-batching ``ServeLoop`` at batch 4; one
     request alone equals its mixed stream bitwise; the first decode step
-    at two layers agrees with the CPU's plain path.  ``serve.gust``: the
-    first two layers, gustified at ``GustServeConfig()`` (padded, kernel 5)
+    at one layer agrees with the CPU's plain path.  ``serve.gust``: the
+    first layer, gustified at ``GustServeConfig()`` (padded, kernel 5)
     and with ``ragged=True`` (kernel 7), serving the same traffic: every
     GUST product launches its kernel, padded == ragged and solo ==
     concurrent bitwise, and a GUST decode step agrees with a dense one on
@@ -1611,7 +1653,7 @@ def serve_path(report, launch_counts):
                                       dense["decode_step_ms"]["median"], launch_counts,
                                       None)
     del loop
-    # the first decode step at two layers, on the card and on the CPU
+    # the first decode step at the GUST phases' depth, on the card and on the CPU
     lm2 = build_model(dataclasses.replace(cfg, n_layers=SERVE["gust_layers"]))
     params2 = first_layers(params, lm.stack, SERVE["gust_layers"])
     dense["cpu_check"] = first_step_vs_cpu(lm2, params2, prompts[0], sc.seq_len,
@@ -1624,11 +1666,11 @@ def serve_path(report, launch_counts):
         f"{dense['sample_ms_median']:.3f} ms, prefill ms by prompt length "
         f"{json.dumps(dense['prefill_ms_by_prompt_len'])}, occupancy "
         f"{dense['slot_occupancy']:.3f}; every request DONE, no retry or fallback; solo "
-        f"== mixed bitwise; 2-layer decode step card vs CPU max abs err {err:.3e} "
+        f"== mixed bitwise; {SERVE['gust_layers']}-layer decode step card vs CPU max abs err {err:.3e} "
         f"(max |logit| {scale:.3e}); profile "
         f"{json.dumps({k: v for k, v in dense['profile'].items() if k != 'top_kernels_ms'})}")
 
-    # -- serve.gust: the first 2 layers, gustified padded then ragged ----------------
+    # -- serve.gust: the first layer, gustified padded then ragged -------------------
     gust_streams = {}
     for layout in ("padded", "ragged"):
         gcfg = GustServeConfig(ragged=layout == "ragged")
@@ -1657,7 +1699,7 @@ def serve_path(report, launch_counts):
         if layout == "padded":
             gust_loop, gust_cfg = loop, gcfg
         out[f"gust_{layout}"] = row
-        log(f"serve.gust {layout}: 2 layers, gustify {build_s:.1f} s "
+        log(f"serve.gust {layout}: {SERVE['gust_layers']} layer, gustify {build_s:.1f} s "
             f"{json.dumps(tree['seconds'])}, {row['tokens']} tokens in "
             f"{row['wall_s']:.2f} s ({row['tok_per_s']:.1f} tokens/s), "
             f"{row['decode_steps']} decode steps, step "
@@ -2063,7 +2105,7 @@ def encdec_path(report, launch_counts):
 #: layers (the f32 AdamW state of all 32, 16 bytes a parameter, would not
 #: fit 80 GB), the card-vs-CPU step at 1 layer, xlstm-125m whole.
 TRAIN = dict(layers=8, batch=2, seq_len=2048, steps=6, cpu_layers=1, cpu_batch=1,
-             cpu_seq_len=64, xlstm_batch=4, xlstm_seq_len=256, xlstm_steps=4,
+             cpu_seq_len=64, xlstm_batch=4, xlstm_seq_len=256, xlstm_steps=3,
              xlstm_ckpt_after=2, launcher_steps=4)
 #: The gated run's learning rate: ``AdamWConfig``'s own default.  The
 #: launcher's 1e-3 (with its warmup of max(steps // 10, 1) = 1 step, so
@@ -2655,6 +2697,436 @@ def shard_path(report, launch_counts, crank):
     return out
 
 
+#: The ``tp`` path: ``TP["world"]`` processes share the one card, each with
+#: ``cuda:0``, as the ranks of a ("data", "model") mesh over gloo (file
+#: rendezvous, a group timeout); each model's steps run whole in the
+#: smoke's own process too, from the same seeded state.
+TP = dict(mesh=(2, 2), world=4, steps=2, seed=3, group_timeout_s=60, rank_timeout_s=420)
+#: The models at their published widths, 1 layer each.  llama4-scout's
+#: table is cut to 8,192 rows: at its published 202,048 the account
+#: reckons 31.0 GB a rank on (2, 2) (four ranks 124 GB; the whole step
+#: 95.2 GB), and 1 layer is the least depth; 8,192 rows reckon 17.1 GB a
+#: rank.  ``yardstick``: the whole step it is held to ("single":
+#: ``make_train_step(lm, tc)``; "per_data_rank": the same step with each
+#: data rank's rows routed on their own, as the sharded step's MoE routes
+#: them, composed from ``LM.loss_fn``: ``per_data_rank_step``).
+TP_MODELS = {
+    "yi": dict(arch="yi_6b", layers=1, batch=2, seq_len=512, vocab=None,
+               yardstick="single", reduced=False),
+    "llama4": dict(arch="llama4_scout_17b_a16e", layers=1, batch=2, seq_len=256,
+                   vocab=8192, yardstick="per_data_rank", reduced=False),
+}
+#: The sharded steps against the whole ones: loss and gradient norm
+#: relative, every parameter absolute.
+TOL_TP = 1e-5
+
+
+def first_step(state):
+    """Host copies of a state's parameters and first moments: what
+    ``step_agreement`` holds of a rank's first step."""
+    from repro_torch.models.tree import tree_map
+
+    return {"params": tree_map(lambda t: t.cpu(), state["params"]),
+            "m": tree_map(lambda t: t.cpu(), state["opt"]["m"])}
+
+
+def host_ms(fn):
+    """(fn(), its milliseconds on the host's clock): ``event_ms`` where
+    there is no card."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def tp_model(spec, steps):
+    """(config, model, train config of ``steps`` steps) of a ``TP_MODELS``
+    entry (``reduced``: the arch's reduced widths, for a rehearsal on the
+    CPU)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.training import AdamWConfig, TrainConfig
+
+    cut = {"n_layers": spec["layers"]}
+    if spec["vocab"]:
+        cut["vocab"] = spec["vocab"]
+    base = get_arch(spec["arch"])
+    cfg = dataclasses.replace(base.reduced() if spec["reduced"] else base, **cut)
+    tc = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps),
+                     dtype="float32", remat=True)
+    return cfg, build_model(cfg), tc
+
+
+def per_data_rank_step(lm, tc, state, batch, dp):
+    """The whole step with the rows of each of ``dp`` data ranks routed on
+    their own: each rank's loss (its rows' masked sum over every row's
+    count, its aux weighing 1/dp) through ``LM.loss_fn``, the gradients
+    summed, then AdamW; what the data-parallel and the sharded steps
+    compute for an MoE arch."""
+    import torch
+
+    from repro_torch.models.tree import tree_leaves, tree_unflatten
+    from repro_torch.training.optimizer import adamw_update
+
+    params = state["params"]
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    rows = batch["tokens"].shape[0] // dp
+    denom = batch["loss_mask"].sum()
+    loss, grads = 0.0, None
+    for r in range(dp):
+        mine = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+        with torch.enable_grad():
+            part, _ = lm.loss_fn(tree_unflatten(params, live), mine, dtype=tc.compute_dtype,
+                                 remat=tc.remat, denom=denom, shards=dp)
+            g = torch.autograd.grad(part, live, allow_unused=True)
+        g = [torch.zeros_like(p) if x is None else x for p, x in zip(live, g)]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        loss = loss + part.detach()
+    params2, opt2, om = adamw_update(tc.opt, params, tree_unflatten(params, grads),
+                                     state["opt"])
+    return {"params": params2, "opt": opt2}, {"loss": loss, **om}
+
+
+def allocations():
+    """A ``TorchDispatchMode`` recording, in ``.seen``, the shape of every
+    tensor an op run under it allocates (an output over an input's
+    storage, a view, is not counted), and in ``.ops`` the ops' names."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves as leaves
+
+    class Allocations(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen, self.ops = set(), set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            self.ops.add(str(func))
+            inputs = {t.untyped_storage()._cdata for t in leaves((args, kwargs))
+                      if isinstance(t, torch.Tensor)}
+            for t in leaves(out):
+                if isinstance(t, torch.Tensor) and t.untyped_storage()._cdata not in inputs:
+                    self.seen.add(tuple(t.shape))
+            return out
+
+    return Allocations()
+
+
+def whole_stacked_shapes(params, specs, mesh, local):
+    """The whole shapes of the stacked ``(R, ...)`` leaves that ``mesh``
+    splits, less those that some local leaf also has (``local``: an
+    allocation of such a shape would be ambiguous)."""
+    from repro_torch.distributed.sharding import local_shape, map_with_path
+    from repro_torch.models.tree import tree_map
+
+    paths, flat = [], []
+    map_with_path(lambda path, leaf: paths.append(path), params)
+    tree_map(lambda leaf, spec: flat.append((tuple(leaf.shape), spec)), params, specs)
+    return {shape for path, (shape, spec) in zip(paths, flat)
+            if "/reps/" in f"/{path}/" and local_shape(shape, spec, mesh) != shape} - local
+
+
+def tp_rank(rank, world, rdv, device):
+    """One rank of the ``tp`` path (``python3 chip_smoke.py tp-rank <rank>
+    <world> <dir> <device>``): joins the gloo group, and per model of the
+    ``tp_config.json`` its parent wrote (``TP``, ``TP_MODELS``) draws the
+    whole state on the card in its turn (one rank at a time: four whole
+    states would not fit), keeps its shards, runs the sharded steps and
+    writes its numbers to ``<dir>/tp.<rank>.json`` and its final
+    parameter shards to ``<dir>/tp.<model>.<rank>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import local_shape, tree_bytes_per_device
+    from repro_torch.distributed.tensor_parallel import mesh_axes
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.train_loop import shard_train_state
+
+    with open(os.path.join(rdv, "tp_config.json")) as f:
+        conf = json.load(f)
+    tp, models = conf["TP"], conf["TP_MODELS"]
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"  # else a rehearsal on the CPU: host clock, no memory stats
+
+    def mem():
+        if not cuda:
+            return None
+        return {"allocated": torch.cuda.memory_allocated(),
+                "reserved": torch.cuda.memory_reserved(),
+                "peak": torch.cuda.max_memory_allocated()}
+    if cuda:
+        dev = torch.device("cuda", 0 if dev.index is None else dev.index)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}/rdv", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=tp["group_timeout_s"]))
+    try:
+        mesh = init_device_mesh(dev.type, tuple(tp["mesh"]), mesh_dim_names=("data", "model"))
+        out = {"rank": rank, "coords": {n: a.rank for n, a in mesh_axes(mesh).items()},
+               "models": {}}
+        for name, spec in models.items():
+            cfg, lm, tc = tp_model(spec, tp["steps"])
+            sharded = None
+            for turn in range(world):
+                if turn == rank:
+                    whole = init_train_state(
+                        lm, torch.Generator(device=dev).manual_seed(tp["seed"]), tc, device=dev)
+                    sharded = shard_train_state(whole, mesh)
+                    del whole
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            memory = {"sharded": mem()}
+            print(f"tp-rank {rank} {name}: shards cut, memory {memory['sharded']}", flush=True)
+            meta = lm.init(None)
+            shapes = []
+            tree_map(lambda loc, w, s: shapes.append(
+                [list(loc.shape), list(local_shape(tuple(w.shape), s, mesh))]),
+                sharded["params"], meta, sharded.specs)
+            held = sum(tree_nbytes(sharded[k]) for k in ("params",)) + tree_nbytes(
+                {"m": sharded["opt"]["m"], "v": sharded["opt"]["v"]})
+            stacks = whole_stacked_shapes(meta, sharded.specs, mesh,
+                                          {tuple(x.shape) for x in tree_leaves(sharded)})
+            batches = [train_batch(cfg.vocab, spec["batch"], spec["seq_len"], i, dev)
+                       for i in range(tp["steps"])]
+            step = make_train_step(lm, tc, mesh)
+            run = {"state": sharded}
+            del sharded
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            collectives.reset_traffic()
+            # the first step under the allocation watch, timed apart (the
+            # watch's Python hook on every op costs host time)
+            watch, rows = allocations(), []
+            for i, b in enumerate(batches):
+                with watch if i == 0 else contextlib.nullcontext():
+                    (run["state"], m), ms = (event_ms if cuda else host_ms)(
+                        lambda: step(run["state"], b))
+                rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             "ms": ms, "watched": i == 0})
+                if i == 0:  # the first step's parameters and m, held by step_agreement
+                    torch.save(first_step(run["state"]), os.path.join(rdv, f"tp.{name}.{rank}.pt"))
+                memory[f"step_{i}"] = mem()
+                print(f"tp-rank {rank} {name}: step {i} {rows[-1]}, memory "
+                      f"{memory[f'step_{i}']}", flush=True)
+            out["models"][name] = {
+                "steps": rows, "shapes": shapes,
+                "param_opt_bytes": held,
+                "param_opt_bytes_reckoned": 3 * tree_bytes_per_device(meta, run["state"].specs,
+                                                                      mesh),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+                "memory": memory,
+                "traffic_per_step": {op: {k: v / tp["steps"] for k, v in row.items()}
+                                     for op, row in collectives.traffic.items()},
+                "whole_stacks": sorted(list(s) for s in stacks),
+                "whole_stacks_made": sorted(list(s) for s in stacks & watch.seen),
+                "watch_saw_backward": any("backward" in op for op in watch.ops)}
+            del run, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        with open(os.path.join(rdv, f"tp.{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_path(report, launch_counts):
+    """Tensor, expert and fully-sharded parallelism on the one card: (a)
+    the account reckons each model's bytes a rank; (b) ``TP["world"]``
+    rank processes (``tp_rank``) form the ("data", "model") mesh over gloo
+    and run the sharded steps while this process holds nothing on the
+    card; (c) each model steps whole in this process (its yardstick), from
+    the same seeded state; (d) every rank's loss and gradient norm within
+    ``TOL_TP`` of the yardstick's, its final parameter shards within
+    ``TOL_TP`` of the yardstick's parameters cut the same way, its shards
+    ``local_shape``'s, its parameter and optimizer bytes the account's
+    (``tree_bytes_per_device``), and no whole stacked leaf allocated."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.collectives import HOST_STAGED
+    from repro_torch.distributed.sharding import MeshLayout, param_specs
+    from repro_torch.distributed.tensor_parallel import Axis, shard_tree
+    from repro_torch.launch.cost_account import account_cell
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.training import init_train_state, make_train_step
+
+    dev = torch.device(SERVE_DEVICE)
+    layout = MeshLayout(TP["mesh"], ("data", "model"))
+    out = {"mesh": list(TP["mesh"]), "world": TP["world"], "backend": "gloo",
+           "steps": TP["steps"], "models": {}}
+
+    # -- (a) the account's bytes a rank --------------------------------------------
+    f32 = dict(param_dtype=torch.float32, cache_dtype=torch.float32,
+               compute_dtype=torch.float32)
+    for name, spec in TP_MODELS.items():
+        cfg, lm, _ = tp_model(spec, TP["steps"])
+        t0 = time.perf_counter()
+        rec = account_cell(lm, "train", spec["batch"], spec["seq_len"], layout, **f32)
+        row = out["models"][name] = {
+            "arch": spec["arch"], "layers": cfg.n_layers, "vocab": cfg.vocab,
+            "batch": spec["batch"], "seq_len": spec["seq_len"],
+            "params": lm.param_count(lm.init(None)), "yardstick": spec["yardstick"],
+            "account": {"peak_bytes_a_rank": rec["peak_bytes"],
+                        "arguments_a_rank": rec["bytes_per_device"]["arguments"],
+                        "collective_bytes_a_step": rec["collective_bytes"]}}
+        if spec["vocab"]:  # what the published table would need
+            published = dataclasses.replace(cfg, vocab=get_arch(spec["arch"]).vocab)
+            full = account_cell(build_model(published), "train", spec["batch"],
+                                spec["seq_len"], layout, **f32)
+            row["account"]["published_vocab_peak_bytes_a_rank"] = full["peak_bytes"]
+        row["account"]["seconds"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as rdv:
+        # -- (b) the ranks, sharing the card --------------------------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["parent_memory_bytes"] = {"allocated": torch.cuda.memory_allocated(),
+                                      "reserved": torch.cuda.memory_reserved()}
+        with open(os.path.join(rdv, "tp_config.json"), "w") as f:
+            json.dump({"TP": TP, "TP_MODELS": TP_MODELS}, f)
+        t0 = time.perf_counter()
+        cmd = [sys.executable, os.path.abspath(__file__), "tp-rank"]
+        env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        procs = [subprocess.Popen(cmd + [str(r), str(TP["world"]), rdv, str(dev)], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(TP["world"])]
+        tails = []
+        try:
+            for p in procs:
+                text, _ = p.communicate(timeout=TP["rank_timeout_s"])
+                tails.append(text[-3000:])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        bad = [(r, p.returncode, t) for r, (p, t) in enumerate(zip(procs, tails))
+               if p.returncode]
+        if bad:
+            raise AssertionError(f"tp: ranks failed: {bad}")
+        ranks = []
+        for r in range(TP["world"]):
+            with open(os.path.join(rdv, f"tp.{r}.json")) as f:
+                ranks.append(json.load(f))
+        out["ranks_seconds"] = time.perf_counter() - t0
+
+        # -- (c) each model whole in this process, then (d) its gates ------------------
+        for name, spec in TP_MODELS.items():
+            cfg, lm, tc = tp_model(spec, TP["steps"])
+            zero_launches(launch_counts)
+            run = {"state": init_train_state(
+                lm, torch.Generator(device=dev).manual_seed(TP["seed"]), tc, device=dev)}
+            step = (make_train_step(lm, tc) if spec["yardstick"] == "single" else
+                    functools.partial(per_data_rank_step, lm, tc, dp=TP["mesh"][0]))
+            rows = []
+            for i in range(TP["steps"]):
+                batch = train_batch(cfg.vocab, spec["batch"], spec["seq_len"], i, dev)
+                (run["state"], m), ms = event_ms(lambda: step(run["state"], batch))
+                rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             "lr": float(m["lr"]), "ms": ms})
+                if i == 0:  # kept on the card for the gates
+                    yard = {"params": run["state"]["params"], "m": run["state"]["opt"]["m"]}
+            del run, batch, m
+            launched = read_launches(launch_counts)
+            if launched:
+                raise AssertionError(f"tp: the whole {name} steps launched GUST kernels "
+                                     f"{launched}")
+            row = out["models"][name]
+            row["whole_steps"] = rows
+            specs = param_specs(yard["params"], layout, mode="train")
+            row["ranks"] = []
+            worst = 0.0
+            for rk in ranks:
+                got = rk["models"][name]
+                tag = f"tp {name} rank {rk['rank']}"
+                for i, (a, b) in enumerate(zip(got["steps"], rows)):
+                    for k in ("loss", "grad_norm"):
+                        if not abs(a[k] - b[k]) <= TOL_TP * abs(b[k]):
+                            raise AssertionError(f"{tag} step {i}: {k} {a[k]} against the "
+                                                 f"whole step's {b[k]}")
+                if any(loc != want for loc, want in got["shapes"]):
+                    raise AssertionError(f"{tag}: a shard is not local_shape's")
+                if got["param_opt_bytes"] != got["param_opt_bytes_reckoned"]:
+                    raise AssertionError(f"{tag}: holds {got['param_opt_bytes']} bytes of "
+                                         f"parameters and optimizer, the account "
+                                         f"{got['param_opt_bytes_reckoned']}")
+                if got["whole_stacks_made"]:
+                    raise AssertionError(f"{tag}: whole stacked leaves allocated "
+                                         f"{got['whole_stacks_made']} of {got['whole_stacks']}")
+                axes = {n: Axis(n, None, c, dict(zip(("data", "model"), TP["mesh"]))[n])
+                        for n, c in rk["coords"].items()}
+                cut = {part: shard_tree(yard[part], specs, axes) for part in ("params", "m")}
+                shards = torch.load(os.path.join(rdv, f"tp.{name}.{rk['rank']}.pt"),
+                                    map_location=dev)
+                live = [i for i, x in enumerate(tree_leaves(cut["params"])) if x.numel()]
+
+                def held(tree):
+                    leaves = tree_leaves(tree)
+                    return [leaves[i] for i in live]
+
+                agreement = step_agreement(
+                    {"params": held(shards["params"]), "opt": {"m": held(shards["m"])}},
+                    {"params": held(cut["params"]), "opt": {"m": held(cut["m"])}},
+                    got["steps"][0], rows[0], rows[0]["lr"], tc.opt.eps, tc.opt.b1,
+                    f"{tag} step 0")
+                err = max(float((a - b).abs().max()) for a, b in
+                          zip(held(shards["params"]), held(cut["params"])))
+                worst = max(worst, err)
+                row["ranks"].append({
+                    "rank": rk["rank"], "coords": rk["coords"],
+                    "step_ms": [s["ms"] for s in got["steps"]],
+                    "peak_memory_bytes": got["peak_memory_bytes"],
+                    "memory": got["memory"],
+                    "param_opt_bytes": got["param_opt_bytes"],
+                    "collective_bytes_a_step": sum(t["bytes"] for t in
+                                                   got["traffic_per_step"].values()),
+                    "traffic_per_step": got["traffic_per_step"],
+                    "whole_stacks_watched": len(got["whole_stacks"]),
+                    "watch_saw_backward": got["watch_saw_backward"],
+                    "step_agreement": agreement, "max_abs_param_err": err})
+                del shards, cut
+            del yard
+            gc.collect()
+            torch.cuda.empty_cache()
+            row["loss"] = [s["loss"] for s in ranks[0]["models"][name]["steps"]]
+            row["grad_norm"] = [s["grad_norm"] for s in ranks[0]["models"][name]["steps"]]
+            row["max_abs_param_err_step_0"] = worst
+            r0 = row["ranks"][0]
+            log(f"tp {name}: {spec['arch']} {row['layers']} layer, vocab {row['vocab']}, "
+                f"{row['params']} parameters, batch {spec['batch']} x {spec['seq_len']} on "
+                f"{TP['mesh']}: losses {row['loss']} (whole {[s['loss'] for s in rows]}), "
+                f"the first step's state held by step_agreement (rank 0 "
+                f"{json.dumps(r0['step_agreement'])}; parameters within {worst:.3e}); "
+                f"rank 0 step ms {r0['step_ms']}, peak {r0['peak_memory_bytes']} bytes "
+                f"(account {row['account']['peak_bytes_a_rank']}), "
+                f"{r0['collective_bytes_a_step']:.0f} collective bytes a step (account "
+                f"{row['account']['collective_bytes_a_step']:.0f})")
+    used = {op for rk in ranks for m in rk["models"].values() for op in m["traffic_per_step"]}
+    out["transport"] = {"backend": "gloo",
+                        "through_host": sorted(used & set(HOST_STAGED.get("gloo", ()))),
+                        "on_card": sorted(used - set(HOST_STAGED.get("gloo", ())))}
+    log(f"tp: {TP['world']} ranks on one card, mesh {TP['mesh']}, transport "
+        f"{json.dumps(out['transport'])}; ranks {out['ranks_seconds']:.1f} s; this process "
+        f"held {json.dumps(out['parent_memory_bytes'])} bytes meanwhile")
+    return out
+
+
 def seeded_collision(art):
     """GUST-P14 on a copy of a card artifact: the second real slot of the
     first stream row holding two takes the first one's adder.  The
@@ -3085,4 +3557,6 @@ def dequantized_csr(art):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["tp-rank"]:  # one rank of the tp path
+        sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

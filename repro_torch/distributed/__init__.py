@@ -1,5 +1,6 @@
 """Distribution layer (counterpart of ``repro.distributed``): the
-sharding rules and the collectives over ``torch.distributed``."""
+sharding rules, the collectives over ``torch.distributed`` and their
+execution as tensor, expert and fully-sharded parallelism."""
 
 from .sharding import (  # noqa: F401
     MeshLayout,
@@ -17,3 +18,11 @@ from .sharding import (  # noqa: F401
     tree_bytes_per_device,
 )
 from .collectives import bucketed, compressed_psum, ring_all_reduce, unbucketed  # noqa: F401
+from .tensor_parallel import (  # noqa: F401
+    Placement,
+    copy_to,
+    gather_from,
+    gather_leaf,
+    mesh_axes,
+    reduce_from,
+)

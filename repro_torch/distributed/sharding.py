@@ -24,9 +24,12 @@ reasons about 256 and 512 devices from one host).
 The reference's activation hints (``activation_ctx``, ``constrain_*``)
 tell XLA's partitioner how to lay out intermediates; eager PyTorch has
 no partitioner, so they are not ported (ROADMAP §3, departures).  The
-port executes the DP placement (``training.train_loop``); the "model"
-and FSDP placements of :func:`param_specs` are what the dry-run account
-reckons per device.
+port executes every placement of :func:`param_specs` in the train step:
+the batch over the DP axes (``training.train_loop``), and on a sharded
+state (``train_loop.shard_train_state``) the "model" dims as tensor and
+expert parallelism inside the blocks and the "data" dims as FSDP
+(``distributed/tensor_parallel.py``); the dry-run account runs that step
+on meta shards.  Serving keeps its parameters whole.
 """
 
 from __future__ import annotations

@@ -10,24 +10,31 @@ so the account is built from the port's own pieces:
   and GUST-stream trees are built on the meta device and laid out by the
   sharding rules (``distributed.sharding``): each leaf's bytes are its
   per-device shard's (:func:`~repro_torch.distributed.sharding.tree_bytes_per_device`).
-* **The step's cost.**  The step itself (``make_train_step``,
-  ``LM.prefill``, ``LM.decode_step``, ``decode_step_gust``) runs on meta
-  tensors at the per-device batch slice (a train step: one microbatch of
-  it, its FLOPs times their number) under
+* **The step's cost.**  The step itself runs on meta tensors under
   ``torch.utils.flop_counter.FlopCounterMode`` (matmul FLOPs) and
   :class:`LiveBytes` (the peak of the bytes its outputs hold while they
-  live).  Parameters stay whole in that run (the port executes data
-  parallelism only), so tensor parallelism is not divided there: the
-  temporaries are an upper bound.  Shape-only stand-ins: the recurrent
+  live).  A train cell runs rank 0's sharded step
+  (``make_train_step(lm, cfg, mesh)`` on a ``ShardedTrainState`` of meta
+  shards at their local shapes) over a ``DeviceMesh`` of the cell's
+  layout on torch's ``fake`` process-group backend (:func:`fake_mesh`:
+  every collective returns at once and moves nothing), one microbatch of
+  it (its FLOPs and per-microbatch traffic times their number): tensor,
+  expert and fully-sharded parallelism are divided as the port executes
+  them, the FSDP gathers counted among the temporaries.  A serving cell
+  (``LM.prefill``, ``LM.decode_step``, ``decode_step_gust``) runs at the
+  per-device batch slice with the parameters whole: the port does not
+  execute tensor parallelism in serving, so its temporaries are an upper
+  bound there.  Shape-only stand-ins: the recurrent
   mixers' host time loops run as one step over every step's rows at once
   (:func:`time_loops_at_once`: one step's count scaled by the length),
   and a GUST product (whose kernel reads real data) is reckoned by hand
   at ``2 · streamed slots · B`` FLOPs.
 * **Roofline terms** against an NVIDIA H100 SXM (:data:`H100`): compute
   at the dense bf16 (or f32) peak, memory as every argument byte read
-  once at the HBM rate, and the collective term from the bytes the port
-  moves, the data-parallel gradient ring's ``2(k-1)/k`` of the gradient
-  bytes, at NVLink's rate.
+  once at the HBM rate, and the collective term from the bytes rank 0
+  sends (``collectives.traffic`` of the train step on the fake ranks: the
+  TP sums, the FSDP gathers and reduce-scatters, the data-parallel ring),
+  at NVLink's rate.
 """
 
 from __future__ import annotations
@@ -38,14 +45,18 @@ import weakref
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
+from ..distributed import collectives
 from ..distributed.sharding import (
     dp_entry,
     dp_size,
+    local_shape,
     map_with_path,
+    mesh_axis_names,
     mesh_sizes,
     cache_spec_overrides,
     param_specs,
@@ -54,7 +65,7 @@ from ..distributed.sharding import (
 from ..models.tree import tree_leaves, tree_map
 
 __all__ = ["H100", "LiveBytes", "time_loops_at_once", "count_step", "roofline_terms", "batch_spec_tree",
-           "cell_trees", "cell_specs", "account_cell", "memory_limit"]
+           "cell_trees", "cell_specs", "account_cell", "memory_limit", "fake_mesh"]
 
 #: NVIDIA H100 SXM5 80GB, from NVIDIA's H100 Tensor Core GPU datasheet
 #: (dense rates, without sparsity, at the 700 W power limit).
@@ -185,6 +196,26 @@ def count_step(fn: Callable, *args, **kwargs):
     by_op = {str(op): int(n) for op, n in flops.get_flop_counts().get("Global", {}).items()}
     return out, {"matmul_flops": int(flops.get_total_flops()), "flops_by_op": by_op,
                  "peak_temp_bytes": int(live.peak)}
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh):
+    """A ``DeviceMesh`` of ``mesh``'s shape and axis names whose process
+    group is torch's ``fake`` backend with this process as rank 0: a
+    collective returns at once and moves nothing, so one process runs rank
+    0's share of a step on meta tensors.  The default process group is
+    made for the block and destroyed after; there must be none before."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("the account's fake ranks need a process without a process group")
+    shape = tuple(int(s) for s in mesh.shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=mesh_axis_names(mesh))
+    finally:
+        dist.destroy_process_group()
 
 
 def memory_limit() -> Dict:
@@ -324,33 +355,57 @@ def account_cell(lm, kind: str, batch: int, seq_len: int, mesh, *,
                  "dp": k, "mesh_shape": dict(mesh_sizes(mesh)),
                  "tokens_per_step": batch * (seq_len if kind != "decode" else 1)}
     b_local = batch // k if batch % k == 0 else batch
-    notes = ["the step ran on meta tensors at the per-device batch slice with the "
-             "parameters whole: tensor parallelism is not divided there, so the "
-             "temporaries are an upper bound"]
+    notes = []
     if param_dtype != torch.float32:
         notes.append(f"parameters reckoned in {param_dtype}; the step ran on float32 "
                      "ones, the dtype the port's layers take")
     collective = 0.0
     if kind == "train":
+        from ..training.train_loop import ShardedTrainState
+        from ..training.optimizer import init_opt_state
+
         tc = TrainConfig(remat=True,
                          dtype="bfloat16" if compute_dtype == torch.bfloat16 else "float32")
-        # one microbatch's step: every microbatch has its shapes
-        local = lm.input_specs(seq_len, b_local // microbatches, "train")
-        _, cost = count_step(make_train_step(lm, tc),
-                             {"params": params, "opt": trees["optimizer"]}, local)
+        pspecs = specs["params"]
+        shards = tree_map(lambda x, s: torch.empty(local_shape(x.shape, s, mesh),
+                                                   dtype=x.dtype, device="meta"),
+                          params, pspecs)
+        # one microbatch's step (every microbatch has its shapes): each DP
+        # rank's rows, split from the global ones by the step itself
+        rows = b_local // microbatches * k
+        collectives.reset_traffic()
+        with fake_mesh(mesh) as dmesh:
+            state = ShardedTrainState({"params": shards, "opt": init_opt_state(shards)},
+                                      pspecs, dmesh)
+            _, cost = count_step(make_train_step(lm, tc, dmesh), state,
+                                 lm.input_specs(seq_len, rows, "train"))
+        traffic = {op: dict(row) for op, row in collectives.traffic.items()}
+        collectives.reset_traffic()
+        local_params = sum(x.numel() for x in tree_leaves(shards))
         if microbatches > 1:
             cost["matmul_flops"] *= microbatches
             cost["flops_by_op"] = {op: n * microbatches for op, n in cost["flops_by_op"].items()}
-            cost["peak_temp_bytes"] += n_params * 4
-            notes.append(f"one microbatch's step counted: its matmul FLOPs times the "
-                         f"{microbatches} microbatches, the f32 gradient accumulator "
-                         "added to its temporaries")
+            cost["peak_temp_bytes"] += local_params * 4
+            for op, row in traffic.items():
+                if op != "send_recv":  # the DP ring runs once a step
+                    row["bytes"] *= microbatches
+                    row["calls"] *= microbatches
+            notes.append(f"one microbatch's step counted: its matmul FLOPs and its TP / "
+                         f"FSDP traffic times the {microbatches} microbatches, the f32 "
+                         "gradient accumulator of the rank's shards added to its "
+                         "temporaries")
+        notes.append("rank 0's sharded step on the fake process-group backend: tensor, "
+                     "expert and fully-sharded parallelism divided as the port executes "
+                     "them")
         rec["microbatches"] = microbatches
-        # the DP gradient ring: f32 gradients, whole on every rank
-        collective = 2 * (k - 1) / k * n_params * 4 if k > 1 else 0.0
+        rec["traffic"] = traffic
+        collective = float(sum(row["bytes"] for row in traffic.values()))
     else:
         caches = trees["caches"]
         local_caches = _local_rows(caches, k) if batch % k == 0 else caches
+        notes.append("the step ran on meta tensors at the per-device batch slice with the "
+                     "parameters whole (the port does not execute tensor parallelism in "
+                     "serving): its temporaries are an upper bound")
         local = lm.input_specs(seq_len, b_local, kind)
         pos = trees["inputs"].get("pos")
         if kind == "prefill":

@@ -18,6 +18,18 @@ library attention), so the two packages agree within float32 tolerance:
     and non-causal, non-rotary attention of the decoder over it (the
     blocked path for a memory longer than ``2·block_size``).
 
+Tensor parallel (training): under a placement (``place=``) whose specs
+split the heads of ``wq`` over "model", the block runs on the rank's
+heads: ``wq``/``wk``/``wv`` column-parallel (the input's gradient summed
+over the model ranks, :func:`~repro_torch.distributed.tensor_parallel.copy_to`),
+``wo`` row-parallel (the float32 partial outputs summed).  The local head
+counts are the leaves' own.  Where the rule leaves ``wk``/``wv`` whole (the
+KV heads do not divide the axis), each rank projects every KV head, its
+query head ``h`` (global index) reads KV head ``h // groups``, and the
+whole weights' gradients are summed over the model ranks, each having
+read only its heads' share.  Where the rule leaves ``wq`` whole, the
+attention runs whole on every model rank.
+
 ``decode_step`` writes the new token's K/V/position into the cache **in
 place** (the reference rebinds a new cache).  Each write lands in the
 cell the same call reads back after it, and the values depend only on
@@ -33,7 +45,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .layers import _f32, _he, _matmul_to, rope
+from ..distributed.tensor_parallel import copy_to
+from .layers import _f32, _he, _matmul_to, _row_parallel, rope
 from .tree import tree_map
 
 __all__ = [
@@ -91,21 +104,56 @@ def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return torch.repeat_interleave(k, groups, dim=2)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk")`` in float32, cast to x's dtype."""
+def _project(x: torch.Tensor, w: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")`` in float32, cast to ``dtype`` (x's by
+    default)."""
     d, h, k = w.shape
     y = _f32(x) @ w.reshape(d, h * k)
-    return y.reshape(*x.shape[:-1], h, k).to(x.dtype)
+    return y.reshape(*x.shape[:-1], h, k).to(dtype or x.dtype)
 
 
-def _out(o: torch.Tensor, wo: torch.Tensor, dtype) -> torch.Tensor:
-    """``einsum("bqhk,hkd->bqd", preferred_element_type=dtype)``."""
+def _heads_axis(place):
+    """The model axis when ``place`` splits the query heads, else None."""
+    return place.model if place is not None and place.split("wq", 1) else None
+
+
+def _out(o: torch.Tensor, wo: torch.Tensor, dtype, place=None) -> torch.Tensor:
+    """``einsum("bqhk,hkd->bqd", preferred_element_type=dtype)``;
+    row-parallel over the rank's heads under a placement."""
     h, k, d = wo.shape
-    return _matmul_to(o.reshape(*o.shape[:-2], h * k), wo.reshape(h * k, d), dtype)
+    a, w = o.reshape(*o.shape[:-2], h * k), wo.reshape(h * k, d)
+    axis = _heads_axis(place)
+    if axis is not None:
+        return _row_parallel(a, w, dtype, axis)
+    return _matmul_to(a, w, dtype)
 
 
-def _qkv(p, x, spec: AttnSpec, positions):
-    q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
+def _kv_weights(p, place):
+    """``wk``, ``wv`` as the rank's heads read them: a split leaf as it
+    is, a whole one under a split ``wq`` with its gradient summed over the
+    model ranks."""
+    axis = _heads_axis(place)
+    if axis is None or place.split("wk", 1):
+        return p["wk"], p["wv"]
+    return copy_to(p["wk"], axis), copy_to(p["wv"], axis)
+
+
+def _kv_index(spec: AttnSpec, place, n_q: int, n_kv: int, device) -> torch.Tensor:
+    """The KV head (an index into this rank's k) of each of the rank's
+    ``n_q`` query heads: global head ``h`` reads KV head ``h // groups``."""
+    axis = place.model
+    heads = axis.rank * n_q + torch.arange(n_q, device=device)
+    kv = torch.div(heads, spec.groups, rounding_mode="floor")
+    if place.split("wk", 1):
+        kv = kv - axis.rank * n_kv
+    return kv
+
+
+def _qkv(p, x, spec: AttnSpec, positions, place=None):
+    axis = _heads_axis(place)
+    xin = x if axis is None else copy_to(_f32(x), axis)
+    wk, wv = _kv_weights(p, place)
+    q, k, v = (_project(xin, w, x.dtype) for w in (p["wq"], wk, wv))
     if spec.use_rope:
         q = rope(q, positions, theta=spec.rope_theta)
         k = rope(k, positions, theta=spec.rope_theta)
@@ -182,27 +230,32 @@ def _blocked_sdpa(q, k_full, v_full, spec: AttnSpec, qpos, kpos):
     return o.permute(0, 2, 1, 3).to(q.dtype)  # (B,Sq,H,dh)
 
 
-def _attend(p, q, k, v, spec: AttnSpec, qpos, kpos, x_dtype):
-    kf = _expand_kv(k, spec.groups)
-    vf = _expand_kv(v, spec.groups)
+def _attend(p, q, k, v, spec: AttnSpec, qpos, kpos, x_dtype, place=None):
+    if _heads_axis(place) is None:
+        kf = _expand_kv(k, spec.groups)
+        vf = _expand_kv(v, spec.groups)
+    else:
+        idx = _kv_index(spec, place, q.shape[2], k.shape[2], k.device)
+        kf, vf = k[:, :, idx], v[:, :, idx]
     sq, sk = q.shape[1], kf.shape[1]
     if max(sq, sk) <= 2 * spec.block_size:
         o = _sdpa(q, kf, vf, _mask(spec, qpos, kpos), spec.d_head)
     else:
         o = _blocked_sdpa(q, kf, vf, spec, qpos, kpos)
-    return _out(o, p["wo"], x_dtype)
+    return _out(o, p["wo"], x_dtype, place)
 
 
 def _positions(s: int, start: int, device) -> torch.Tensor:
     return start + torch.arange(s, dtype=torch.int32, device=device)
 
 
-def attend_train(p, x, spec: AttnSpec, positions=None) -> torch.Tensor:
-    """Full-sequence attention (training / prefill compute)."""
+def attend_train(p, x, spec: AttnSpec, positions=None, place=None) -> torch.Tensor:
+    """Full-sequence attention (training / prefill compute); tensor
+    parallel over the heads under ``place`` (module docstring)."""
     if positions is None:
         positions = _positions(x.shape[1], 0, x.device)
-    q, k, v = _qkv(p, x, spec, positions)
-    return _attend(p, q, k, v, spec, positions, positions, x.dtype)
+    q, k, v = _qkv(p, x, spec, positions, place)
+    return _attend(p, q, k, v, spec, positions, positions, x.dtype, place)
 
 
 # ---------------------------------------------------------------------------
@@ -210,19 +263,25 @@ def attend_train(p, x, spec: AttnSpec, positions=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def cross_kv(p, memory, spec: AttnSpec):
+def cross_kv(p, memory, spec: AttnSpec, place=None):
     """Project the encoder memory (B, Sk, d) once: (k, v), each (B, Sk,
-    KV, dh) in the memory's dtype; every decode step reuses them."""
-    return _project(memory, p["wk"]), _project(memory, p["wv"])
+    KV, dh) in the memory's dtype; every decode step reuses them.  Under
+    ``place``, the rank's KV heads (all of them where ``wk`` is whole)."""
+    axis = _heads_axis(place)
+    mem = memory if axis is None else copy_to(_f32(memory), axis)
+    wk, wv = _kv_weights(p, place)
+    return _project(mem, wk, memory.dtype), _project(mem, wv, memory.dtype)
 
 
-def attend_cross(p, x, k, v, spec: AttnSpec) -> torch.Tensor:
+def attend_cross(p, x, k, v, spec: AttnSpec, place=None) -> torch.Tensor:
     """Full (non-causal, non-rotary) attention of x (B, Sq, d) over the
-    precomputed memory K/V (B, Sk, KV, dh)."""
-    q = _project(x, p["wq"])
+    precomputed memory K/V (B, Sk, KV, dh); the rank's query heads under
+    ``place``."""
+    axis = _heads_axis(place)
+    q = _project(x if axis is None else copy_to(_f32(x), axis), p["wq"], x.dtype)
     qpos = _positions(q.shape[1], 0, x.device)
     kpos = _positions(k.shape[1], 0, x.device)
-    return _attend(p, q, k.to(q.dtype), v.to(q.dtype), spec, qpos, kpos, x.dtype)
+    return _attend(p, q, k.to(q.dtype), v.to(q.dtype), spec, qpos, kpos, x.dtype, place)
 
 
 # ---------------------------------------------------------------------------

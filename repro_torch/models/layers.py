@@ -21,6 +21,12 @@ Conventions, as in the reference:
     its default, ``False``).
 
 ``gelu`` is the tanh approximation, the default of ``jax.nn.gelu``.
+
+Under a :class:`~repro_torch.distributed.tensor_parallel.Placement`
+(``place=``) whose specs split a leaf over "model", the embedding and the
+logits are vocab-parallel (each rank its rows of the table) and the MLP
+is column- then row-parallel, its partial products summed in float32
+before the cast.  Without one, or on a one-rank axis, each runs whole.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..distributed.tensor_parallel import copy_to, reduce_from
 
 __all__ = [
     "init_norm",
@@ -70,15 +78,26 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float32 else x.float()
 
 
+def _matmul_f32(a: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """:func:`_matmul_to` before its cast: the float32 product."""
+    if a.dtype == dtype:
+        w = w.to(dtype)
+    return _f32(a) @ _f32(w)
+
+
 def _matmul_to(a: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     """``einsum(a, w, preferred_element_type=dtype)`` for an f32 weight
     ``w``, accumulated in f32 and cast to ``dtype``.  Where ``a`` is
     already in a narrower ``dtype`` (bf16), XLA multiplies in that dtype:
     the weight is rounded to it first, so it is here too (a no-op at
     f32)."""
-    if a.dtype == dtype:
-        w = w.to(dtype)
-    return (_f32(a) @ _f32(w)).to(dtype)
+    return _matmul_f32(a, w, dtype).to(dtype)
+
+
+def _row_parallel(a: torch.Tensor, w: torch.Tensor, dtype, axis) -> torch.Tensor:
+    """:func:`_matmul_to` of a row-parallel weight: this rank's float32
+    partial product summed over ``axis``, then cast."""
+    return reduce_from(_matmul_f32(a, w, dtype), axis).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -118,13 +137,29 @@ def init_embedding(gen, vocab: int, d: int):
     return {"table": _normal(gen, (vocab, d)) * 0.02}
 
 
-def embed(p, tokens: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    return p["table"][tokens.long()].to(dtype)
+def _vocab_axis(place):
+    """The model axis when ``place`` splits the table's rows, else None."""
+    return place.model if place is not None and place.split("table", 0) else None
 
 
-def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    """Tied logits projection: (B, S, d) @ table^T -> (B, S, V), f32."""
-    return _f32(x) @ p["table"].T
+def embed(p, tokens: torch.Tensor, dtype=torch.float32, place=None) -> torch.Tensor:
+    """The table's rows of ``tokens``; vocab-parallel, each rank looks up
+    the tokens in its rows (zeros elsewhere) and the ranks' rows are
+    summed."""
+    axis = _vocab_axis(place)
+    if axis is None:
+        return p["table"][tokens.long()].to(dtype)
+    rows = p["table"].shape[0]
+    local = tokens.long() - axis.rank * rows
+    inside = (local >= 0) & (local < rows)
+    found = p["table"][local.clamp(0, rows - 1)] * inside[..., None]
+    return reduce_from(found, axis).to(dtype)
+
+
+def unembed(p, x: torch.Tensor, place=None) -> torch.Tensor:
+    """Tied logits projection: (B, S, d) @ table^T -> (B, S, V), f32;
+    vocab-parallel, this rank's (B, S, V / tp) columns."""
+    return copy_to(_f32(x), _vocab_axis(place)) @ p["table"].T
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +200,11 @@ def init_mlp(gen, d: int, d_ff: int, *, kind: str = "swiglu"):
     return {"w_up": _he(gen, (d, d_ff)), "w_down": _he(gen, (d_ff, d))}
 
 
-def mlp(p, x: torch.Tensor, *, kind: str = "swiglu") -> torch.Tensor:
-    x32 = _f32(x)
+def mlp(p, x: torch.Tensor, *, kind: str = "swiglu", place=None) -> torch.Tensor:
+    """The MLP; column-parallel ``w_gate``/``w_up`` and row-parallel
+    ``w_down`` where ``place`` splits ``d_ff``."""
+    axis = place.model if place is not None and place.split("w_up", 1) else None
+    x32 = copy_to(_f32(x), axis)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else gelu
         g = act(x32 @ p["w_gate"])
@@ -174,4 +212,6 @@ def mlp(p, x: torch.Tensor, *, kind: str = "swiglu") -> torch.Tensor:
         h = (g * u).to(x.dtype)
     else:
         h = gelu(x32 @ p["w_up"]).to(x.dtype)
+    if axis is not None:
+        return _row_parallel(h, p["w_down"], x.dtype, axis)
     return _matmul_to(h, p["w_down"], x.dtype)

@@ -15,7 +15,11 @@ Every block kind runs: dense attention + MLP, MoE (llama4, dbrx), RG-LRU
 (recurrentgemma), mLSTM/sLSTM (xlstm), ``enc`` and ``xattn`` (seamless).
 Training's loss is :meth:`LM.loss_fn` over :func:`softmax_xent`, its
 gradients autograd's through ``train_logits`` (with ``remat``, one
-activation checkpoint per pattern repetition and tail block).
+activation checkpoint per pattern repetition and tail block).  On a
+sharded train state the same loss runs under the state's placement
+(``place=``: ``distributed/tensor_parallel.py``): the embedding and the
+logits vocab-parallel, the blocks tensor and expert parallel, the stacks'
+leaves gathered over "data" per block.
 """
 
 from __future__ import annotations
@@ -26,23 +30,37 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.packing import resolve_device
+from ..distributed.tensor_parallel import all_reduce_max, reduce_from, sub
 from . import transformer as T
-from .layers import apply_norm, embed, init_embedding, init_norm, unembed
+from .layers import _vocab_axis, apply_norm, embed, init_embedding, init_norm, unembed
 from .tree import tree_leaves, tree_map
 
 __all__ = ["LM", "build_model", "softmax_xent"]
 
 
-def softmax_xent(logits, labels, mask, z_coef: float = 1e-4, denom=None):
+def softmax_xent(logits, labels, mask, z_coef: float = 1e-4, denom=None, vocab=None):
     """Masked mean cross-entropy plus z-loss, in float32.  Returns (loss,
     ``{"xent"}``).  The gold logit is gathered (the reference selects it
     with an iota compare and a sum over the vocabulary: the same value).
     ``denom`` is the mask count to divide by (default ``mask.sum()``): a
     data-parallel rank passes the count over every rank's rows, so that
-    the ranks' losses add up to the global masked mean."""
+    the ranks' losses add up to the global masked mean.  ``vocab`` (a
+    model axis) says that ``logits`` are this rank's columns of a
+    vocab-parallel projection: the max, the sum of exponentials and the
+    gold logit are then reduced over its ranks, so ``logz`` (and the
+    z-loss) are the whole vocabulary's."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if vocab is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        cols = logits.shape[-1]
+        top = all_reduce_max(logits.detach().amax(dim=-1), vocab)
+        logz = torch.log(reduce_from(torch.exp(logits - top[..., None]).sum(-1), vocab)) + top
+        local = labels.long() - vocab.rank * cols
+        inside = (local >= 0) & (local < cols)
+        mine = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+        gold = reduce_from(mine * inside, vocab)
     xent = logz - gold
     zloss = z_coef * (logz ** 2)
     denom = torch.clamp(mask.sum() if denom is None else denom, min=1.0)
@@ -88,64 +106,78 @@ class LM(torch.nn.Module):
         return sum(x.numel() for x in tree_leaves(params))
 
     # -- helpers -----------------------------------------------------------
-    def _embed_tokens(self, params, tokens, dtype):
-        x = embed(params["embed"], tokens, dtype)
+    def _embed_tokens(self, params, tokens, dtype, place=None):
+        x = embed(params["embed"], tokens, dtype, place=sub(place, "embed"))
         if self.cfg.emb_scale:
             scale = torch.sqrt(torch.tensor(float(self.cfg.d_model), dtype=torch.float32))
             x = x * scale.to(dtype=dtype, device=x.device)
         return x
 
-    def _logits(self, params, x):
+    def _head(self, params) -> str:
+        return "lm_head" if "lm_head" in params else "embed"
+
+    def _logits(self, params, x, place=None):
+        """(B, S, padded_vocab) f32 logits; vocab-parallel under ``place``,
+        this rank's columns (the padding mask at their global indices)."""
         x = apply_norm(params["final_norm"], x, kind=self.cfg.norm_kind)
-        table = params["lm_head" if "lm_head" in params else "embed"]
-        logits = unembed(table, x)
+        head = sub(place, self._head(params))
+        logits = unembed(params[self._head(params)], x, place=head)
         if self.cfg.padded_vocab != self.cfg.vocab:
-            vocab = torch.arange(logits.shape[-1], device=logits.device)
+            axis = _vocab_axis(head)
+            start = 0 if axis is None else axis.rank * logits.shape[-1]
+            vocab = start + torch.arange(logits.shape[-1], device=logits.device)
             logits = torch.where(vocab < self.cfg.vocab, logits,
                                  torch.tensor(-1e30, device=logits.device))
         return logits
 
-    def _inputs(self, params, batch, dtype):
+    def _inputs(self, params, batch, dtype, place=None):
         if self.cfg.frontend == "embed":
             return batch["embeds"].to(dtype)
-        return self._embed_tokens(params, batch["tokens"], dtype)
+        return self._embed_tokens(params, batch["tokens"], dtype, place)
 
-    def _encode(self, params, src_frames, remat=False):
+    def _encode(self, params, src_frames, remat=False, place=None):
         """The encoder's memory (B, S_enc, d) from the source frames."""
-        h, _ = T.stack_train(params["encoder"], src_frames, self.enc_stack, remat=remat)
+        h, _ = T.stack_train(params["encoder"], src_frames, self.enc_stack, remat=remat,
+                             place=sub(place, "encoder"))
         return apply_norm(params["enc_norm"], h, kind=self.cfg.norm_kind)
 
     def _serve_stack(self) -> T.StackCfg:
         return self.dec_stack if self.cfg.is_encdec else self.stack
 
-    def _stack_params(self, params):
-        return params["decoder" if self.cfg.is_encdec else "stack"]
+    def _stack_key(self) -> str:
+        return "decoder" if self.cfg.is_encdec else "stack"
 
-    def _memory(self, params, batch, dtype, remat=False):
+    def _stack_params(self, params):
+        return params[self._stack_key()]
+
+    def _memory(self, params, batch, dtype, remat=False, place=None):
         """The encoder's memory for an encdec batch, else None."""
         if not self.cfg.is_encdec:
             return None
-        return self._encode(params, batch["src_frames"].to(dtype), remat)
+        return self._encode(params, batch["src_frames"].to(dtype), remat, place)
 
     # -- forward -----------------------------------------------------------
-    def train_logits(self, params, batch, *, dtype=torch.bfloat16, remat=False):
+    def train_logits(self, params, batch, *, dtype=torch.bfloat16, remat=False, place=None):
         """Full-sequence logits (B, S, padded_vocab) in f32 and the aux
         loss: the MoE blocks' aux summed over the stack (0.0 for a stack
         without MoE).  An encdec batch holds ``src_frames`` (B, S_enc, d)
         and the decoder's ``tokens``.  ``remat`` checkpoints the stacks'
-        activations for a backward pass (the values are the same)."""
-        memory = self._memory(params, batch, dtype, remat)
-        x = self._inputs(params, batch, dtype)
+        activations for a backward pass (the values are the same).
+        ``place`` (a sharded state's placement over ``params``, this rank's
+        shards) runs the model parallel: the logits are then this rank's
+        vocab columns."""
+        memory = self._memory(params, batch, dtype, remat, place)
+        x = self._inputs(params, batch, dtype, place)
         x, aux = T.stack_train(self._stack_params(params), x, self._serve_stack(), memory,
-                               remat=remat)
-        return self._logits(params, x), aux
+                               remat=remat, place=sub(place, self._stack_key()))
+        return self._logits(params, x, place), aux
 
     def forward(self, params, batch, *, dtype=torch.bfloat16):
         return self.train_logits(params, batch, dtype=dtype)
 
     # -- training ----------------------------------------------------------
     def loss_fn(self, params, batch, *, dtype=torch.bfloat16, remat=True, denom=None,
-                shards: int = 1):
+                shards: int = 1, place=None):
         """(total, metrics): the masked cross-entropy and z-loss of
         ``batch["labels"]`` under ``batch["loss_mask"]``, plus ``1e-2`` times
         the MoE aux loss; the metrics carry ``xent`` and ``aux``.  A
@@ -153,9 +185,13 @@ class LM(torch.nn.Module):
         count over every rank's rows: its cross-entropy is its rows' masked
         sum over ``denom`` and its aux weighs ``1/shards``, so that the
         ranks' totals add up to the global masked mean plus the mean of the
-        ranks' aux losses."""
-        logits, aux = self.train_logits(params, batch, dtype=dtype, remat=remat)
-        loss, metrics = softmax_xent(logits, batch["labels"], batch["loss_mask"], denom=denom)
+        ranks' aux losses.  ``place``: the placement of a sharded state's
+        ``params`` (:meth:`train_logits`); the loss is the same on every
+        model rank."""
+        logits, aux = self.train_logits(params, batch, dtype=dtype, remat=remat, place=place)
+        vocab = _vocab_axis(sub(place, self._head(params)))
+        loss, metrics = softmax_xent(logits, batch["labels"], batch["loss_mask"], denom=denom,
+                                     vocab=vocab)
         total = loss + 1e-2 * (aux / shards)
         metrics["aux"] = aux
         return total, metrics

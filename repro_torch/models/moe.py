@@ -33,6 +33,15 @@ results (ROADMAP §3):
 Decode runs every expert's weights through the grouped product, experts
 with no token included, as the reference's grouped einsum does: a
 decode step reads all ``E`` experts' weights.
+
+Expert parallel (training): under a placement (``place=``) whose specs
+split the experts over "model", every model rank routes the same
+replicated tokens whole (routing, capacity and aux are the same on each),
+runs only its ``E / tp`` experts' products on their rows of the grouped
+buffer, and ``gather_from`` collects the ``(E, cap, d)`` outputs in
+expert order; the combine then adds each token's slots in ascending slot
+order as above, so the bits are those of the single-process step wherever
+the expert products give the same bits.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.tensor_parallel import copy_to, gather_from
 from .layers import _f32, _he, _matmul_to
 
 __all__ = ["MoESpec", "init_moe", "moe_ffn"]
@@ -75,7 +85,8 @@ def _capacity(tokens: int, spec: MoESpec) -> int:
     return max(c, spec.min_capacity)
 
 
-def moe_ffn(p, x: torch.Tensor, spec: MoESpec) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p, x: torch.Tensor, spec: MoESpec, place=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, d) -> ((B, S, d), aux).  aux = load balance + router z-loss,
     a float32 scalar.
 
@@ -89,11 +100,11 @@ def moe_ffn(p, x: torch.Tensor, spec: MoESpec) -> Tuple[torch.Tensor, torch.Tens
         nc = t // spec.token_chunk
         outs, aux_sum = [], 0.0
         for chunk in xf.split(spec.token_chunk):
-            yc, aux = _moe_tokens(p, chunk, spec)
+            yc, aux = _moe_tokens(p, chunk, spec, place)
             outs.append(yc)
             aux_sum = aux_sum + aux
         return torch.cat(outs).reshape(b, s, d).to(x.dtype), aux_sum / nc
-    out, aux = _moe_tokens(p, xf, spec)
+    out, aux = _moe_tokens(p, xf, spec, place)
     return out.reshape(b, s, d).to(x.dtype), aux
 
 
@@ -132,7 +143,15 @@ def _route(p, xf: torch.Tensor, spec: MoESpec) -> Route:
     return Route(logits, probs, gate_vals, expert_idx, keep, dest, cap)
 
 
-def _moe_tokens(p, xf: torch.Tensor, spec: MoESpec) -> Tuple[torch.Tensor, torch.Tensor]:
+def _experts(p, gx: torch.Tensor, dtype) -> torch.Tensor:
+    """The expert FFN (SwiGLU), batched over the leaves' experts."""
+    g = F.silu(torch.bmm(gx, p["w_gate"]))
+    u = torch.bmm(gx, p["w_up"])
+    return _matmul_to((g * u).to(dtype), p["w_down"], dtype)
+
+
+def _moe_tokens(p, xf: torch.Tensor, spec: MoESpec, place=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(T, d) -> ((T, d), aux)."""
     t, d = xf.shape
     e, k = spec.n_experts, spec.top_k
@@ -153,12 +172,13 @@ def _moe_tokens(p, xf: torch.Tensor, spec: MoESpec) -> Tuple[torch.Tensor, torch
     w_slot[slots] = r.gate_vals.reshape(-1).float()
     w_slot = w_slot[:e * cap]
     xf_pad = torch.cat([xf, xf.new_zeros((1, d))])
-    gx = _f32(xf_pad[inv].reshape(e, cap, d))
-
-    # expert FFN (SwiGLU), batched over all E experts
-    g = F.silu(torch.bmm(gx, p["w_gate"]))
-    u = torch.bmm(gx, p["w_up"])
-    y = _matmul_to((g * u).to(xf.dtype), p["w_down"], xf.dtype)
+    axis = place.model if place is not None and place.split("w_up", 0) else None
+    if axis is None:  # every expert here
+        y = _experts(p, _f32(xf_pad[inv].reshape(e, cap, d)), xf.dtype)
+    else:  # this rank's experts' rows, then every rank's outputs in expert order
+        local = p["w_up"].shape[0]
+        rows = inv.reshape(e, cap)[axis.rank * local:(axis.rank + 1) * local]
+        y = gather_from(_experts(p, copy_to(_f32(xf_pad), axis)[rows], xf.dtype), 0, axis)
 
     y_w = y.reshape(e * cap, d).float() * w_slot[:, None]
     out = _combine(y_w, r.dest).to(xf.dtype)

@@ -28,6 +28,15 @@ causal self-attention, cross-attention over the encoder memory, MLP:
 seamless).  An ``xattn`` cache is ``{"self": K/V cache, "ck", "cv"}``:
 prefill fills ``ck``/``cv`` with the memory's projection (at the
 memory's real length, as the reference does) and decode reads them.
+
+Under a placement (``place=``, training on a sharded state:
+``distributed/tensor_parallel.py``) ``stack_train`` gives each block its
+leaves through ``Placement.use`` inside the block's activation
+checkpoint (repetition ``r``'s slice of the stacked leaves, the "data"
+dims gathered, again in the backward under remat), and the blocks run
+tensor and expert parallel where the specs split a dim.  A recurrent
+mixer gathers its leaves' "model" shards before use and runs whole
+(ROADMAP §3, departures); its block's MLP runs tensor parallel.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed.tensor_parallel import sub
 from . import attention as A
 from . import recurrent as R
 from .layers import _device, apply_norm, init_mlp, init_norm, mlp
@@ -177,13 +187,13 @@ def init_block(gen, bc: BlockCfg):
     return p
 
 
-def _ffn(p, x, bc: BlockCfg):
+def _ffn(p, x, bc: BlockCfg, place=None):
     """Second residual branch: the MLP or the MoE FFN.  Returns (delta,
     aux); aux is 0.0 for the MLP."""
     h = apply_norm(p["ln_mlp"], x, kind=bc.norm_kind)
     if bc.kind == "attn_moe":
-        return moe_ffn(p["moe"], h, bc.moe)
-    return mlp(p["mlp"], h, kind=bc.mlp_kind), 0.0
+        return moe_ffn(p["moe"], h, bc.moe, place=sub(place, "moe"))
+    return mlp(p["mlp"], h, kind=bc.mlp_kind, place=sub(place, "mlp")), 0.0
 
 
 #: A recurrent block's norm and parameter keys, its spec's field on
@@ -199,27 +209,30 @@ def _has_ffn(bc: BlockCfg) -> bool:
     return bc.kind in ATTN_KINDS or bc.kind == "rec"
 
 
-def _cross(p, x, bc: BlockCfg, k, v):
+def _cross(p, x, bc: BlockCfg, k, v, place=None):
     """The ``xattn`` block's cross-attention residual over memory K/V."""
     h = apply_norm(p["ln_cross"], x, kind=bc.norm_kind)
-    return x + A.attend_cross(p["cross"], h, k, v, bc.cross)
+    return x + A.attend_cross(p["cross"], h, k, v, bc.cross, place=sub(place, "cross"))
 
 
-def block_train(p, x, bc: BlockCfg, memory=None):
+def block_train(p, x, bc: BlockCfg, memory=None, place=None):
     """Returns (x, aux); ``memory`` (B, S_enc, d) feeds an ``xattn``
-    block's cross-attention."""
+    block's cross-attention.  ``place`` is the block's placement (its
+    leaves' "data" dims already gathered)."""
     if bc.kind in STATE_KINDS:
         ln, core, spec, train, _ = _MIXERS[bc.kind]
         h = apply_norm(p[ln], x, kind=bc.norm_kind)
-        x = x + train(p[core], h, getattr(bc, spec))
+        mixer = p[core] if place is None else place.sub(core).gathered(p[core])
+        x = x + train(mixer, h, getattr(bc, spec))
     else:
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
-        x = x + A.attend_train(p["attn"], h, bc.attn)
+        x = x + A.attend_train(p["attn"], h, bc.attn, place=sub(place, "attn"))
         if bc.kind == "xattn":
-            x = _cross(p, x, bc, *A.cross_kv(p["cross"], memory, bc.cross))
+            kv = A.cross_kv(p["cross"], memory, bc.cross, place=sub(place, "cross"))
+            x = _cross(p, x, bc, *kv, place=place)
     aux = 0.0
     if _has_ffn(bc):
-        delta, aux = _ffn(p, x, bc)
+        delta, aux = _ffn(p, x, bc, place)
         x = x + delta
     return x, aux
 
@@ -345,20 +358,27 @@ def init_stack(gen, sc: StackCfg):
     return {"reps": tuple(rep_params), "tail": tail_params}
 
 
-def stack_train(params, x, sc: StackCfg, memory=None, remat: bool = False):
+def stack_train(params, x, sc: StackCfg, memory=None, remat: bool = False, place=None):
     """Forward over the stack; returns (x, aux).  With ``remat`` each
     repetition of the pattern and each tail block is one activation
     checkpoint, as the reference's ``jax.checkpoint`` of its scan body and
     tail blocks: backward keeps only their inputs and recomputes the rest
-    (the same ops, so the same bits)."""
+    (the same ops, so the same bits).  ``place`` is the stack's placement
+    (module docstring)."""
     def rep(r, x, aux):
         for i, bc in enumerate(sc.pattern):
-            x, a = block_train(rep_slice(params["reps"][i], r), x, bc, memory)
+            p, bp = rep_slice(params["reps"][i], r), None
+            if place is not None:
+                p, bp = place.sub("reps", i).use(p, stacked=True)
+            x, a = block_train(p, x, bc, memory, bp)
             aux = aux + a
         return x, aux
 
     def tail(i, x, aux):
-        x, a = block_train(params["tail"][i], x, sc.pattern[i], memory)
+        p, bp = params["tail"][i], None
+        if place is not None:
+            p, bp = place.sub("tail", i).use(p)
+        x, a = block_train(p, x, sc.pattern[i], memory, bp)
         return x, aux + a
 
     def run(fn, *args):

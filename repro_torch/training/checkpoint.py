@@ -15,6 +15,14 @@ the insertion order the rest of the port walks.  The directory is written
 under a temporary name and renamed into place.  A checkpoint holds no
 device: ``restore_checkpoint`` puts every leaf on the device it is asked
 for, so a run saved on the card resumes on the CPU and the reverse.
+
+A sharded train state (``train_loop.ShardedTrainState``) saves in the
+same layout: every rank takes part in gathering each leaf whole, one leaf
+at a time, and global rank 0 writes it; the ranks then meet at a barrier,
+so none reads the directory before it is committed.  Restoring into a
+sharded ``like`` cuts each rank's shards from the whole leaves, so a
+checkpoint written by either package, sharded or not, resumes on any
+mesh.
 """
 
 from __future__ import annotations
@@ -27,9 +35,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.packing import resolve_device
-from ..models.tree import tree_flatten_sorted, tree_unflatten_sorted
+from ..distributed.sharding import local_shape
+from ..distributed.tensor_parallel import gather_tree, mesh_axes, shard_tree
+from ..models.tree import tree_flatten_sorted, tree_map, tree_unflatten_sorted
+from .train_loop import ShardedTrainState
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "list_steps"]
 
@@ -49,11 +61,41 @@ def _structure(tree) -> str:
     return "*"
 
 
+class _Spec:
+    """A leaf's spec as a leaf (a spec's own tuple is not a container)."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+
+def _sorted_specs(state: ShardedTrainState):
+    """The state's leaf specs in ``tree_flatten_sorted`` order."""
+    wrapped = tree_map(lambda _, s: _Spec(s), state, state.state_specs())
+    return [w.spec for w in tree_flatten_sorted(wrapped)]
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None):
     """Copy every leaf to the host and write the step's directory
     atomically (temporary directory, rename, COMMIT marker).  Returns the
-    directory."""
+    directory.  A sharded state is gathered leaf by leaf and written by
+    global rank 0 (module docstring); every rank of its mesh calls this."""
     leaves = tree_flatten_sorted(state)
+    if isinstance(state, ShardedTrainState):
+        axes = mesh_axes(state.mesh)
+        leaves = (gather_tree(leaf, spec, axes)
+                  for leaf, spec in zip(leaves, _sorted_specs(state)))
+        if dist.get_rank() != 0:
+            for _ in leaves:  # each gather is a collective
+                pass
+            dist.barrier()
+            return _step_dir(ckpt_dir, step)
+    final = _write(ckpt_dir, step, state, leaves, extra)
+    if isinstance(state, ShardedTrainState):
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, state, leaves, extra):
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_ckpt_")
@@ -62,7 +104,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state, extra: Optional[Dict] = Non
     manifest = {
         "step": step,
         "treedef": _structure(state),
-        "n_leaves": len(leaves),
+        "n_leaves": len(tree_flatten_sorted(state)),
         "leaves": [],
         "extra": extra or {},
     }
@@ -102,7 +144,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, device="cuda") -> Tuple[A
     ``device``, the manifest's ``extra``).  ``like``'s leaves give only
     shapes (meta tensors do); each leaf keeps the dtype and bits it was
     saved with.  A leaf count or a shape that differs raises
-    ``ValueError``."""
+    ``ValueError``.  A sharded ``like`` gets this rank's shards of each
+    leaf, a ``ShardedTrainState`` of its specs and mesh."""
     device = resolve_device(device)
     d = _step_dir(ckpt_dir, step)
     if not os.path.exists(os.path.join(d, "COMMIT")):
@@ -113,11 +156,19 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, device="cuda") -> Tuple[A
     if manifest["n_leaves"] != len(like_leaves):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, expected "
                          f"{len(like_leaves)} — structure mismatch")
+    sharded = isinstance(like, ShardedTrainState)
+    if sharded:
+        axes, specs = mesh_axes(like.mesh), _sorted_specs(like)
     out = []
     for i, ref in enumerate(like_leaves):
         arr = np.load(os.path.join(d, "arrays", f"{i}.npy"))
-        if tuple(arr.shape) != tuple(ref.shape):
+        shape = local_shape(arr.shape, specs[i], like.mesh) if sharded else tuple(arr.shape)
+        if shape != tuple(ref.shape):
             raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != expected "
                              f"{tuple(ref.shape)}")
-        out.append(torch.from_numpy(arr).to(device))
-    return tree_unflatten_sorted(like, out), manifest["extra"]
+        leaf = torch.from_numpy(arr)
+        out.append((shard_tree(leaf, specs[i], axes) if sharded else leaf).to(device))
+    tree = tree_unflatten_sorted(like, out)
+    if sharded:
+        tree = ShardedTrainState(tree, like.specs, like.mesh)
+    return tree, manifest["extra"]

@@ -13,7 +13,7 @@ from typing import Tuple
 
 import torch
 
-from ..models.tree import tree_map, tree_unflatten
+from ..models.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["CompressionConfig", "init_residual", "compress_grads", "ef_correct"]
 
@@ -29,31 +29,40 @@ def init_residual(params):
                     params)
 
 
-def _quant(x: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _quant(x: torch.Tensor, bits: int, amax=None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(codes, scale, dequantized); ``amax`` the largest magnitude of the
+    whole tensor when ``x`` is a shard of it (default ``x``'s own)."""
     qmax = float(2 ** (bits - 1) - 1)
+    if amax is None:
+        amax = torch.amax(torch.abs(x))
     # a true division (by a scalar on the host the card would multiply by
     # its reciprocal)
-    scale = torch.amax(torch.abs(x)) / torch.tensor(qmax, device=x.device)
+    scale = amax / torch.tensor(qmax, device=x.device)
     scale = torch.clamp(scale, min=1e-12)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
     deq = q.float() * scale
     return q, scale, deq
 
 
-def compress_grads(grads, residual, cfg: CompressionConfig):
+def compress_grads(grads, residual, cfg: CompressionConfig, whole=None):
     """(dequantized grads, new residual); both trees unchanged when
-    compression is off."""
+    compression is off.  For trees of shards, ``whole`` maps the vector of
+    the leaves' local largest magnitudes to their whole leaves'
+    (``tensor_parallel.over_shards`` with a max), so that every shard of a
+    leaf takes the whole leaf's scale."""
     if not cfg.enable:
         return grads, residual
+    pairs = list(zip(tree_leaves(grads), tree_leaves(residual)))
+    amax = None
+    if whole is not None:
+        amax = whole(torch.stack([torch.amax(torch.abs(g.float() + r)) for g, r in pairs]))
     deq, res = [], []
-
-    def one(g, r):
+    for i, (g, r) in enumerate(pairs):
         x = g.float() + r
-        _, _, d = _quant(x, cfg.bits)
+        _, _, d = _quant(x, cfg.bits, None if amax is None else amax[i])
         deq.append(d)
         res.append(x - d)
-
-    tree_map(one, grads, residual)
     return tree_unflatten(grads, deq), tree_unflatten(grads, res)
 
 

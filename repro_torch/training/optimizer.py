@@ -63,10 +63,15 @@ def init_opt_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(tree, whole=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares.
+    For a tree of shards, ``whole`` maps the vector of the leaves' local
+    sums to their whole leaves' sums (``tensor_parallel.over_shards``), so
+    that each leaf is counted once over the mesh."""
+    sums = torch.stack([torch.sum(torch.square(x.float())) for x in tree_leaves(tree)])
+    if whole is not None:
+        sums = whole(sums)
+    return torch.sqrt(torch.sum(sums))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -82,12 +87,13 @@ def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
     return tree_map(lambda x: x.float() * scale, grads), g
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state):
+def adamw_update(cfg: AdamWConfig, params, grads, state, whole=None):
     """One AdamW step.  Returns (params, state, metrics ``grad_norm`` and
     ``lr``), all new tensors.  Each leaf's gradient is clipped as
     :func:`clip_by_global_norm` clips it, inside the leaf's update, so that
-    no clipped copy of the whole tree is held."""
-    gnorm = global_norm(grads)
+    no clipped copy of the whole tree is held.  On shards, ``whole`` (see
+    :func:`global_norm`) makes the clip's norm the whole tree's."""
+    gnorm = global_norm(grads, whole)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state["step"] + 1
     lr = schedule(cfg, step)

@@ -1502,3 +1502,36 @@ def test_data_parallel_step_at_world_one_is_bitwise(cuda, nccl_mesh, determinist
         dp, md = make_train_step(lm, tcc, nccl_mesh)(state, batch)
         assert torch.equal(mp["loss"], md["loss"])
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(plain), tree_leaves(dp)))
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "llama4_scout_17b_a16e", "xlstm_125m"])
+def test_sharded_step_at_world_one_is_bitwise(cuda, nccl_mesh, deterministic, arch):
+    """A reduced model's state cut by ``shard_train_state`` over a (1, 1)
+    ``("data", "model")`` mesh of the one-rank NCCL group (every leaf its
+    own shard: no axis has two ranks), stepped by ``make_train_step(lm,
+    tc, mesh)`` (the placement read by every block, the clip's norm over
+    the shards, the sums of the sharded step, with and without
+    compression), equals the whole state's plain step bit for bit, and
+    gathers back to it."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.compression import CompressionConfig
+    from repro_torch.training.train_loop import gather_train_state, shard_train_state
+
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    lm, tc, _ = _train_setup(cuda, arch=arch)
+    batch = _train_batches(lm, 1, cuda)[0]
+    for comp in (CompressionConfig(), CompressionConfig(enable=True)):
+        tcc = dataclasses.replace(tc, compression=comp, microbatches=2)
+        state = init_train_state(lm, torch.Generator().manual_seed(0), tcc, device=cuda)
+        plain, mp = make_train_step(lm, tcc)(state, batch)
+        sharded, ms = make_train_step(lm, tcc, mesh)(shard_train_state(state, mesh), batch)
+        assert type(sharded).__name__ == "ShardedTrainState"
+        assert torch.equal(mp["loss"], ms["loss"])
+        assert torch.equal(mp["grad_norm"], ms["grad_norm"])
+        whole = gather_train_state(sharded)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(plain), tree_leaves(whole)))

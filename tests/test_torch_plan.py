@@ -152,6 +152,7 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.training.fault_tolerance, repro_torch.data.pipeline, "
         "repro_torch.launch.train, repro_torch.distributed, "
         "repro_torch.distributed.sharding, repro_torch.distributed.collectives, "
+        "repro_torch.distributed.tensor_parallel, repro_torch.distributed.gloo_probe, "
         "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
         "repro_torch.launch.cost_account; "
         "[getattr(repro_torch.analysis, n) for n in repro_torch.analysis.__all__]; "

@@ -136,7 +136,20 @@ def _train(rank, world, mesh, tmp_dir):
     return dp_case(mesh, tmp_dir)
 
 
-PROGRAMS = {"collectives": _collectives, "spmv": _spmv, "train": _train}
+def _tp(rank, world, mesh, tmp_dir):
+    from train_tp_case import tp_case
+
+    return tp_case(rank, world, tmp_dir)
+
+
+def _tp_checkpoint(rank, world, mesh, tmp_dir):
+    from train_tp_case import checkpoint_case
+
+    return checkpoint_case(rank, world, tmp_dir)
+
+
+PROGRAMS = {"collectives": _collectives, "spmv": _spmv, "train": _train, "tp": _tp,
+            "tp_checkpoint": _tp_checkpoint}
 
 
 def main(program: str, rank: int, world: int, tmp_dir: str) -> None:

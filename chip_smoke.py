@@ -160,6 +160,20 @@ counts zeroed just before it and read just after:
     seeded state (llama4's with each data rank's rows routed on their
     own, ``per_data_rank_step``, as the sharded step routes them).
 
+    Its serve phase (``TP_SERVE``, ``TP_SERVE_MODELS``): the same four
+    ranks serve yi-6b and llama4-scout at their published widths, 1 layer
+    (llama4's table cut as above), a prefill of 64 tokens and 8 decode
+    steps at batch 4, ``seq_len`` 512, float32, each rank holding only its
+    shards (``shard_serve_state``: ``param_specs(..., mode="serve")`` and
+    ``cache_spec_overrides``) and running ``LM.prefill`` /
+    ``LM.decode_step`` / ``decode_step_gust`` with ``place=``: yi-6b dense
+    and GUST on (1, 4) (kernel 5, padded) and on (2, 2) (kernel 7, ragged;
+    its large serve leaves gathered over "data" per block), llama4 on (1,
+    4) (4 experts a rank).  The GUST plans are built once in the smoke's
+    process into a ``PlanStore`` and loaded, verified, by every rank.  Each
+    run is teacher-forced on the greedy tokens of the same decode run whole
+    in the smoke's process, and held to it.
+
 Before its first launch every artifact the smoke builds passes the
 artifact verifier (``GustPlan.verify()``, the ``GUST-Pxx`` rules) with no
 finding: crankseg_2's eight (padded/ragged × float32/int8 ×
@@ -274,7 +288,12 @@ Checks, each fatal:
     of ``local_shape``'s shapes, its parameter and optimizer bytes
     ``tree_bytes_per_device``'s, no whole stacked leaf allocated in its
     first step (an allocation watch); no GUST kernel launched by the whole
-    steps; a rank that fails or outlives its timeout fails the path.
+    steps; a rank that fails or outlives its timeout fails the path.  Its
+    serve phase: every rank's logits of the prefill and of each step
+    within ``1e-5`` of the largest |logit| of the whole decode's rows, its
+    parameter and cache bytes and (rank 0) its collectives' bytes a
+    decode step the account's, a GUST run's kernel (5 or 7) launched on
+    every rank from store-loaded plans, no kernel in a dense run.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 for all ten kernels (times from CUDA events, bounds from this run's
@@ -312,7 +331,10 @@ account cell the bytes, the reckoned peak beside ``max_memory_allocated``
 and the matmul FLOPs, on a ``{"shard": {...}}`` line; for the tp path per
 model and rank the step ms, the peak memory beside the account's, the
 collective bytes a step by collective and the transport (which
-collectives went through the host), on a ``{"tp": {...}}`` line; the
+collectives went through the host), and per serve run and rank the
+prefill and decode-step ms, the peak memory beside the account's, the
+bytes a decode step by collective and the kernel launches, on a
+``{"tp": {...}}`` line; the
 audit's report and an ``{"audit":
 {...}}`` line, the verifier's seconds per artifact, the paper metric;
 the card's name; and as its last line
@@ -913,6 +935,8 @@ def main() -> int:
     t0 = time.perf_counter()
     tp = report["tp"] = tp_path(report, launch_counts)
     report["tp_seconds"] = tp["seconds"] = time.perf_counter() - t0
+    for name, count in tp["launches"].items():
+        launches[name] += count
     log(f"tp path: {report['tp_seconds']:.1f} s")
 
     # -- the resource audit: every library and every launch plan used ----------------
@@ -2719,6 +2743,29 @@ TP_MODELS = {
 #: The sharded steps against the whole ones: loss and gradient norm
 #: relative, every parameter absolute.
 TOL_TP = 1e-5
+#: The ``tp`` path's serve phase: on the same four ranks, a prefill of a
+#: ``prompt_len``-token prompt and ``steps`` decode steps at batch 4,
+#: ``seq_len`` 512, float32, teacher-forced on the greedy tokens of the same
+#: decode run whole in the smoke's process (``TP_SERVE_MODELS``: 1 layer at
+#: the published widths, llama4's table cut as ``TP_MODELS``'; ``runs``: the
+#: meshes and modes, "gust_padded" / "gust_ragged" the MLP through kernel 5
+#: / 7 at ``GustServeConfig()``, its plans built once here into a
+#: ``PlanStore`` and loaded, verified, by every rank).  ``gust``: the
+#: ``GustServeConfig`` fields (none: the defaults).  The prompt fills the
+#: cache past the first slot of every model rank's share of the length
+#: (four shares of 128 positions on (1, 4), two of 256 on (2, 2)), so the
+#: flash decode combines live partial softmaxes from every rank, and the
+#: decode steps write slots that a rank other than the first owns.
+TP_SERVE = dict(batch=4, seq_len=512, prompt_len=448, steps=8, seed=0, gust={})
+TP_SERVE_MODELS = {
+    "yi": dict(arch="yi_6b", layers=1, vocab=None, reduced=False,
+               runs=(((1, 4), "dense"), ((1, 4), "gust_padded"), ((2, 2), "dense"),
+                     ((2, 2), "gust_ragged"))),
+    "llama4": dict(arch="llama4_scout_17b_a16e", layers=1, vocab=8192, reduced=False,
+                   runs=(((1, 4), "dense"),)),
+}
+#: A rank's logits against the whole decode's, of the largest |logit|.
+TOL_TP_SERVE = 1e-5
 
 
 def first_step(state):
@@ -2791,7 +2838,8 @@ def per_data_rank_step(lm, tc, state, batch, dp):
 def allocations():
     """A ``TorchDispatchMode`` recording, in ``.seen``, the shape of every
     tensor an op run under it allocates (an output over an input's
-    storage, a view, is not counted), and in ``.ops`` the ops' names."""
+    storage, a view, is not counted, nor a tensor on the meta device,
+    which holds no storage), and in ``.ops`` the ops' names."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves as leaves
@@ -2808,25 +2856,297 @@ def allocations():
             inputs = {t.untyped_storage()._cdata for t in leaves((args, kwargs))
                       if isinstance(t, torch.Tensor)}
             for t in leaves(out):
-                if isinstance(t, torch.Tensor) and t.untyped_storage()._cdata not in inputs:
+                if (isinstance(t, torch.Tensor) and t.device.type != "meta"
+                        and t.untyped_storage()._cdata not in inputs):
                     self.seen.add(tuple(t.shape))
             return out
 
     return Allocations()
 
 
-def whole_stacked_shapes(params, specs, mesh, local):
-    """The whole shapes of the stacked ``(R, ...)`` leaves that ``mesh``
-    splits, less those that some local leaf also has (``local``: an
-    allocation of such a shape would be ambiguous)."""
+def split_leaves(tree, specs, mesh):
+    """(path, whole shape) of each leaf of ``tree`` that ``mesh`` splits
+    under its spec in ``specs``."""
     from repro_torch.distributed.sharding import local_shape, map_with_path
     from repro_torch.models.tree import tree_map
 
     paths, flat = [], []
-    map_with_path(lambda path, leaf: paths.append(path), params)
-    tree_map(lambda leaf, spec: flat.append((tuple(leaf.shape), spec)), params, specs)
-    return {shape for path, (shape, spec) in zip(paths, flat)
-            if "/reps/" in f"/{path}/" and local_shape(shape, spec, mesh) != shape} - local
+    map_with_path(lambda path, leaf: paths.append(path), tree)
+    tree_map(lambda leaf, spec: flat.append((tuple(leaf.shape), spec)), tree, specs)
+    return [(path, shape) for path, (shape, spec) in zip(paths, flat)
+            if local_shape(shape, spec, mesh) != shape]
+
+
+def whole_stacked_shapes(params, specs, mesh, local):
+    """The whole shapes of the stacked ``(R, ...)`` leaves that ``mesh``
+    splits, less those that some local leaf also has (``local``: an
+    allocation of such a shape would be ambiguous)."""
+    return {shape for path, shape in split_leaves(params, specs, mesh)
+            if "/reps/" in f"/{path}/"} - local
+
+
+def whole_cache_shapes(caches, specs, mesh, local):
+    """The whole shapes of the cache leaves that ``mesh`` splits, and of
+    one layer's slice of each rep-stacked one but a cross-attention's
+    ``ck``/``cv`` (the prefill projects the whole memory, which every
+    rank's heads attend over, before it keeps the rank's positions), less
+    ``local`` (as :func:`whole_stacked_shapes`)."""
+    out = set()
+    for path, shape in split_leaves(caches, specs, mesh):
+        out.add(shape)
+        if "/reps/" in f"/{path}/" and path.rsplit("/", 1)[-1] not in ("ck", "cv"):
+            out.add(shape[1:])
+    return out - local
+
+
+def live_slots(caches, place):
+    """The fewest written positions that this rank holds in any attention
+    cache whose length the placement splits over "model": the ``pos``
+    leaf is whole on every rank (the rule replicates it), the rank holds
+    its ``model``-th share of the slots.  None without such a cache."""
+    import torch
+
+    counts = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "k" in node and "pos" in node:
+                c, cl = node["pos"].shape[-1], node["k"].shape[-3]
+                if cl < c and node["pos"].numel():  # a stack of no repetitions holds none
+                    first = place.model.rank * cl
+                    counts.append(int((node["pos"][..., first:first + cl] >= 0).sum()))
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    with torch.no_grad():
+        walk(caches)
+    return min(counts) if counts else None
+
+
+def other_blocks(held):
+    """The card's allocated blocks (``torch.cuda.memory_snapshot``) that
+    hold none of the tensors of ``held``: their sizes, largest first."""
+    import torch
+
+    from repro_torch.models.tree import tree_leaves
+
+    ptrs = {t.untyped_storage().data_ptr() for t in tree_leaves(held) if t.numel()}
+    return sorted((b["size"] for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+                   if b["state"] == "active_allocated" and b["address"] not in ptrs),
+                  reverse=True)
+
+
+def tp_serve_gust(mode, gust, store=None):
+    """The ``GustServeConfig`` of a serve run's mode (None: dense)."""
+    from repro_torch.serving import GustServeConfig
+
+    if mode == "dense":
+        return None
+    extra = {} if store is None else {"plan_store": store, "store_verify": "load"}
+    return GustServeConfig(ragged=mode == "gust_ragged", **gust, **extra)
+
+
+def tp_serve_prompt(vocab, dev):
+    """The serve phase's prompt batch, numpy seed 0."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, vocab, (TP_SERVE["batch"], TP_SERVE["prompt_len"]))
+                            .astype(np.int32)).to(dev)
+
+
+def tp_serve_decode(lm, params, caches, prompt, tokens, gust, place=None, timed=None,
+                    after_prefill=None, watch=None):
+    """A prefill of ``prompt`` and a decode step for each of ``tokens``
+    (None: the greedy token of the step before), float32; returns (the
+    logits of the prefill's last position and of every step, host copies,
+    the tokens fed, the caches after the last step).  ``timed``: a dict
+    that receives the prefill ms and each step's ms (CUDA events on the
+    card); ``after_prefill(caches)`` runs between the prefill and the first
+    step; ``watch``: a context entered around the prefill and the first
+    step (an allocation watch, whose hook on every op costs host time)."""
+    import torch
+
+    from repro_torch.serving import decode_step_gust
+
+    watched = watch if watch is not None else contextlib.nullcontext()
+    clock = event_ms if torch.cuda.is_available() and prompt.is_cuda else host_ms
+    with watched:
+        (first, caches), ms = clock(lambda: lm.prefill(params, {"tokens": prompt}, caches,
+                                                       dtype=torch.float32, place=place))
+    logits, fed, step_ms = [first[:, -1].cpu()], [], []
+    if after_prefill is not None:
+        after_prefill(caches)
+    for t in range(TP_SERVE["steps"]):
+        tok = (torch.argmax(logits[-1], dim=-1).to(torch.int32)[:, None].to(prompt.device)
+               if tokens is None else tokens[t].to(prompt.device))
+        fed.append(tok.cpu())
+        pos = TP_SERVE["prompt_len"] + t
+        with watched if t == 0 else contextlib.nullcontext():
+            if gust is None:
+                (out, caches), step = clock(lambda: lm.decode_step(
+                    params, caches, tok, pos, dtype=torch.float32, place=place))
+            else:
+                (out, caches), step = clock(lambda: decode_step_gust(
+                    lm, params, gust, caches, tok, pos, dtype=torch.float32, place=place))
+        logits.append(out[:, 0].cpu())
+        step_ms.append(step)
+    if timed is not None:
+        timed.update(prefill_ms=ms, step_ms=step_ms)
+    return logits, torch.stack(fed), caches
+
+
+def tp_serve_whole(report, launch_counts, rdv, dev):
+    """The serve phase's yardsticks in the smoke's process, before the
+    ranks start: each model's whole decode (greedy), dense and, for the
+    GUST modes, with its MLP gustified at ``GustServeConfig()`` into the
+    ``PlanStore`` at ``<rdv>/store`` (every plan verified before its first
+    launch); the greedy tokens go to ``<rdv>/tp_serve_tokens.pt`` for the
+    ranks.  Returns model -> mode -> {"logits", "tokens", ms}, and the
+    kernels this process launched."""
+    import torch
+
+    from repro_torch.core.plan_store import PlanStore
+    from repro_torch.serving import gustify
+
+    out, tokens, launched = {}, {}, {}
+    store = PlanStore(os.path.join(rdv, "store"))
+    for name, spec in TP_SERVE_MODELS.items():
+        cfg, lm, _ = tp_model(spec, TP_SERVE["steps"])
+        params = lm.init(torch.Generator(device=dev).manual_seed(TP_SERVE["seed"]), device=dev)
+        prompt = tp_serve_prompt(cfg.vocab, dev)
+        for mode in sorted({m for _, m in spec["runs"]}):
+            gcfg = tp_serve_gust(mode, TP_SERVE["gust"])
+            gust = None
+            if gcfg is not None:
+                gust = gustify(lm, params, gcfg, store=store)
+                for mat, plans in gust["plans"].items():
+                    for i, p in enumerate(plans):
+                        verified(report, f"tp.serve.{name}.{mode}.{mat}.{i}", p)
+            zero_launches(launch_counts)
+            caches = lm.init_caches(TP_SERVE["batch"], TP_SERVE["seq_len"], torch.float32,
+                                    device=dev)
+            timed = {}
+            logits, fed, _ = tp_serve_decode(lm, params, caches, prompt, None, gust,
+                                             timed=timed)
+            for k, v in read_launches(launch_counts).items():
+                launched[k] = launched.get(k, 0) + v
+            out.setdefault(name, {})[mode] = dict(logits=logits, tokens=fed, **timed)
+            tokens.setdefault(name, {})[mode] = fed
+            del caches, gust
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(tokens, os.path.join(rdv, "tp_serve_tokens.pt"))
+    return out, launched
+
+
+def tp_serve_rank(rank, rdv, dev, conf):
+    """A rank's serve phase (``tp_rank``, after its train steps): per
+    model the whole parameters drawn on the card, then per run its shards
+    of them and of fresh caches made at their local shapes
+    (``init_serve_state`` over the run's mesh, under an allocation watch
+    that the prefill and the first step run under too), a prefill and the
+    decode steps teacher-forced on the whole decode's tokens
+    (``LM.decode_step`` or ``decode_step_gust`` with ``place=``; the GUST
+    plans from the parent's store, verified on load), timed with CUDA
+    events; the memory resident before the prefill (and the allocated
+    blocks that hold no shard), the prefill's and the decode steps' peaks,
+    the positions written in each rank's share of the cache, the bytes each
+    collective sent and the kernels launched; each run's logits to
+    ``<rdv>/tp_serve.<model>.<i>.<rank>.pt``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import collectives
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.serving import gustify, init_serve_state
+
+    serve, models = conf["TP_SERVE"], conf["TP_SERVE_MODELS"]
+    cuda = dev.type == "cuda"
+    tokens = torch.load(os.path.join(rdv, "tp_serve_tokens.pt"))
+    launch_counts, meshes, out = counters(), {}, {}
+    for name, spec in models.items():
+        cfg, lm, _ = tp_model(spec, TP_SERVE["steps"])
+        prompt = tp_serve_prompt(cfg.vocab, dev)
+        rows = out[name] = []
+        for i, (shape, mode) in enumerate(spec["runs"]):
+            shape = tuple(shape)
+            if shape not in meshes:  # every rank makes the meshes in the same order
+                meshes[shape] = init_device_mesh(dev.type, shape,
+                                                 mesh_dim_names=("data", "model"))
+            # the run's shards and plans from the whole parameters, drawn anew
+            # and freed before it starts: it holds what a rank of its mesh holds;
+            # its caches are made shard by shard, under the allocation watch
+            t0 = time.perf_counter()
+            params = lm.init(torch.Generator(device=dev).manual_seed(serve["seed"]),
+                             device=dev)
+            gcfg = tp_serve_gust(mode, serve["gust"], os.path.join(rdv, "store"))
+            gust = None if gcfg is None else gustify(lm, params, gcfg)
+            watch = allocations()
+            with watch:
+                state = init_serve_state(lm, params, meshes[shape], serve["batch"],
+                                         serve["seq_len"], torch.float32)
+            local = {tuple(x.shape) for x in tree_leaves((state.params, state.caches))}
+            meta = lm.init_caches(serve["batch"], serve["seq_len"], torch.float32,
+                                  device="meta")
+            watched = (whole_cache_shapes(meta, state.place.cache, meshes[shape], local)
+                       | whole_stacked_shapes(params, state.place.specs, meshes[shape], local))
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            gust_s = time.perf_counter() - t0
+            held = tree_nbytes(state.params) + tree_nbytes(state.caches)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() if cuda else None
+            others = other_blocks((state.params, state.caches)) if cuda else []
+            zero_launches(launch_counts)
+            collectives.reset_traffic()
+            timed, prefill_traffic, after = {}, {}, {}
+
+            def after_prefill(caches):  # the decode steps' traffic and peak apart
+                prefill_traffic.update({op: dict(r) for op, r in collectives.traffic.items()})
+                collectives.reset_traffic()
+                after["live_slots"] = live_slots(caches, state.place)
+                if cuda:
+                    torch.cuda.synchronize()
+                    after["peak"] = torch.cuda.max_memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+
+            logits, _, caches = tp_serve_decode(lm, state.params, state.caches, prompt,
+                                                tokens[name][mode], gust, state.place, timed,
+                                                after_prefill, watch)
+            torch.save(logits, os.path.join(rdv, f"tp_serve.{name}.{i}.{rank}.pt"))
+            steps = serve["steps"]
+            rows.append({
+                "mesh": list(shape), "mode": mode, "rows": state.place.rows,
+                "prefill_ms": timed["prefill_ms"], "step_ms": timed["step_ms"],
+                "param_cache_bytes": held,
+                "resident_bytes": resident, "other_blocks": others,
+                "prefill_peak_bytes": after.get("peak"),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+                "live_slots_after_prefill": after["live_slots"],
+                "live_slots_at_end": live_slots(caches, state.place),
+                "whole_watched": len(watched),
+                "whole_made": sorted(list(x) for x in watched & watch.seen),
+                "traffic": {op: dict(row) for op, row in collectives.traffic.items()},
+                "prefill_traffic": prefill_traffic,
+                "launches": read_launches(launch_counts),
+                "shard_and_gustify_s": gust_s,
+                "plan_store": None if gust is None else gust["stats"].get("plan_store")})
+            print(f"tp-rank {rank} serve {name} {shape} {mode}: prefill "
+                  f"{timed['prefill_ms']:.1f} ms, steps {[round(x, 1) for x in timed['step_ms']]}"
+                  f" ms over {steps} steps; resident {resident}, other blocks {others}",
+                  flush=True)
+            del state, gust, caches
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
 
 
 def tp_rank(rank, world, rdv, device):
@@ -2934,11 +3254,132 @@ def tp_rank(rank, world, rdv, device):
             gc.collect()
             torch.cuda.empty_cache()
             dist.barrier()
+        out["serve"] = tp_serve_rank(rank, rdv, dev, conf)
         with open(os.path.join(rdv, f"tp.{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def tp_serve_account(whole):
+    """The account of each serve run (``account_cell``'s decode cell on
+    the run's mesh, float32): its bytes a rank, peak and traffic a step."""
+    import torch
+
+    from repro_torch.distributed.sharding import MeshLayout
+    from repro_torch.launch.cost_account import account_cell
+    from repro_torch.serving import dryrun_specs
+
+    out = {"models": {}}
+    f32 = dict(param_dtype=torch.float32, cache_dtype=torch.float32,
+               compute_dtype=torch.float32)
+    for name, spec in TP_SERVE_MODELS.items():
+        cfg, lm, _ = tp_model(spec, TP_SERVE["steps"])
+        runs = []
+        for shape, mode in spec["runs"]:
+            gcfg = tp_serve_gust(mode, TP_SERVE["gust"])
+            t0 = time.perf_counter()
+            rec = account_cell(lm, "decode", TP_SERVE["batch"], TP_SERVE["seq_len"],
+                               MeshLayout(tuple(shape), ("data", "model")),
+                               gust_specs=None if gcfg is None else dryrun_specs(lm, gcfg),
+                               **f32)
+            runs.append({"mesh": list(shape), "mode": mode, "account": {
+                "param_cache_bytes_a_rank": rec["bytes_per_device"]["params"]
+                + rec["bytes_per_device"]["caches"],
+                "arguments_a_rank": rec["bytes_per_device"]["arguments"],
+                "peak_bytes_a_rank": rec["peak_bytes"], "traffic_a_step": rec["traffic"],
+                "seconds": time.perf_counter() - t0}})
+        w = whole[name]
+        out["models"][name] = {
+            "arch": spec["arch"], "layers": cfg.n_layers, "vocab": cfg.vocab,
+            "params": lm.param_count(lm.init(None)), "runs": runs,
+            "whole": {mode: {"prefill_ms": v["prefill_ms"], "step_ms": v["step_ms"]}
+                      for mode, v in w.items()}}
+    return out
+
+
+def tp_serve_gates(out, whole, ranks, rdv):
+    """Each serve run on every rank: its logits within ``TOL_TP_SERVE`` of
+    the largest |logit| of the whole decode's rows, its parameter and cache
+    bytes and its collectives' bytes a step the account's, positions
+    written in its share of every split cache length before the first
+    step, no whole split cache leaf or stacked parameter allocated from
+    its set-up through the first step, and a GUST run's kernel launched
+    (its plans from the store: no schedule on a rank)."""
+    import torch
+
+    for name, row in out["models"].items():
+        for i, run in enumerate(row["runs"]):
+            want = whole[name][run["mode"]]["logits"]
+            acct = run["account"]
+            run["ranks"] = []
+            worst = 0.0
+            for rk in ranks:
+                got = rk["serve"][name][i]
+                tag = f"tp serve {name} {run['mesh']} {run['mode']} rank {rk['rank']}"
+                logits = torch.load(os.path.join(rdv, f"tp_serve.{name}.{i}.{rk['rank']}.pt"))
+                first, n = got["rows"] if got["rows"] else (0, TP_SERVE["batch"])
+                for t, (g, w) in enumerate(zip(logits, want)):
+                    w = w[first:first + n]
+                    err = float((g - w).abs().max()) / float(w.abs().max())
+                    worst = max(worst, err)
+                    if not err <= TOL_TP_SERVE:
+                        raise AssertionError(f"{tag} step {t}: logits {err:.3e} of the "
+                                             f"largest from the whole decode's")
+                if not got["live_slots_after_prefill"]:
+                    raise AssertionError(f"{tag}: {got['live_slots_after_prefill']} positions "
+                                         f"written in its share of the cache before the "
+                                         f"first step")
+                if not got["whole_watched"] or got["whole_made"]:
+                    raise AssertionError(f"{tag}: whole leaves allocated {got['whole_made']} "
+                                         f"of {got['whole_watched']} watched")
+                if got["param_cache_bytes"] != acct["param_cache_bytes_a_rank"]:
+                    raise AssertionError(f"{tag}: holds {got['param_cache_bytes']} bytes of "
+                                         f"parameters and caches, the account "
+                                         f"{acct['param_cache_bytes_a_rank']}")
+                steps = TP_SERVE["steps"]
+                per_step = {op: {k: v / steps for k, v in r.items()}
+                            for op, r in got["traffic"].items()}
+                if rk["rank"] == 0 and per_step != {op: {k: float(v) for k, v in r.items()}
+                                                    for op, r in acct["traffic_a_step"].items()}:
+                    raise AssertionError(f"{tag}: sent {per_step} a step, the account "
+                                         f"{acct['traffic_a_step']}")
+                if run["mode"] != "dense":
+                    kernel = "gust_spmv_ragged_db" if run["mode"] == "gust_ragged" \
+                        else "gust_spmv_db"
+                    if not got["launches"].get(kernel):
+                        raise AssertionError(f"{tag}: launched {got['launches']}, not {kernel}")
+                    hits = (got["plan_store"] or {}).get("hits", 0)
+                    if hits != 3:
+                        raise AssertionError(f"{tag}: {hits} of 3 plans from the store "
+                                             f"({got['plan_store']})")
+                elif got["launches"]:
+                    raise AssertionError(f"{tag}: the dense decode launched {got['launches']}")
+                run["ranks"].append({k: got[k] for k in (
+                    "rows", "prefill_ms", "step_ms", "peak_memory_bytes", "prefill_peak_bytes",
+                    "resident_bytes", "other_blocks", "param_cache_bytes", "launches",
+                    "live_slots_after_prefill", "live_slots_at_end", "whole_watched",
+                    "shard_and_gustify_s", "prefill_traffic")} | {
+                    "rank": rk["rank"], "traffic_a_step": per_step,
+                    "collective_bytes_a_step": sum(r["bytes"] for r in per_step.values())})
+            run["max_rel_logit_err"] = worst
+            for rk in run["ranks"]:  # beside the account: less the cuBLAS workspaces and plans
+                rk["peak_less_other_blocks"] = (None if rk["peak_memory_bytes"] is None else
+                                                rk["peak_memory_bytes"] - sum(rk["other_blocks"]))
+            r0 = run["ranks"][0]
+            log(f"tp serve {name} ({row['arch']}, {row['layers']} layer) on {run['mesh']} "
+                f"{run['mode']}: logits within {worst:.2e} of the whole decode's; rank 0 "
+                f"prefill {r0['prefill_ms']:.1f} ms, median step "
+                f"{sorted(r0['step_ms'])[len(r0['step_ms']) // 2]:.1f} ms (whole "
+                f"{sorted(whole[name][run['mode']]['step_ms'])[TP_SERVE['steps'] // 2]:.1f}), "
+                f"decode peak {r0['peak_memory_bytes']} bytes, less the blocks holding no "
+                f"shard {r0['peak_less_other_blocks']} (account {acct['peak_bytes_a_rank']}; "
+                f"those blocks {r0['other_blocks'][:6]}), prefill peak "
+                f"{r0['prefill_peak_bytes']}, live slots after the prefill "
+                f"{[r['live_slots_after_prefill'] for r in run['ranks']]}, "
+                f"{r0['collective_bytes_a_step']:.0f} bytes sent a step (the account's), "
+                f"launches {r0['launches']}")
 
 
 def tp_path(report, launch_counts):
@@ -2993,13 +3434,20 @@ def tp_path(report, launch_counts):
         row["account"]["seconds"] = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as rdv:
+        # -- (a') the serve phase's whole decodes and their account ----------------------
+        t0 = time.perf_counter()
+        serve_whole, serve_launched = tp_serve_whole(report, launch_counts, rdv, dev)
+        out["serve"] = tp_serve_account(serve_whole)
+        out["serve"]["whole_seconds"] = time.perf_counter() - t0
+
         # -- (b) the ranks, sharing the card --------------------------------------------
         gc.collect()
         torch.cuda.empty_cache()
         out["parent_memory_bytes"] = {"allocated": torch.cuda.memory_allocated(),
                                       "reserved": torch.cuda.memory_reserved()}
         with open(os.path.join(rdv, "tp_config.json"), "w") as f:
-            json.dump({"TP": TP, "TP_MODELS": TP_MODELS}, f)
+            json.dump({"TP": TP, "TP_MODELS": TP_MODELS, "TP_SERVE": TP_SERVE,
+                       "TP_SERVE_MODELS": TP_SERVE_MODELS}, f)
         t0 = time.perf_counter()
         cmd = [sys.executable, os.path.abspath(__file__), "tp-rank"]
         env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
@@ -3117,7 +3565,18 @@ def tp_path(report, launch_counts):
                 f"(account {row['account']['peak_bytes_a_rank']}), "
                 f"{r0['collective_bytes_a_step']:.0f} collective bytes a step (account "
                 f"{row['account']['collective_bytes_a_step']:.0f})")
+
+        # -- (e) the serve phase's gates --------------------------------------------------
+        tp_serve_gates(out["serve"], serve_whole, ranks, rdv)
+    out["launches"] = dict(serve_launched)
+    for rk in ranks:
+        for runs in rk["serve"].values():
+            for run in runs:
+                for k, v in run["launches"].items():
+                    out["launches"][k] = out["launches"].get(k, 0) + v
     used = {op for rk in ranks for m in rk["models"].values() for op in m["traffic_per_step"]}
+    used |= {op for rk in ranks for runs in rk["serve"].values() for run in runs
+             for op in run["traffic"]}
     out["transport"] = {"backend": "gloo",
                         "through_host": sorted(used & set(HOST_STAGED.get("gloo", ()))),
                         "on_card": sorted(used - set(HOST_STAGED.get("gloo", ())))}

@@ -9,9 +9,10 @@
     fused into a few float32 buckets and back (tensor code only).
   * :func:`compressed_psum` — int8 quantization with error feedback
     around an ``all_reduce`` of the dequantized payload.
-  * :func:`all_reduce_sum`, :func:`all_gather_dim`, :func:`reduce_scatter_dim`
-    — the sum, the concatenation along a dim and the summed chunk along a
-    dim over a group, as new tensors: the payloads of the tensor- and
+  * :func:`all_reduce_sum`, :func:`all_reduce_max`, :func:`all_gather_dim`,
+    :func:`reduce_scatter_dim` — the sum, the elementwise max, the
+    concatenation along a dim and the summed chunk along a dim over a
+    group, as new tensors: the payloads of the tensor- and
     fully-sharded-parallel collectives (``tensor_parallel.py``).
 
 ``group`` is a process group (a mesh dim's: ``mesh.get_group(axis)``),
@@ -38,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["ring_all_reduce", "bucketed", "unbucketed", "compressed_psum",
-           "all_reduce_sum", "all_gather_dim", "reduce_scatter_dim", "traffic",
+           "all_reduce_sum", "all_reduce_max", "all_gather_dim", "reduce_scatter_dim", "traffic",
            "reset_traffic", "HOST_STAGED"]
 
 #: Backend -> the collectives that go through a host copy on it.
@@ -87,6 +88,17 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if k > 1:
         _count("all_reduce", 2 * (k - 1) / k * _nbytes(out))
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group's ranks, a new tensor
+    (counted as an ``all_reduce``)."""
+    k = dist.get_world_size(group)
+    out = x.detach().contiguous().clone()
+    if k > 1:
+        _count("all_reduce", 2 * (k - 1) / k * _nbytes(out))
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 

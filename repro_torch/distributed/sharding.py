@@ -29,7 +29,10 @@ the batch over the DP axes (``training.train_loop``), and on a sharded
 state (``train_loop.shard_train_state``) the "model" dims as tensor and
 expert parallelism inside the blocks and the "data" dims as FSDP
 (``distributed/tensor_parallel.py``); the dry-run account runs that step
-on meta shards.  Serving keeps its parameters whole.
+on meta shards.  Serving executes the ``mode="serve"`` placements and the
+cache rule the same way (``serving.shard_serve_state``: the batch over the
+DP axes, heads, experts and the vocabulary over "model", the cache length
+over "model" flash-decode style, the large serve leaves over "data").
 """
 
 from __future__ import annotations

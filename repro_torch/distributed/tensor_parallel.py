@@ -32,6 +32,14 @@ runs the collectives around the blocks:
   checkpoint, so that remat gathers again in the backward and no rank
   holds a whole stack.
 
+* **Serving** (:class:`ServePlacement`): the same placement plus the
+  spec tree of the caches (``cache_spec_overrides``') that a level of the
+  model reads, and this rank's rows of the batch.  :meth:`Placement.block`
+  gives a stack's block its leaves and placement, the serving one with
+  the block's cache specs; a block asks :meth:`ServePlacement.cache_split`
+  whether a cache dim is split over "model".  Serving runs no backward:
+  the collectives are called under ``torch.no_grad()``.
+
 * **Shards** (:func:`shard_tree`, :func:`gather_tree`): each rank's
   shard of a whole tree, as ``local_shape`` gives it, and the whole tree
   back from the shards.
@@ -48,11 +56,12 @@ import torch
 import torch.distributed as dist
 
 from ..models.tree import tree_map
+from . import collectives
 from .collectives import all_gather_dim, all_reduce_sum, reduce_scatter_dim
 
-__all__ = ["Axis", "mesh_axes", "Placement", "copy_to", "reduce_from", "gather_from",
+__all__ = ["Axis", "mesh_axes", "Placement", "ServePlacement", "copy_to", "reduce_from", "gather_from",
            "gather_leaf", "all_reduce_max", "sub", "names", "shard_tree", "gather_tree",
-           "over_shards"]
+           "over_shards", "shard_index"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,11 +168,7 @@ def gather_leaf(x: torch.Tensor, dim: int, axis: Optional[Axis]) -> torch.Tensor
 
 def all_reduce_max(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     """The elementwise max of ``x`` over ``axis`` (no gradient)."""
-    if not _live(axis):
-        return x
-    out = x.detach().contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=axis.group)
-    return out
+    return collectives.all_reduce_max(x, axis.group) if _live(axis) else x
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +196,13 @@ class Placement:
     def split(self, leaf: str, dim: int) -> bool:
         """Whether dim ``dim`` of leaf ``leaf`` is split over "model": its
         spec names the axis and the axis has more than one rank."""
-        spec = self.specs[leaf]
-        return dim < len(spec) and "model" in names(spec[dim]) and _live(self.model)
+        return _over_model(self.specs[leaf], dim, self.model)
+
+    def block(self, part: str, i: int, tree):
+        """(the leaves block ``i`` of a stack's ``part`` runs, its
+        placement): ``part`` "reps" takes ``tree`` as one repetition of
+        the stacked leaves, "tail" as a tail block's (:meth:`use`)."""
+        return self.sub(part, i).use(tree, stacked=part == "reps")
 
     def use(self, tree, stacked: bool = False):
         """(the leaves a block runs, the block's placement): with
@@ -219,6 +229,51 @@ class Placement:
             return x
 
         return tree_map(one, tree, self.specs)
+
+
+def _over_model(spec, dim: int, model: Optional[Axis]) -> bool:
+    return dim < len(spec) and "model" in names(spec[dim]) and _live(model)
+
+
+def _drop_lead(specs):
+    """A block's stacked cache specs (dicts of specs) for one repetition:
+    each spec's leading entry dropped."""
+    if isinstance(specs, dict):
+        return {k: _drop_lead(v) for k, v in specs.items()}
+    return tuple(specs[1:])
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePlacement(Placement):
+    """A serving placement: the parameters' :class:`Placement`, the spec
+    (sub)tree of the caches read at this level (``cache``: a stack's cache
+    tree at the stack, a block's cache at the block), and this rank's
+    batch rows (``rows``: ``(first, count)``, None when every rank holds
+    every row)."""
+
+    cache: Any = None
+    rows: Optional[Tuple[int, int]] = None
+
+    def at(self, cache) -> "ServePlacement":
+        """This placement reading the cache specs ``cache``."""
+        return dataclasses.replace(self, cache=cache)
+
+    def block(self, part: str, i: int, tree):
+        leaves, place = super().block(part, i, tree)
+        if self.cache is None:
+            return leaves, place
+        cache = self.cache[part][i]
+        return leaves, place.at(_drop_lead(cache) if part == "reps" else cache)
+
+    def cache_split(self, leaf: str, dim: int) -> bool:
+        """Whether dim ``dim`` of cache leaf ``leaf`` is split over "model"."""
+        return _over_model(self.cache[leaf], dim, self.model)
+
+    def take_rows(self, x):
+        """This rank's rows of a batch-leading tensor (a scalar as it is)."""
+        if self.rows is None or not torch.is_tensor(x) or x.dim() == 0:
+            return x
+        return x.narrow(0, *self.rows)
 
 
 def sub(place: Optional[Placement], *keys) -> Optional[Placement]:
@@ -248,8 +303,9 @@ def over_shards(values: torch.Tensor, leaf_specs, axes: Dict[str, Axis],
 # ---------------------------------------------------------------------------
 
 
-def _index(entry, axes: Dict[str, Axis]) -> Tuple[int, int]:
-    """(this rank's index, the number of shards) along a dim's axes."""
+def shard_index(entry, axes: Dict[str, Axis]) -> Tuple[int, int]:
+    """(this rank's index, the number of shards) along a dim's axes (a
+    spec entry)."""
     idx, count = 0, 1
     for n in names(entry):
         idx = idx * axes[n].size + axes[n].rank
@@ -262,7 +318,7 @@ def shard_tree(tree, specs, axes: Dict[str, Axis]):
     under its spec), each a tensor of its own storage."""
     def one(x, spec):
         for dim, entry in enumerate(spec):
-            idx, count = _index(entry, axes)
+            idx, count = shard_index(entry, axes)
             if count > 1:
                 n = x.shape[dim] // count
                 x = x.narrow(dim, idx * n, n)

@@ -21,20 +21,29 @@ so the account is built from the port's own pieces:
   it (its FLOPs and per-microbatch traffic times their number): tensor,
   expert and fully-sharded parallelism are divided as the port executes
   them, the FSDP gathers counted among the temporaries.  A serving cell
-  (``LM.prefill``, ``LM.decode_step``, ``decode_step_gust``) runs at the
-  per-device batch slice with the parameters whole: the port does not
-  execute tensor parallelism in serving, so its temporaries are an upper
-  bound there.  Shape-only stand-ins: the recurrent
+  runs rank 0's sharded prefill or decode step the same way (``LM.prefill``,
+  ``LM.decode_step``, ``decode_step_gust`` with the placement of
+  ``serving.serve_placement`` over meta shards of the parameters and
+  caches at their local shapes, the whole batch given, rank 0's rows
+  run): attention over its heads and, flash-decode style, its positions
+  of the cache, the MoE's experts, the vocabulary, and the large serve
+  leaves' "data" gathers, each collective's bytes counted.  Shape-only
+  stand-ins: the recurrent
   mixers' host time loops run as one step over every step's rows at once
   (:func:`time_loops_at_once`: one step's count scaled by the length),
   and a GUST product (whose kernel reads real data) is reckoned by hand
-  at ``2 · streamed slots · B`` FLOPs.
+  at ``2 · streamed slots · B`` FLOPs.  Not counted: what the runtime
+  allocates beside the step's tensors, chiefly cuBLAS's workspace (32
+  MiB for each thread and stream that runs a product, under
+  ``CUBLAS_WORKSPACE_CONFIG=:4096:8``; a serving process holds one), and
+  a collective backend's own staging buffers.
 * **Roofline terms** against an NVIDIA H100 SXM (:data:`H100`): compute
   at the dense bf16 (or f32) peak, memory as every argument byte read
   once at the HBM rate, and the collective term from the bytes rank 0
-  sends (``collectives.traffic`` of the train step on the fake ranks: the
-  TP sums, the FSDP gathers and reduce-scatters, the data-parallel ring),
-  at NVLink's rate.
+  sends (``collectives.traffic`` of the step on the fake ranks: the TP
+  sums and gathers, the FSDP gathers and reduce-scatters, the
+  data-parallel ring, the flash decode's partial softmax), at NVLink's
+  rate.
 """
 
 from __future__ import annotations
@@ -58,11 +67,11 @@ from ..distributed.sharding import (
     map_with_path,
     mesh_axis_names,
     mesh_sizes,
-    cache_spec_overrides,
     param_specs,
     tree_bytes_per_device,
 )
 from ..models.tree import tree_leaves, tree_map
+from ..serving.kv_cache import cache_tree_specs, serve_placement
 
 __all__ = ["H100", "LiveBytes", "time_loops_at_once", "count_step", "roofline_terms", "batch_spec_tree",
            "cell_trees", "cell_specs", "account_cell", "memory_limit", "fake_mesh"]
@@ -250,18 +259,10 @@ def batch_spec_tree(mesh, inputs: Dict) -> Dict:
             + (None,) * (x.dim() - 1) for name, x in inputs.items()}
 
 
-def _local_rows(tree, k: int):
-    """Each leaf's first 1/k rows (the per-device batch slice) when its
-    batch divides, as meta tensors; ``reps`` cache leaves carry their
-    batch in dim 1."""
-    def cut(path, x):
-        b_dim = 1 if "/reps/" in f"/{path}/" else 0
-        if x.dim() <= b_dim or x.shape[b_dim] % k:
-            return x
-        shape = list(x.shape)
-        shape[b_dim] //= k
-        return torch.empty(shape, dtype=x.dtype, device="meta")
-    return map_with_path(cut, tree)
+def _meta_shards(tree, specs, mesh):
+    """Meta tensors of each leaf's ``local_shape`` under its spec."""
+    return tree_map(lambda x, s: torch.empty(local_shape(x.shape, s, mesh), dtype=x.dtype,
+                                             device="meta"), tree, specs)
 
 
 def _nbytes(tree) -> int:
@@ -321,7 +322,7 @@ def cell_specs(trees: Dict, mesh, kind: str, batch: int) -> Dict:
     if "optimizer" in trees:
         specs["optimizer"] = {"m": pspecs, "v": pspecs, "step": ()}
     if "caches" in trees:
-        specs["caches"] = map_with_path(cache_spec_overrides(mesh, batch), trees["caches"])
+        specs["caches"] = cache_tree_specs(trees["caches"], mesh, batch)
     if "gust_stream" in trees:
         specs["gust_stream"] = map_with_path(lambda _, x: (None,) * x.dim(),
                                              trees["gust_stream"])
@@ -367,9 +368,7 @@ def account_cell(lm, kind: str, batch: int, seq_len: int, mesh, *,
         tc = TrainConfig(remat=True,
                          dtype="bfloat16" if compute_dtype == torch.bfloat16 else "float32")
         pspecs = specs["params"]
-        shards = tree_map(lambda x, s: torch.empty(local_shape(x.shape, s, mesh),
-                                                   dtype=x.dtype, device="meta"),
-                          params, pspecs)
+        shards = _meta_shards(params, pspecs, mesh)
         # one microbatch's step (every microbatch has its shapes): each DP
         # rank's rows, split from the global ones by the step itself
         rows = b_local // microbatches * k
@@ -401,19 +400,9 @@ def account_cell(lm, kind: str, batch: int, seq_len: int, mesh, *,
         rec["traffic"] = traffic
         collective = float(sum(row["bytes"] for row in traffic.values()))
     else:
-        caches = trees["caches"]
-        local_caches = _local_rows(caches, k) if batch % k == 0 else caches
-        notes.append("the step ran on meta tensors at the per-device batch slice with the "
-                     "parameters whole (the port does not execute tensor parallelism in "
-                     "serving): its temporaries are an upper bound")
-        local = lm.input_specs(seq_len, b_local, kind)
-        pos = trees["inputs"].get("pos")
-        if kind == "prefill":
-            _, cost = count_step(lm.prefill, params, local, local_caches, dtype=compute_dtype)
-        elif gust_specs is None:
-            _, cost = count_step(lm.decode_step, params, local_caches, local["tokens"], pos,
-                                 dtype=compute_dtype)
-        else:
+        inputs = trees["inputs"]  # the whole batch: the step runs rank 0's rows
+        plans = None
+        if gust_specs is not None:
             from ..serving.gust_serve import decode_step_gust
 
             counter = {"gust_flops": 0}
@@ -423,12 +412,34 @@ def account_cell(lm, kind: str, batch: int, seq_len: int, mesh, *,
                 m_rows = (meta[5] if meta[0] == "ragged" else meta[3])[0]
                 _, rows, lanes = e["leaves"]["m_blk"].shape  # (R, stream rows, l)
                 plans[name] = [_ShapeOnlyProduct(m_rows, rows * lanes, counter)] * lm.stack.reps
-            _, cost = count_step(decode_step_gust, lm, params, {"plans": plans},
-                                 local_caches, local["tokens"], pos, dtype=compute_dtype)
+        collectives.reset_traffic()
+        with fake_mesh(mesh) as dmesh:
+            place = serve_placement(params, trees["caches"], dmesh)
+            shards = _meta_shards(params, place.specs, mesh)
+            caches = _meta_shards(trees["caches"], place.cache, mesh)
+            if kind == "prefill":
+                _, cost = count_step(lm.prefill, shards, inputs, caches, dtype=compute_dtype,
+                                     place=place)
+            elif plans is None:
+                _, cost = count_step(lm.decode_step, shards, caches, inputs["tokens"],
+                                     inputs["pos"], dtype=compute_dtype, place=place)
+            else:
+                _, cost = count_step(decode_step_gust, lm, shards, {"plans": plans}, caches,
+                                     inputs["tokens"], inputs["pos"], dtype=compute_dtype,
+                                     place=place)
+        traffic = {op: dict(row) for op, row in collectives.traffic.items()}
+        collectives.reset_traffic()
+        if plans is not None:
             cost["matmul_flops"] += counter["gust_flops"]
             rec["gust_flops"] = counter["gust_flops"]
             notes.append("GUST products reckoned by hand: 2 x streamed slots x B each "
-                         "(the Eq. 9-sized stream, padding slots included)")
+                         "(the Eq. 9-sized stream, padding slots included), the stream "
+                         "replicated on every rank")
+        notes.append(f"rank 0's sharded {kind} step on the fake process-group backend: "
+                     "tensor, expert and fully-sharded parallelism and the cache length over "
+                     "\"model\" divided as the port executes them")
+        rec["traffic"] = traffic
+        collective = float(sum(row["bytes"] for row in traffic.values()))
     if any(b in lm.cfg.pattern for b in ("rec", "mlstm", "slstm")) and kind != "decode":
         notes.append("recurrent time loops counted as one step over every step's rows at "
                      "once: one step's matmul FLOPs scaled by the length "

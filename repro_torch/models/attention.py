@@ -30,6 +30,27 @@ whole weights' gradients are summed over the model ranks, each having
 read only its heads' share.  Where the rule leaves ``wq`` whole, the
 attention runs whole on every model rank.
 
+Tensor parallel (serving): under a serving placement
+(:class:`~repro_torch.distributed.tensor_parallel.ServePlacement`, whose
+``cache`` specs are ``cache_spec_overrides``') the cache holds every KV
+head at this rank's batch rows; its ``pos`` leaf is whole (the rule
+replicates it), and its length is split over "model" where the rule says
+(the length divides the axis):
+
+  * ``prefill_into_cache`` runs the prompt head-parallel as above, gathers
+    the new K/V over heads and keeps this rank's cache positions;
+  * ``decode_step`` over a split length is a flash decode: the token's q
+    and K/V heads gathered over "model" (``(B, 1, H, dh)``), the slot
+    ``pos % c`` written by the rank that owns it, each rank's scores of its
+    positions for every head, and their softmax combined over "model" in
+    float32 (the max, then the sums of ``exp(s - max)`` and of its
+    weighted V), each rank keeping its heads' slice of ``o`` for the
+    row-parallel ``wo``.  Over a whole length each rank scores only its
+    heads against the whole cache, KV head ``h // groups`` by global
+    index;
+  * ``cross_cache`` / ``decode_cross`` do the same for the encoder
+    memory's ``ck``/``cv``, whose length the rule splits likewise.
+
 ``decode_step`` writes the new token's K/V/position into the cache **in
 place** (the reference rebinds a new cache).  Each write lands in the
 cell the same call reads back after it, and the values depend only on
@@ -45,7 +66,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..distributed.tensor_parallel import copy_to
+from ..distributed.tensor_parallel import all_reduce_max, copy_to, gather_from, reduce_from
 from .layers import _f32, _he, _matmul_to, _row_parallel, rope
 from .tree import tree_map
 
@@ -60,6 +81,8 @@ __all__ = [
     "insert_slot",
     "prefill_into_cache",
     "decode_step",
+    "cross_cache",
+    "decode_cross",
 ]
 
 
@@ -138,15 +161,31 @@ def _kv_weights(p, place):
     return copy_to(p["wk"], axis), copy_to(p["wv"], axis)
 
 
-def _kv_index(spec: AttnSpec, place, n_q: int, n_kv: int, device) -> torch.Tensor:
-    """The KV head (an index into this rank's k) of each of the rank's
-    ``n_q`` query heads: global head ``h`` reads KV head ``h // groups``."""
+def _kv_index(spec: AttnSpec, place, n_q: int, n_kv: int, device,
+              every_kv: bool = False) -> torch.Tensor:
+    """The KV head (an index into this rank's k, or with ``every_kv`` into
+    a k of every KV head) of each of the rank's ``n_q`` query heads:
+    global head ``h`` reads KV head ``h // groups``."""
     axis = place.model
     heads = axis.rank * n_q + torch.arange(n_q, device=device)
     kv = torch.div(heads, spec.groups, rounding_mode="floor")
-    if place.split("wk", 1):
+    if place.split("wk", 1) and not every_kv:
         kv = kv - axis.rank * n_kv
     return kv
+
+
+def _every_kv_head(k, v, place):
+    """The token's K/V with every KV head (gathered over "model" where the
+    rank projected only its own): what a serving cache holds."""
+    if place is not None and _heads_axis(place) is not None and place.split("wk", 1):
+        return gather_from(k, 2, place.model), gather_from(v, 2, place.model)
+    return k, v
+
+
+def _length_axis(place, leaf: str = "k"):
+    """The model axis when a serving placement splits the cache length
+    (dim 1 of cache leaf ``leaf``), else None."""
+    return place.model if place is not None and place.cache_split(leaf, 1) else None
 
 
 def _qkv(p, x, spec: AttnSpec, positions, place=None):
@@ -230,12 +269,13 @@ def _blocked_sdpa(q, k_full, v_full, spec: AttnSpec, qpos, kpos):
     return o.permute(0, 2, 1, 3).to(q.dtype)  # (B,Sq,H,dh)
 
 
-def _attend(p, q, k, v, spec: AttnSpec, qpos, kpos, x_dtype, place=None):
+def _attend(p, q, k, v, spec: AttnSpec, qpos, kpos, x_dtype, place=None,
+            every_kv: bool = False):
     if _heads_axis(place) is None:
         kf = _expand_kv(k, spec.groups)
         vf = _expand_kv(v, spec.groups)
     else:
-        idx = _kv_index(spec, place, q.shape[2], k.shape[2], k.device)
+        idx = _kv_index(spec, place, q.shape[2], k.shape[2], k.device, every_kv)
         kf, vf = k[:, :, idx], v[:, :, idx]
     sq, sk = q.shape[1], kf.shape[1]
     if max(sq, sk) <= 2 * spec.block_size:
@@ -324,37 +364,56 @@ def insert_slot(cache, one, slot: int, axis: int = 0):
     return cache
 
 
-def prefill_into_cache(p, x, spec: AttnSpec, cache, start: int = 0):
+def prefill_into_cache(p, x, spec: AttnSpec, cache, start: int = 0, place=None):
     """Run attention over a prompt of length S and return (output, a new
     cache holding the final ``cache_len`` positions); ``cache`` itself is
-    not written."""
+    not written.  Under a serving ``place``, head-parallel, the new cache
+    this rank's shard (module docstring)."""
     s = x.shape[1]
     positions = _positions(s, start, x.device)
-    q, k, v = _qkv(p, x, spec, positions)
-    out = _attend(p, q, k, v, spec, positions, positions, x.dtype)
+    q, k, v = _qkv(p, x, spec, positions, place)
+    out = _attend(p, q, k, v, spec, positions, positions, x.dtype, place)
+    k, v = _every_kv_head(k, v, place)
 
-    c = cache["k"].shape[1]
+    c = cache["pos"].shape[-1]  # the whole length: the rule never splits pos
     take = min(c, s)
     tail_pos = positions[s - take:]
     slots = (tail_pos % c).long()  # ring placement; identity when c >= S
     new = {name: cache[name].clone() for name in ("k", "v", "pos")}
-    new["k"][:, slots] = k[:, s - take:].to(new["k"].dtype)
-    new["v"][:, slots] = v[:, s - take:].to(new["v"].dtype)
     new["pos"][:, slots] = tail_pos
+    axis = _length_axis(place)
+    if axis is None:
+        k, v = k[:, s - take:], v[:, s - take:]
+    else:  # this rank's positions of the split length (host arithmetic: no sync)
+        cl = new["k"].shape[1]
+        js = [j for j in range(s - take, s) if (start + j) % c // cl == axis.rank]
+        slots = torch.tensor([(start + j) % c - axis.rank * cl for j in js],
+                             dtype=torch.long, device=x.device)
+        idx = torch.tensor(js, dtype=torch.long, device=x.device)
+        k, v = k[:, idx], v[:, idx]
+    new["k"][:, slots] = k.to(new["k"].dtype)
+    new["v"][:, slots] = v.to(new["v"].dtype)
     return out, new
 
 
-def decode_step(p, x, spec: AttnSpec, cache, pos):
+def decode_step(p, x, spec: AttnSpec, cache, pos, place=None):
     """One token: x (B, 1, d); ``pos`` is a scalar or a (B,) vector of
     per-sequence positions.  Writes the token's K/V/position into
-    ``cache`` in place (module docstring) and returns (y, cache)."""
+    ``cache`` in place (module docstring) and returns (y, cache).  Under
+    a serving ``place``, ``x`` is this rank's rows and ``pos`` the whole
+    batch's (the whole ``pos`` leaf takes every row's)."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    if pos.dim() == 0:
+    heads, length = _heads_axis(place), _length_axis(place)
+    if heads is not None or length is not None:
+        return _decode_sharded(p, x, spec, cache, pos, place, heads, length), cache
+    kc, vc, pc = cache["k"], cache["v"], cache["pos"]
+    if place is not None:  # this rank's rows: the pos leaf takes every row's
+        pos, pc = _write_pos(pc, pos, place)
+    elif pos.dim() == 0:
         pos = pos.expand(b)
     positions = pos[:, None]  # (B, 1): per-row rope + mask query positions
     q, k, v = _qkv(p, x, spec, positions)
-    kc, vc, pc = cache["k"], cache["v"], cache["pos"]
     c = kc.shape[1]
     slot = (pos % c).long()  # (B,) ring placement per sequence
     bidx = torch.arange(b, device=x.device)
@@ -374,3 +433,117 @@ def decode_step(p, x, spec: AttnSpec, cache, pos):
     o = torch.einsum("begqs,bsek->bqegk", w.to(q.dtype), vc.to(q.dtype))
     o = o.reshape(b, 1, spec.n_heads, spec.d_head)
     return _out(o, p["wo"], x.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# Serving under a placement (module docstring)
+# ---------------------------------------------------------------------------
+
+
+def _flash_decode(q, kc, vc, mask, d_head: int, axis) -> torch.Tensor:
+    """One query token of every head, q (B, 1, H, dh), against this rank's
+    cache positions kc/vc (B, c_l, KV, dh) of every KV head, in the
+    reference's ``(KV, G)`` score form, the softmax combined over ``axis``
+    (the ranks holding the other positions) in float32: the max over every
+    rank's scores, then the sums of ``exp(s - max)`` and of its weighted V.
+    ``mask`` (B, 1, c_l) or None.  Returns (B, 1, H, dh) in q's dtype; a
+    row masked everywhere gives zeros."""
+    b, _, h, dh = q.shape
+    kv = kc.shape[2]
+    q5 = _f32(q).reshape(b, 1, kv, h // kv, dh)
+    s = torch.einsum("bqegk,bsek->begqs", q5, _f32(kc)) * _scale(d_head)
+    if mask is not None:
+        s = torch.where(mask[:, None, None], s, torch.tensor(-torch.inf, device=s.device))
+    top = all_reduce_max(s.amax(dim=-1, keepdim=True), axis)  # (B, KV, G, 1, 1)
+    top = torch.where(torch.isfinite(top), top, torch.zeros((), device=s.device))
+    e = torch.exp(s - top)
+    part = torch.cat([torch.einsum("begqs,bsek->begqk", e, _f32(vc)),
+                      e.sum(dim=-1, keepdim=True)], dim=-1)
+    tot = reduce_from(part, axis)
+    o = tot[..., :dh] / torch.clamp(tot[..., dh:], min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, dh).to(q.dtype)
+
+
+def _my_heads(o, heads, n: int):
+    """This rank's ``n`` heads of an every-head ``o`` (B, 1, H, dh)."""
+    return o if heads is None else o.narrow(2, heads.rank * n, n)
+
+
+def _write_pos(pc, pos, place):
+    """Every row's position into its slot of the whole ``pos`` leaf (the
+    rule replicates it: each rank writes the same), from ``pos``, a scalar
+    or every row's (B,); returns (this rank's positions, its rows of the
+    leaf, a view)."""
+    every = pos.expand(pc.shape[0]) if pos.dim() == 0 else pos
+    rows = torch.arange(pc.shape[0], device=pc.device)
+    pc[rows, (every % pc.shape[-1]).long()] = every
+    return place.take_rows(every), place.take_rows(pc)
+
+
+def _decode_sharded(p, x, spec: AttnSpec, cache, pos, place, heads, length):
+    """``decode_step`` under a serving placement that splits the heads or
+    the cache length over "model" (module docstring); returns y."""
+    kc, vc = cache["k"], cache["v"]
+    c = cache["pos"].shape[-1]  # the whole length
+    pos, pc = _write_pos(cache["pos"], pos, place)
+    positions = pos[:, None]
+    b = x.shape[0]
+    q, k, v = _qkv(p, x, spec, positions, place)
+    k, v = _every_kv_head(k, v, place)
+    slot = (pos % c).long()
+    bidx = torch.arange(b, device=x.device)
+    if length is None:  # the whole length: this rank's heads against every position
+        kc[bidx, slot] = k[:, 0].to(kc.dtype)
+        vc[bidx, slot] = v[:, 0].to(vc.dtype)
+        mask = _mask(spec, positions, pc)  # (B, 1, c)
+        idx = _kv_index(spec, place, q.shape[2], kc.shape[2], x.device, every_kv=True)
+        s = torch.einsum("bqhk,bshk->bhqs", _f32(q), _f32(kc[:, :, idx].to(q.dtype)))
+        s = torch.where(mask[:, None], s * _scale(spec.d_head),
+                        torch.tensor(-torch.inf, device=s.device))
+        w = _softmax0(s)
+        o = torch.einsum("bhqs,bshk->bqhk", w.to(q.dtype), vc[:, :, idx].to(q.dtype))
+        return _out(o, p["wo"], x.dtype, place)
+    # the rank owning the slot writes it; the others write back what the cell held
+    cl = kc.shape[1]
+    local = slot - length.rank * cl
+    mine = ((local >= 0) & (local < cl))[:, None, None]
+    local = local.clamp(0, cl - 1)
+    kc[bidx, local] = torch.where(mine, k[:, 0].to(kc.dtype), kc[bidx, local])
+    vc[bidx, local] = torch.where(mine, v[:, 0].to(vc.dtype), vc[bidx, local])
+    kpos = pc.narrow(1, length.rank * cl, cl)
+    qa = q if heads is None else gather_from(q, 2, heads)
+    o = _flash_decode(qa, kc, vc, _mask(spec, positions, kpos), spec.d_head, length)
+    return _out(_my_heads(o, heads, q.shape[2]), p["wo"], x.dtype, place)
+
+
+def cross_cache(k, v, place=None):
+    """The cross-attention cache's ``ck``/``cv`` from the memory's K/V
+    (``cross_kv``'s): under a serving ``place``, every KV head and this
+    rank's positions of the memory where the rule splits its length."""
+    k, v = _every_kv_head(k, v, place)
+    axis = _length_axis(place, "ck")
+    if axis is None:
+        return k, v
+    n = k.shape[1]
+    if n % axis.size:
+        raise ValueError(f"a memory of {n} positions does not split over {axis.size} "
+                         "model ranks, as the cache's rule does")
+    n //= axis.size
+    return k.narrow(1, axis.rank * n, n), v.narrow(1, axis.rank * n, n)
+
+
+def decode_cross(p, x, ck, cv, spec: AttnSpec, place=None) -> torch.Tensor:
+    """Decode's cross-attention of x (B, 1, d) over the cached memory
+    ``ck``/``cv`` (:func:`cross_cache`); :func:`attend_cross` without a
+    placement that splits the heads or the memory's length."""
+    heads, length = _heads_axis(place), _length_axis(place, "ck")
+    if heads is None and length is None:
+        return attend_cross(p, x, ck, cv, spec, place)
+    q = _project(x if heads is None else copy_to(_f32(x), heads), p["wq"], x.dtype)
+    if length is None:  # this rank's heads against the whole memory
+        pos = _positions(ck.shape[1], 0, x.device)
+        return _attend(p, q, ck.to(q.dtype), cv.to(q.dtype), spec,
+                       _positions(1, 0, x.device), pos, x.dtype, place, every_kv=True)
+    qa = q if heads is None else gather_from(q, 2, heads)
+    o = _flash_decode(qa, ck, cv, None, spec.d_head, length)
+    return _out(_my_heads(o, heads, q.shape[2]), p["wo"], x.dtype, place)

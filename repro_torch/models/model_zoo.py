@@ -19,7 +19,12 @@ activation checkpoint per pattern repetition and tail block).  On a
 sharded train state the same loss runs under the state's placement
 (``place=``: ``distributed/tensor_parallel.py``): the embedding and the
 logits vocab-parallel, the blocks tensor and expert parallel, the stacks'
-leaves gathered over "data" per block.
+leaves gathered over "data" per block.  Serving on a sharded state
+(``serving.shard_serve_state``) runs :meth:`LM.prefill` and
+:meth:`LM.decode_step` the same way under its serving placement, over
+this rank's shard of the caches, under ``torch.no_grad()``: they take the
+whole batch, run this data rank's rows, and return those rows' logits
+gathered whole over "model".
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.packing import resolve_device
-from ..distributed.tensor_parallel import all_reduce_max, reduce_from, sub
+from ..distributed.tensor_parallel import all_reduce_max, gather_from, reduce_from, sub
 from . import transformer as T
 from .layers import _vocab_axis, apply_norm, embed, init_embedding, init_norm, unembed
 from .tree import tree_leaves, tree_map
@@ -130,6 +135,12 @@ class LM(torch.nn.Module):
                                  torch.tensor(-1e30, device=logits.device))
         return logits
 
+    def _whole_logits(self, params, x, place=None):
+        """:meth:`_logits` gathered whole over "model" (serving: a sampler
+        can run on any rank)."""
+        logits = self._logits(params, x, place)
+        return gather_from(logits, -1, _vocab_axis(sub(place, self._head(params))))
+
     def _inputs(self, params, batch, dtype, place=None):
         if self.cfg.frontend == "embed":
             return batch["embeds"].to(dtype)
@@ -210,28 +221,44 @@ class LM(torch.nn.Module):
         batch row ``slot`` of ``caches``.  No other slot is touched."""
         return T.insert_slot_caches(caches, one, slot)
 
-    def prefill(self, params, batch, caches, *, dtype=torch.bfloat16):
+    def prefill(self, params, batch, caches, *, dtype=torch.bfloat16, place=None):
         """Process the prompt; returns (last-position logits, new caches).
         ``caches`` is not written.  An encdec prompt is ``src_frames`` and
         ``tokens``: the encoder runs once here, and its memory's K/V go
-        into the new caches."""
-        memory = self._memory(params, batch, dtype)
-        x = self._inputs(params, batch, dtype)
-        x, caches = T.stack_prefill(self._stack_params(params), x, self._serve_stack(),
-                                    caches, memory)
-        return self._logits(params, x[:, -1:]), caches
+        into the new caches.  ``place``: a sharded serve state's placement
+        (``params`` and ``caches`` this rank's shards, ``batch`` the whole
+        batch): the logits are this data rank's rows, every column."""
+        if place is None:
+            return self._prefill(params, batch, caches, dtype, None)
+        with torch.no_grad():
+            batch = {k: place.take_rows(v) for k, v in batch.items()}
+            return self._prefill(params, batch, caches, dtype, place)
 
-    def decode_step(self, params, caches, tokens, pos, *, dtype=torch.bfloat16):
+    def _prefill(self, params, batch, caches, dtype, place):
+        memory = self._memory(params, batch, dtype, place=None if place is None else place.at(None))
+        x = self._inputs(params, batch, dtype, place)
+        x, caches = T.stack_prefill(self._stack_params(params), x, self._serve_stack(),
+                                    caches, memory, place=sub(place, self._stack_key()))
+        return self._whole_logits(params, x[:, -1:], place), caches
+
+    def decode_step(self, params, caches, tokens, pos, *, dtype=torch.bfloat16, place=None):
         """One token for every sequence.  tokens: (B, 1) int; ``pos`` a
         scalar or a (B,) vector of per-sequence positions.  Returns
         (logits (B, 1, V), the new cache tree): attention K/V is written
         into ``caches`` in place, recurrent states come back as new
         tensors and ``caches`` keeps the old ones
-        (``transformer.stack_decode``)."""
-        x = self._embed_tokens(params, tokens, dtype)
+        (``transformer.stack_decode``).  ``place``: as :meth:`prefill`'s
+        (``tokens`` and ``pos`` the whole batch's)."""
+        if place is None:
+            return self._decode(params, caches, tokens, pos, dtype, None)
+        with torch.no_grad():
+            return self._decode(params, caches, place.take_rows(tokens), pos, dtype, place)
+
+    def _decode(self, params, caches, tokens, pos, dtype, place):
+        x = self._embed_tokens(params, tokens, dtype, place)
         x, caches = T.stack_decode(self._stack_params(params), x, self._serve_stack(),
-                                   caches, pos)
-        return self._logits(params, x), caches
+                                   caches, pos, place=sub(place, self._stack_key()))
+        return self._whole_logits(params, x, place), caches
 
     # -- input specs (meta tensors for the dry-run account) ------------------
     def input_specs(self, seq_len: int, batch: int, kind: str) -> Dict:

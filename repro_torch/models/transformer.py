@@ -37,6 +37,16 @@ dims gathered, again in the backward under remat), and the blocks run
 tensor and expert parallel where the specs split a dim.  A recurrent
 mixer gathers its leaves' "model" shards before use and runs whole
 (ROADMAP §3, departures); its block's MLP runs tensor parallel.
+
+Serving under a placement (``place=``, a
+:class:`~repro_torch.distributed.tensor_parallel.ServePlacement` from
+``serving.shard_serve_state``): ``stack_prefill`` and ``stack_decode``
+take each block's leaves the same way (``Placement.block``: repetition
+``r``'s slice, the large serve leaves' "data" dims gathered per block,
+never a whole stack), with the block's cache specs, over this rank's
+shard of the caches: attention tensor parallel over heads with the cache
+length over "model" (``attention``'s module docstring), the FFN as in
+training, a recurrent mixer gathered and run whole on its rows' states.
 """
 
 from __future__ import annotations
@@ -209,10 +219,26 @@ def _has_ffn(bc: BlockCfg) -> bool:
     return bc.kind in ATTN_KINDS or bc.kind == "rec"
 
 
-def _cross(p, x, bc: BlockCfg, k, v, place=None):
-    """The ``xattn`` block's cross-attention residual over memory K/V."""
+def _cross(p, x, bc: BlockCfg, k, v, place=None, cached: bool = False):
+    """The ``xattn`` block's cross-attention residual over memory K/V (with
+    ``cached``, decode's: the cache's ``ck``/``cv``)."""
     h = apply_norm(p["ln_cross"], x, kind=bc.norm_kind)
-    return x + A.attend_cross(p["cross"], h, k, v, bc.cross, place=sub(place, "cross"))
+    attend = A.decode_cross if cached else A.attend_cross
+    return x + attend(p["cross"], h, k, v, bc.cross, place=sub(place, "cross"))
+
+
+def _mixer(p, core: str, place):
+    """A recurrent mixer's leaves, its "model" shards gathered: it runs
+    whole on every rank."""
+    return p[core] if place is None else place.sub(core).gathered(p[core])
+
+
+def _self_place(place, bc: BlockCfg):
+    """The self-attention's placement: an ``xattn`` block's reads the
+    ``self`` part of its cache."""
+    if place is None or bc.kind != "xattn" or place.cache is None:
+        return sub(place, "attn")
+    return place.sub("attn").at(place.cache["self"])
 
 
 def block_train(p, x, bc: BlockCfg, memory=None, place=None):
@@ -222,8 +248,7 @@ def block_train(p, x, bc: BlockCfg, memory=None, place=None):
     if bc.kind in STATE_KINDS:
         ln, core, spec, train, _ = _MIXERS[bc.kind]
         h = apply_norm(p[ln], x, kind=bc.norm_kind)
-        mixer = p[core] if place is None else place.sub(core).gathered(p[core])
-        x = x + train(mixer, h, getattr(bc, spec))
+        x = x + train(_mixer(p, core, place), h, getattr(bc, spec))
     else:
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
         x = x + A.attend_train(p["attn"], h, bc.attn, place=sub(place, "attn"))
@@ -259,52 +284,65 @@ def init_block_cache(bc: BlockCfg, batch: int, seq_len: int, enc_seq: int = 0,
     return A.init_cache(bc.attn, batch, seq_len, dtype, device)
 
 
-def block_prefill(p, x, bc: BlockCfg, cache, memory=None, start: int = 0):
+def _placed_call(fn, place, *args):
+    """``fn(*args, place=place)``; without a placement ``fn(*args)``, the
+    call that serving made before placements existed (which the serving
+    tests' fault injections wrap)."""
+    return fn(*args) if place is None else fn(*args, place=place)
+
+
+def _serve_ffn(p, x, bc: BlockCfg, place):
+    """``x`` plus the FFN branch, its aux dropped (serving)."""
+    return x + _placed_call(_ffn, place, p, x, bc)[0] if _has_ffn(bc) else x
+
+
+def block_prefill(p, x, bc: BlockCfg, cache, memory=None, start: int = 0, place=None):
     """Returns (x, a new cache); ``cache`` is not written.  An ``xattn``
     block's new ``ck``/``cv`` are ``memory``'s projection in the cache's
-    dtype."""
+    dtype.  ``place``: the block's serving placement (module docstring)."""
     if bc.kind in STATE_KINDS:
         ln, core, spec, train, _ = _MIXERS[bc.kind]
         h = apply_norm(p[ln], x, kind=bc.norm_kind)
-        y, cache = train(p[core], h, getattr(bc, spec), cache, return_state=True)
+        y, cache = train(_mixer(p, core, place), h, getattr(bc, spec), cache,
+                         return_state=True)
         x = x + y
     elif bc.kind == "xattn":
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
-        y, self_cache = A.prefill_into_cache(p["attn"], h, bc.attn, cache["self"], start)
-        k, v = A.cross_kv(p["cross"], memory, bc.cross)
-        x = _cross(p, x + y, bc, k, v)
+        y, self_cache = A.prefill_into_cache(p["attn"], h, bc.attn, cache["self"], start,
+                                             place=_self_place(place, bc))
+        k, v = A.cross_kv(p["cross"], memory, bc.cross, place=sub(place, "cross"))
+        x = _cross(p, x + y, bc, k, v, place=place)
+        k, v = A.cross_cache(k, v, place=sub(place, "cross"))
         cache = {"self": self_cache, "ck": k.to(cache["ck"].dtype),
                  "cv": v.to(cache["cv"].dtype)}
     else:
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
-        y, cache = A.prefill_into_cache(p["attn"], h, bc.attn, cache, start)
+        y, cache = A.prefill_into_cache(p["attn"], h, bc.attn, cache, start,
+                                        place=sub(place, "attn"))
         x = x + y
-    if _has_ffn(bc):
-        x = x + _ffn(p, x, bc)[0]
-    return x, cache
+    return _serve_ffn(p, x, bc, place), cache
 
 
-def block_decode(p, x, bc: BlockCfg, cache, pos):
+def block_decode(p, x, bc: BlockCfg, cache, pos, place=None):
     """Returns (x, cache): attention writes ``cache`` in place and returns
     it (an ``xattn`` block writes only its ``self`` cache and reads
     ``ck``/``cv``); a recurrent block returns a new state and leaves
-    ``cache`` as it was."""
+    ``cache`` as it was.  ``place``: the block's serving placement."""
     if bc.kind in STATE_KINDS:
         ln, core, spec, _, step = _MIXERS[bc.kind]
         h = apply_norm(p[ln], x, kind=bc.norm_kind)
-        y, cache = step(p[core], h, getattr(bc, spec), cache)
+        y, cache = step(_mixer(p, core, place), h, getattr(bc, spec), cache)
         x = x + y
     elif bc.kind == "xattn":
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
-        y, _ = A.decode_step(p["attn"], h, bc.attn, cache["self"], pos)
-        x = _cross(p, x + y, bc, cache["ck"], cache["cv"])
+        y, _ = A.decode_step(p["attn"], h, bc.attn, cache["self"], pos,
+                             place=_self_place(place, bc))
+        x = _cross(p, x + y, bc, cache["ck"], cache["cv"], place=place, cached=True)
     else:
         h = apply_norm(p["ln_attn"], x, kind=bc.norm_kind)
-        y, cache = A.decode_step(p["attn"], h, bc.attn, cache, pos)
+        y, cache = A.decode_step(p["attn"], h, bc.attn, cache, pos, place=sub(place, "attn"))
         x = x + y
-    if _has_ffn(bc):
-        x = x + _ffn(p, x, bc)[0]
-    return x, cache
+    return _serve_ffn(p, x, bc, place), cache
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +396,12 @@ def init_stack(gen, sc: StackCfg):
     return {"reps": tuple(rep_params), "tail": tail_params}
 
 
+def _placed(place, part: str, i: int, p):
+    """(block ``i`` of ``part``'s leaves, its placement), or (``p``, None)
+    without a placement (``Placement.block``)."""
+    return (p, None) if place is None else place.block(part, i, p)
+
+
 def stack_train(params, x, sc: StackCfg, memory=None, remat: bool = False, place=None):
     """Forward over the stack; returns (x, aux).  With ``remat`` each
     repetition of the pattern and each tail block is one activation
@@ -367,17 +411,13 @@ def stack_train(params, x, sc: StackCfg, memory=None, remat: bool = False, place
     (module docstring)."""
     def rep(r, x, aux):
         for i, bc in enumerate(sc.pattern):
-            p, bp = rep_slice(params["reps"][i], r), None
-            if place is not None:
-                p, bp = place.sub("reps", i).use(p, stacked=True)
+            p, bp = _placed(place, "reps", i, rep_slice(params["reps"][i], r))
             x, a = block_train(p, x, bc, memory, bp)
             aux = aux + a
         return x, aux
 
     def tail(i, x, aux):
-        p, bp = params["tail"][i], None
-        if place is not None:
-            p, bp = place.sub("tail", i).use(p)
+        p, bp = _placed(place, "tail", i, params["tail"][i])
         x, a = block_train(p, x, sc.pattern[i], memory, bp)
         return x, aux + a
 
@@ -421,13 +461,16 @@ def insert_slot_caches(caches, one, slot: int):
     return caches
 
 
-def stack_prefill(params, x, sc: StackCfg, caches, memory=None, start: int = 0):
-    """Prompt pass; returns (x, new caches).  ``caches`` is not written."""
+def stack_prefill(params, x, sc: StackCfg, caches, memory=None, start: int = 0,
+                  place=None):
+    """Prompt pass; returns (x, new caches).  ``caches`` is not written.
+    ``place``: the stack's serving placement (module docstring)."""
     rep_caches = [[] for _ in sc.pattern]
     for r in range(sc.reps):
         for i, bc in enumerate(sc.pattern):
-            x, c = block_prefill(rep_slice(params["reps"][i], r), x, bc,
-                                 rep_slice(caches["reps"][i], r), memory, start)
+            p, bp = _placed(place, "reps", i, rep_slice(params["reps"][i], r))
+            x, c = _placed_call(block_prefill, bp, p, x, bc, rep_slice(caches["reps"][i], r),
+                                memory, start)
             rep_caches[i].append(c)
     stacked = tuple(
         tree_map(lambda *layers: torch.stack(layers), *per_layer)
@@ -436,24 +479,26 @@ def stack_prefill(params, x, sc: StackCfg, caches, memory=None, start: int = 0):
     )
     tail_caches = []
     for i in range(sc.n_tail):
-        x, c = block_prefill(
-            params["tail"][i], x, sc.pattern[i], caches["tail"][i], memory, start
-        )
+        p, bp = _placed(place, "tail", i, params["tail"][i])
+        x, c = _placed_call(block_prefill, bp, p, x, sc.pattern[i], caches["tail"][i], memory,
+                            start)
         tail_caches.append(c)
     return x, {"reps": stacked, "tail": tail_caches}
 
 
-def stack_decode(params, x, sc: StackCfg, caches, pos):
+def stack_decode(params, x, sc: StackCfg, caches, pos, place=None):
     """One token through the stack.  Attention caches are written in
     place; each recurrent state comes back as a new tensor, the rep-stacked
     ones stacked into fresh ``(R, B, ...)`` leaves, so ``caches`` keeps
     the states it had (the step can be repeated to the same bits).
-    Returns (x, the new cache tree)."""
+    Returns (x, the new cache tree).  ``place``: the stack's serving
+    placement (module docstring)."""
     states = [[] for _ in sc.pattern]
     for r in range(sc.reps):
         for i, bc in enumerate(sc.pattern):
-            x, c = block_decode(rep_slice(params["reps"][i], r), x, bc,
-                                rep_slice(caches["reps"][i], r), pos)
+            p, bp = _placed(place, "reps", i, rep_slice(params["reps"][i], r))
+            x, c = _placed_call(block_decode, bp, p, x, bc, rep_slice(caches["reps"][i], r),
+                                pos)
             if bc.kind in STATE_KINDS:
                 states[i].append(c)
     reps = tuple(
@@ -463,6 +508,7 @@ def stack_decode(params, x, sc: StackCfg, caches, pos):
     )
     tail = []
     for i in range(sc.n_tail):
-        x, c = block_decode(params["tail"][i], x, sc.pattern[i], caches["tail"][i], pos)
+        p, bp = _placed(place, "tail", i, params["tail"][i])
+        x, c = _placed_call(block_decode, bp, p, x, sc.pattern[i], caches["tail"][i], pos)
         tail.append(c)
     return x, {"reps": reps, "tail": tail}

@@ -1,6 +1,8 @@
 """Serving layer: KV-cache accounting, serve loop, GUST-sparse decode."""
 
-from .kv_cache import CachePolicy, cache_specs, cache_shardings, cache_bytes
+from .kv_cache import (CachePolicy, ShardedServeState, cache_bytes, cache_shardings,
+                       cache_specs, gather_serve_state, init_serve_state, serve_placement,
+                       shard_serve_state)
 from .serve_loop import (
     RequestResult,
     RequestStatus,

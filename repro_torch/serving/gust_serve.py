@@ -21,6 +21,15 @@ Departures from the reference (ROADMAP §3):
     per-layer slices once and keeps them in its tree (``"plans"``), and
     :func:`decode_step_gust` takes no ``cfg``.
 
+Under a sharded serve state's placement (``place=``,
+``serving.shard_serve_state``) :func:`decode_step_gust` runs as
+``LM.decode_step`` does (attention tensor parallel over heads and the
+cache length, the embedding and logits vocab-parallel, the blocks' other
+leaves gathered over "data"), and each layer's MLP products run this
+rank's rows through the plans, replicated on every rank as the
+reference's GUST cell replicates the stream: ``gustify`` builds them from
+the whole weights on each rank (the same artifact, the same store key).
+
 Applies to homogeneous ``attn_mlp`` stacks (pattern length 1: phi3, yi,
 mistral-large, llava); :func:`gustify` refuses the others (gemma3's
 local/global pattern, the MoE and recurrent stacks) with the reference's
@@ -49,6 +58,7 @@ from ..models import attention as A
 from ..models.layers import apply_norm, gelu
 from ..models.model_zoo import LM
 from ..models.transformer import rep_slice
+from ..distributed.tensor_parallel import sub
 from ..resilience.fallback import fallback_counters
 
 __all__ = ["GustServeConfig", "gustify", "decode_step_gust", "dryrun_specs"]
@@ -212,26 +222,40 @@ def _gust_mlp(plans: Dict[str, GustPlan], x, mlp_kind: str):
 
 
 def decode_step_gust(lm: LM, params, gust, caches, tokens, pos, *,
-                     dtype=torch.bfloat16):
+                     dtype=torch.bfloat16, place=None):
     """Mirror of ``LM.decode_step`` with each layer's MLP routed through
     GUST.  ``gust`` is :func:`gustify`'s tree, whose per-layer
     ``"plans"`` run the products.  ``pos`` is a scalar
     or a (B,) vector of per-slot positions: the GUST path shares the
     continuous-batching machinery (slot-local caches, per-row masks) with
-    the dense decode.  ``caches`` is written in place."""
+    the dense decode.  ``caches`` is written in place.  ``place``: a
+    sharded serve state's placement, as ``LM.decode_step``'s (module
+    docstring)."""
+    if place is None:
+        return _decode_gust(lm, params, gust, caches, tokens, pos, dtype, None)
+    with torch.no_grad():
+        return _decode_gust(lm, params, gust, caches, place.take_rows(tokens), pos, dtype,
+                            place)
+
+
+def _decode_gust(lm: LM, params, gust, caches, tokens, pos, dtype, place):
     plans = gust["plans"]
     sc = lm.stack
     bc = sc.pattern[0]
-    x = lm._embed_tokens(params, tokens, dtype)
+    x = lm._embed_tokens(params, tokens, dtype, place)
     p_stack, c_stack = params["stack"]["reps"][0], caches["reps"][0]
+    stack = sub(place, "stack")
     for r in range(sc.reps):
-        p_r, c_r = rep_slice(p_stack, r), rep_slice(c_stack, r)
+        # the MLP's weights stay unread (and ungathered): the plans run it
+        p_r = {k: v for k, v in rep_slice(p_stack, r).items() if k != "mlp"}
+        p_r, bp = (p_r, None) if stack is None else stack.block("reps", 0, p_r)
+        c_r = rep_slice(c_stack, r)
         h = apply_norm(p_r["ln_attn"], x, kind=bc.norm_kind)
-        y, _ = A.decode_step(p_r["attn"], h, bc.attn, c_r, pos)
+        y, _ = A.decode_step(p_r["attn"], h, bc.attn, c_r, pos, place=sub(bp, "attn"))
         x = x + y
         h = apply_norm(p_r["ln_mlp"], x, kind=bc.norm_kind)
         x = x + _gust_mlp({k: v[r] for k, v in plans.items()}, h, bc.mlp_kind)
-    return lm._logits(params, x), caches
+    return lm._whole_logits(params, x, place), caches
 
 
 def dryrun_specs(lm: LM, cfg: GustServeConfig) -> Dict:

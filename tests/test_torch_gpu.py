@@ -1535,3 +1535,51 @@ def test_sharded_step_at_world_one_is_bitwise(cuda, nccl_mesh, deterministic, ar
         assert torch.equal(mp["grad_norm"], ms["grad_norm"])
         whole = gather_train_state(sharded)
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(plain), tree_leaves(whole)))
+
+
+@pytest.mark.parametrize("mode", ["dense", "gust"])
+def test_sharded_decode_at_world_one_is_bitwise(cuda, nccl_mesh, mode):
+    """Reduced yi-6b's parameters and fresh caches sharded by
+    ``init_serve_state`` over a (1, 1) ``("data", "model")`` mesh of the
+    one-rank NCCL group (every leaf its own shard), then a prefill and three decode steps with
+    ``place=`` (``LM.decode_step``, or ``decode_step_gust`` through kernel
+    5 on card plans), equal the whole decode bit for bit: logits and
+    caches."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.tree import tree_leaves
+    from repro_torch.serving import (GustServeConfig, decode_step_gust, gather_serve_state,
+                                     gustify, init_serve_state)
+
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    lm = build_model(get_arch("yi_6b").reduced())
+    params = lm.init(torch.Generator().manual_seed(0), device=cuda)
+    gust = gustify(lm, params, GustServeConfig(density=0.5, gust_length=16)) \
+        if mode == "gust" else None
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, lm.cfg.vocab, (2, 9)).astype(np.int32)).to(cuda)
+    toks = torch.from_numpy(rng.integers(0, lm.cfg.vocab, (3, 2, 1)).astype(np.int32)).to(cuda)
+
+    def run(p, caches, place):
+        out, caches = lm.prefill(p, {"tokens": prompt}, caches, dtype=torch.float32,
+                                 place=place)
+        outs = [out]
+        for t in range(3):
+            if gust is None:
+                lg, caches = lm.decode_step(p, caches, toks[t], 9 + t, dtype=torch.float32,
+                                            place=place)
+            else:
+                lg, caches = decode_step_gust(lm, p, gust, caches, toks[t], 9 + t,
+                                              dtype=torch.float32, place=place)
+            outs.append(lg)
+        return outs, caches
+
+    caches = lm.init_caches(2, 24, torch.float32, device=cuda)
+    want, want_caches = run(params, caches, None)
+    state = init_serve_state(lm, params, mesh, 2, 24, torch.float32)
+    got, state.caches = run(state.params, state.caches, state.place)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _, whole = gather_serve_state(state)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(whole), tree_leaves(want_caches)))

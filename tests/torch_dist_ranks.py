@@ -148,8 +148,14 @@ def _tp_checkpoint(rank, world, mesh, tmp_dir):
     return checkpoint_case(rank, world, tmp_dir)
 
 
+def _serve(rank, world, mesh, tmp_dir):
+    from serve_tp_case import serve_case
+
+    return serve_case(rank, world, tmp_dir)
+
+
 PROGRAMS = {"collectives": _collectives, "spmv": _spmv, "train": _train, "tp": _tp,
-            "tp_checkpoint": _tp_checkpoint}
+            "tp_checkpoint": _tp_checkpoint, "serve": _serve}
 
 
 def main(program: str, rank: int, world: int, tmp_dir: str) -> None:

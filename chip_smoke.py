@@ -80,7 +80,8 @@ counts zeroed just before it and read just after:
      48 layers (one pattern repetition: 3 chunked + 1 global, MoE each),
      9.34 B parameters;
    * ``families.dbrx``: dbrx-132b (d_model 6,144, 48 / 8 × 128, 16
-     experts × d_ff 10,752, top-4, vocab 100,352), 2 of 40 layers, 7.13 B;
+     experts × d_ff 10,752, top-4, vocab 100,352), 1 of 40 layers (cut from 2
+     for the smoke's time), 3.88 B;
    * ``families.recurrentgemma``: recurrentgemma-9b (d_model 4,096, 16 / 1
      × 256, GeGLU d_ff 12,288, vocab 256,000, window 2,048), 5 of 38
      layers (``rec, rec, local`` and the 2-block tail), 2.17 B;
@@ -174,6 +175,21 @@ counts zeroed just before it and read just after:
     run is teacher-forced on the greedy tokens of the same decode run whole
     in the smoke's process, and held to it.
 
+11. **The examples** ``examples``: the five scripts of ``examples/*_torch.py``
+    (quickstart, CG solver, graph analytics, serving, training; the
+    training one at 30 steps) with ``--device cuda``, all started at once
+    after the build, each in its own process with its own time limit
+    (``EXAMPLES``), their launch counts read in each process after its
+    script.  They run beside path 1's host set-up (generation, schedules,
+    packs, verification), and are collected before the first kernel is
+    timed.
+
+After the build, the port's sources pass the policy linter
+(``repro_torch.analysis.lint``, ``GUST-L01`` and ``L03``..``L07``), and
+``layers.linear`` runs on the card at yi-6b's MLP widths (4,096 ->
+11,008, batch 4 x 16; float32 and bfloat16, with and without bias)
+against the same call on the CPU.
+
 Before its first launch every artifact the smoke builds passes the
 artifact verifier (``GustPlan.verify()``, the ``GUST-Pxx`` rules) with no
 finding: crankseg_2's eight (padded/ragged × float32/int8 ×
@@ -221,7 +237,19 @@ Checks, each fatal:
   * the resource audit (``GUST-H01``..``H06``): no function of any
     library spills or passes 255 registers or 48 KiB of static shared
     memory, and every launch plan fits the SM's shared memory and
-    registers and keeps its grid within its stream;
+    registers and keeps its grid within its stream; and ``GUST-H07``: in
+    every instance of the spread template every asynchronous copy is
+    waited on before what it fills is read, and writes only what has been
+    read;
+  * the linter: no finding over ``repro_torch/``;
+  * ``layers.linear`` on the card within ``1e-5`` of the largest |output|
+    of the CPU's result at float32 (TF32 off), and at bfloat16 one bf16
+    spacing of each output more;
+  * the examples path: every script exits 0 within its time limit (each
+    runs its own checks: the quickstart's plan against the dense product
+    and its injected fault reaching the caller, the solve's residual,
+    A·A bitwise the dense product, every request completed, the loss
+    falling), and each but the training one launched a GUST kernel;
   * the verifier: no finding on any artifact before its first launch;
     the seeded collision fires exactly GUST-P14; the store's verifying
     warm load colors nothing, a stored file with a padding value flipped
@@ -606,6 +634,12 @@ def main() -> int:
                              + "; ".join(str(f) for f in early.findings))
     log(f"build: {report['build_s']:.1f} s; {early.to_dict()['functions']} functions "
         "audited from ptxas: no spill, registers and static shared memory in bounds")
+    log(early.rings.report())
+    log("GUST-H07: every asynchronous copy of the sources waited on before it is read")
+    lint_phase(report)
+    # path 11 runs in processes of its own beside this one's host set-up
+    # (generation, schedules, packs, verification), before any kernel is timed
+    examples_started = start_examples()
 
     # -- matrix, schedules, packs ----------------------------------------------
     spec = REAL_WORLD_SUITE[0]
@@ -683,6 +717,11 @@ def main() -> int:
         f"number) on crankseg_2 at l={L}: " + ", ".join(
             f"{k}: {v['cycles']:.0f} cycles, utilization {v['utilization']:.4f}"
             for k, v in report["paper_model"].items()))
+
+    # -- path 11: the examples, each in its own process ----------------------------
+    examples = report["examples"] = finish_examples(examples_started)
+    log(f"examples path: {examples['seconds']:.1f} s from their start")
+    linear_path(report)
 
     rng = np.random.default_rng(0)
     v = rng.standard_normal(n).astype(np.float32)
@@ -939,6 +978,9 @@ def main() -> int:
         launches[name] += count
     log(f"tp path: {report['tp_seconds']:.1f} s")
 
+    for name, count in examples["launches"].items():  # path 11's
+        launches[name] += count
+
     # -- the resource audit: every library and every launch plan used ----------------
     audit = audit_kernels(plans=report["launch_plans"])
     log(audit.report())
@@ -990,6 +1032,8 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"shard": {k: v for k, v in shard.items() if k != "ranks"}}))
     print(json.dumps({"tp": tp}))
+    print(json.dumps({"examples": {k: v for k, v in examples.items() if k != "runs"},
+                      "linear": report["linear"], "lint": report["lint"]}))
     print(json.dumps({"audit": report["audit"],
                       "verify": {"artifacts": len(verify_s),
                                  "seconds": report["verify_seconds"],
@@ -1000,6 +1044,148 @@ def main() -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
+
+def lint_phase(report):
+    """The policy linter over the port's sources: no finding."""
+    from repro_torch.analysis.lint import lint_sources
+
+    t0 = time.perf_counter()
+    findings = lint_sources()
+    report["lint"] = {"findings": [str(f) for f in findings],
+                      "seconds": time.perf_counter() - t0}
+    if findings:
+        raise AssertionError("lint: " + "; ".join(str(f) for f in findings))
+    log(f"lint: 0 findings over repro_torch/ ({report['lint']['seconds']:.2f} s)")
+
+
+def linear_path(report):
+    """``layers.linear`` on the card at yi-6b's MLP widths against the same
+    call on the CPU (float32: 1e-5 of the largest |output|; bfloat16: one
+    bf16 spacing of each output more)."""
+    import torch
+    from repro_torch.models.layers import init_linear, linear
+
+    d_out, d_in = YI_MLP["up"]
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        for bias in (False, True):
+            p = init_linear(torch.Generator().manual_seed(0), d_in, d_out, bias=bias)
+            if bias:
+                p["b"] = torch.randn(d_out, generator=torch.Generator().manual_seed(1))
+            x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+                (4, 16, d_in)).astype(np.float32)).to(getattr(torch, dtype))
+            want = linear(p, x).float()
+            pc, xc = {k: v.cuda() for k, v in p.items()}, x.cuda()
+            got = linear(pc, xc)
+            err = (got.float().cpu() - want).abs()
+            tol = 1e-5 * want.abs().max()
+            if dtype == "bfloat16":
+                tol = tol + 2.0 ** -7 * want.abs()
+            tag = f"{dtype}{', bias' if bias else ''}"
+            runs[tag] = {"max_abs_err": float(err.max()),
+                         "max_abs_out": float(want.abs().max()),
+                         "ms": cuda_ms(lambda: linear(pc, xc), 20)}
+            if got.dtype != x.dtype or not bool(torch.all(err <= tol)):
+                raise AssertionError(f"linear {tag}: card vs CPU {float(err.max()):.3e} "
+                                     f"of max |y| {float(want.abs().max()):.3e}")
+            log(f"linear {d_in}->{d_out} {tag}, x (4, 16, {d_in}): card vs CPU "
+                f"{runs[tag]['max_abs_err']:.3e} of max |y| {runs[tag]['max_abs_out']:.3f}, "
+                f"{runs[tag]['ms']:.4f} ms")
+    report["linear"] = runs
+
+
+#: The examples path: script -> (its arguments besides ``--device cuda``,
+#: its time limit in seconds).  The five together take well under a minute
+#: on the card.
+EXAMPLES = {
+    "quickstart_torch.py": ([], 240),
+    "cg_solver_torch.py": ([], 180),
+    "graph_analytics_torch.py": ([], 180),
+    "serve_lm_torch.py": ([], 240),
+    "train_lm_torch.py": (["--steps", "30"], 300),
+}
+#: Runs one example as ``__main__``, then prints its seconds and the launch
+#: counts of its process on its last line.
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys, time\n"
+    "import chip_smoke\n"
+    "path = sys.argv[1]\n"
+    "sys.argv = [path, *sys.argv[2:]]\n"
+    "t0 = time.perf_counter()\n"
+    "runpy.run_path(path, run_name='__main__')\n"
+    "seconds = time.perf_counter() - t0\n"
+    "counts = {k: getattr(m, a) for k, (m, a) in chip_smoke.counters().items()}\n"
+    "print(json.dumps({'seconds': seconds, 'launches': {k: v for k, v in "
+    "counts.items() if v}}))\n"
+)
+
+
+def start_examples():
+    """Path 11: start the five ``examples/*_torch.py`` on the card at once,
+    each a process of its own (``finish_examples`` collects them)."""
+    import atexit
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    procs = {}
+    atexit.register(stop_processes, procs)  # however main ends, none outlives it
+    t0 = time.perf_counter()
+    for script, (args, _) in EXAMPLES.items():
+        procs[script] = subprocess.Popen(
+            [sys.executable, "-c", EXAMPLE_RUNNER, os.path.join(here, "examples", script),
+             "--device", "cuda", *args],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"procs": procs, "t0": t0, "tmp": tmp}
+
+
+def stop_processes(procs):
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def finish_examples(started):
+    """Wait for each example within its own limit: each must exit 0, and
+    each but the training one must have launched a GUST kernel."""
+    import shutil
+
+    procs, t0 = started["procs"], started["t0"]
+    runs, failed = {}, []
+    try:
+        for script, proc in procs.items():
+            limit = EXAMPLES[script][1]
+            try:
+                out, err = proc.communicate(timeout=max(limit - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                failed.append(f"{script}: past its {limit} s")
+                continue
+            name = script[:-len("_torch.py")]
+            if proc.returncode != 0:
+                failed.append(f"{script}: exit {proc.returncode}: {err[-2000:]}")
+                continue
+            lines = out.rstrip().splitlines()
+            runs[name] = dict(json.loads(lines[-1]), output=lines[:-1][-12:])
+            log(f"example {name}: {runs[name]['seconds']:.1f} s, launches "
+                f"{runs[name]['launches']}")
+            if name != "train_lm" and not runs[name]["launches"]:
+                failed.append(f"{script}: launched no GUST kernel")
+    finally:
+        stop_processes(procs)
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    if failed:
+        raise AssertionError("examples: " + " | ".join(failed))
+    launches = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"runs": runs, "launches": launches, "seconds": seconds}
 
 #: yi-6b's MLP (src/repro/configs/yi_6b.py: d_model 4096, d_ff 11008):
 #: name -> (rows, columns) of each projection's weight, drawn normal from
@@ -1783,7 +1969,7 @@ FAMILIES = {
                     n_experts=16, top_k=1, vocab=202_048, n_layers=48), 4, 1),
     "dbrx": ("dbrx_132b",
              dict(d_model=6144, n_heads=48, n_kv=8, head_dim=128, d_ff=10752,
-                  n_experts=16, top_k=4, vocab=100_352, n_layers=40), 2, 1),
+                  n_experts=16, top_k=4, vocab=100_352, n_layers=40), 1, 1),
     "recurrentgemma": ("recurrentgemma_9b",
                        dict(d_model=4096, n_heads=16, n_kv=1, head_dim=256, d_ff=12288,
                             vocab=256_000, local_window=2048, n_layers=38), 5, 5),
@@ -1796,8 +1982,8 @@ def families_path(report, launch_counts):
     """Serving the MoE and recurrent archs at their published widths on
     the card, each phase's weights drawn from ``torch.Generator`` seed 0 on
     the card and freed before the next: llama4-scout (4 of 48 layers: one
-    pattern repetition, MoE top-1 over 16 experts), dbrx (2 of 40: MoE
-    top-4, rep stacking), recurrentgemma (5 of 38: RG-LRU, local
+    pattern repetition, MoE top-1 over 16 experts), dbrx (1 of 40: MoE
+    top-4), recurrentgemma (5 of 38: RG-LRU, local
     attention, the 2-block tail) and xlstm (all 12: mLSTM, sLSTM).  Float32
     at batch 4 and ``seq_len`` 512, the serving path's traffic: every
     request DONE with no retry, failure or fallback and no GUST kernel
@@ -2828,8 +3014,13 @@ def per_data_rank_step(lm, tc, state, batch, dp):
                                  remat=tc.remat, denom=denom, shards=dp)
             g = torch.autograd.grad(part, live, allow_unused=True)
         g = [torch.zeros_like(p) if x is None else x for p, x in zip(live, g)]
-        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        if grads is None:
+            grads = g
+        else:  # in place, the same adds: no third copy of the gradients
+            for a, b in zip(grads, g):
+                a.add_(b)
         loss = loss + part.detach()
+    del g  # the last rank's share is summed: free it before AdamW's new state
     params2, opt2, om = adamw_update(tc.opt, params, tree_unflatten(params, grads),
                                      state["opt"])
     return {"params": params2, "opt": opt2}, {"loss": loss, **om}
@@ -3476,6 +3667,12 @@ def tp_path(report, launch_counts):
 
         # -- (c) each model whole in this process, then (d) its gates ------------------
         for name, spec in TP_MODELS.items():
+            # the last model's first-step state is checked: free it before this
+            # model's state is drawn (llama4's whole step needs ~60 GB)
+            yard = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["models"][name]["whole_start_memory_bytes"] = torch.cuda.memory_allocated()
             cfg, lm, tc = tp_model(spec, TP["steps"])
             zero_launches(launch_counts)
             run = {"state": init_train_state(

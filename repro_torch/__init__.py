@@ -12,6 +12,7 @@ Public API, exported lazily so that ``import repro_torch`` stays cheap:
     >>> repro_torch.triangle_count(A)          # graph analytics (repro_torch.graph)
     >>> layer = repro_torch.GustLinear(w, density=0.1)   # y = layer(x)
     >>> p = repro_torch.plan(M, store=repro_torch.PlanStore(path))  # warm loads
+    >>> repro_torch.verify(leaves, meta)       # GUST-Pxx findings of an artifact
     >>> lm = repro_torch.build_model(repro_torch.get_arch("yi_6b"))  # dense LM
     >>> loop = repro_torch.ServeLoop(lm, lm.init(gen), repro_torch.ServeConfig(
     ...     batch=4, seq_len=512, gust=repro_torch.GustServeConfig()))  # GUST decode
@@ -28,6 +29,11 @@ _EXPORTS = {
     "reschedule": "repro_torch.core.plan",
     "RescheduleResult": "repro_torch.core.plan",
     "PlanStore": "repro_torch.core.plan_store",
+    # the module path, not the package: ``repro_torch.analysis.verify`` is
+    # both a submodule and a lazy export, so the package's attribute turns
+    # with import order; this one is always the function
+    "verify": "repro_torch.analysis.verify",
+    "Finding": "repro_torch.analysis.verify",
     "GustLinear": "repro_torch.core.gust_linear",
     "prune_by_magnitude": "repro_torch.core.gust_linear",
     "FaultPlan": "repro_torch.resilience.faults",
@@ -104,6 +110,7 @@ def __dir__():
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch import configs, graph, launch, models, resilience, serving
+    from repro_torch.analysis.verify import Finding, verify
     from repro_torch.configs.base import ArchConfig, get_arch
     from repro_torch.core.convert import from_reference_params
     from repro_torch.launch.serve import run_serving

@@ -1,12 +1,15 @@
 """CLI for the static analysis legs::
 
     python -m repro_torch.analysis verify <store-dir>   # verify every artifact
-    python -m repro_torch.analysis audit                # kernel resource audit
+    python -m repro_torch.analysis lint                 # policy linter (GUST-L01, L03..L07)
+    python -m repro_torch.analysis audit                # kernel audit (GUST-H01..H07)
+    python -m repro_torch.analysis audit --rings        # GUST-H07 alone
 
 Exit status is nonzero when any check fails.  ``verify`` runs anywhere
-(numpy over the store's files); ``audit`` builds every kernel library
-that is not built yet (``nvcc``) and starts the card's occupancy
-calculator for the launch plans, so it runs on a machine with the card.
+(numpy over the store's files), and so do ``lint`` and ``audit --rings``
+(the sources' text); ``audit`` builds every kernel library that is not
+built yet (``nvcc``) and starts the card's occupancy calculator for the
+launch plans, so it runs on a machine with the card.
 """
 
 from __future__ import annotations
@@ -45,18 +48,30 @@ def _cmd_verify(args: argparse.Namespace) -> int:
 
 
 def _cmd_audit(args: argparse.Namespace) -> int:
-    from repro_torch.analysis.kernel_audit import audit_kernels, default_plans
+    from repro_torch.analysis.kernel_audit import audit_kernels, audit_rings, default_plans
 
-    result = audit_kernels(plans=default_plans())
+    result = audit_rings() if args.rings else audit_kernels(plans=default_plans())
     print(result.report())
+    if args.rings:
+        print(f"audit: {len(result.findings)} finding(s)")
     return 1 if result.findings else 0
+
+
+def _cmd_lint(args: argparse.Namespace) -> int:
+    from repro_torch.analysis.lint import lint_sources
+
+    findings = lint_sources(args.root)
+    for f in findings:
+        print(f)
+    print(f"lint: {len(findings)} finding(s)")
+    return 1 if findings else 0
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="GUST static analysis: artifact verifier, Hopper kernel "
-                    "resource audit.",
+        description="GUST static analysis: artifact verifier, policy linter, "
+                    "Hopper kernel audit.",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -65,8 +80,18 @@ def main(argv=None) -> int:
     p_verify.add_argument("store_dir")
     p_verify.set_defaults(fn=_cmd_verify)
 
+    p_lint = sub.add_parser("lint", help="the port's source policies over "
+                                         "repro_torch/")
+    p_lint.add_argument("root", nargs="?", default=None,
+                        help="repository whose repro_torch/ is linted "
+                             "(default: this one)")
+    p_lint.set_defaults(fn=_cmd_lint)
+
     p_audit = sub.add_parser("audit", help="registers, spills, shared memory "
-                                           "and launch plans of every kernel")
+                                           "and launch plans of every kernel, and "
+                                           "the asynchronous copies of the sources")
+    p_audit.add_argument("--rings", action="store_true",
+                         help="only GUST-H07 over the CUDA sources (no nvcc, no card)")
     p_audit.set_defaults(fn=_cmd_audit)
 
     args = parser.parse_args(argv)

@@ -19,7 +19,14 @@ from typing import Tuple, Union
 import torch
 
 from ..core.formats import GustSchedule
-from ..core.packing import PackedSchedule, RaggedSchedule, default_cache, resolve_gather
+from ..core.packing import (
+    PackedSchedule,
+    RaggedSchedule,
+    default_cache,
+    pack_schedule,
+    packed_spec,
+    resolve_gather,
+)
 from ..resilience import faults
 
 from .gust_spmv import gust_spmv, gust_spmv_db, gust_spmv_local, gust_spmv_local_db
@@ -31,6 +38,10 @@ from .gust_spmv_ragged import (
 )
 
 __all__ = [
+    "PackedSchedule",
+    "RaggedSchedule",
+    "pack_schedule",
+    "packed_spec",
     "execute_spmm",
     "gust_spmm",
     "gust_spmm_auto",

@@ -1,4 +1,4 @@
-"""Core neural layers: norms, embedding, RoPE, MLP (plain PyTorch ops).
+"""Core neural layers: linear, norms, embedding, RoPE, MLP (plain PyTorch ops).
 
 Counterpart of ``repro.models.layers``.  Everything is an
 ``init_*(generator, ...) -> params`` plus an apply function over nested
@@ -40,6 +40,8 @@ import torch.nn.functional as F
 from ..distributed.tensor_parallel import copy_to, reduce_from
 
 __all__ = [
+    "init_linear",
+    "linear",
     "init_norm",
     "rms_norm",
     "layer_norm",
@@ -101,8 +103,25 @@ def _row_parallel(a: torch.Tensor, w: torch.Tensor, dtype, axis) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Norm / embedding
+# Linear / norm / embedding
 # ---------------------------------------------------------------------------
+
+
+def init_linear(gen, d_in: int, d_out: int, *, bias: bool = False):
+    """``{"w": (d_in, d_out)}`` He-initialized on ``gen``'s device, with a
+    zero ``"b": (d_out,)`` when ``bias``."""
+    p = {"w": _he(gen, (d_in, d_out))}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=_device(gen))
+    return p
+
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w (+ b)`` accumulated in float32 and cast to ``x.dtype``."""
+    y = _matmul_to(x, p["w"], torch.float32)
+    if "b" in p:
+        y = y + p["b"]
+    return y.to(x.dtype)
 
 
 def init_norm(d: int, *, kind: str = "rms", gen: Optional[torch.Generator] = None):

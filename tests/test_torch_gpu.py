@@ -1319,6 +1319,40 @@ def test_verify_card_artifacts_have_no_finding(cuda, layout, vdt, idt):
     assert {f.rule for f in verify(dataclasses.replace(art, row_blk=row))} == {"GUST-P14"}
 
 
+def test_ring_audit_has_no_finding(cuda):
+    """GUST-H07 over the sources the card built from: every asynchronous
+    copy of the spread template waited on before it is read."""
+    from repro_torch.analysis.kernel_audit import audit_rings
+
+    result = audit_rings()
+    assert result.findings == [], result.report()
+    assert "4 instances" in result.checked["gust_spread.cuh"]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_on_card_matches_cpu(cuda, bias, dtype):
+    """``layers.linear`` on the card against the same call on the CPU:
+    float32 products (TF32 off) within 1e-5 of the largest output, and at
+    bf16 one bf16 spacing of each output more."""
+    from repro_torch.models.layers import init_linear, linear
+
+    p = init_linear(torch.Generator(device=cuda).manual_seed(0), 256, 192, bias=bias)
+    assert all(v.device.type == "cuda" for v in p.values())
+    if bias:
+        p["b"] = torch.randn(192, generator=torch.Generator(device=cuda).manual_seed(1),
+                             device=cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((4, 7, 256))
+                         .astype(np.float32)).to(dtype)
+    want = linear({k: v.cpu() for k, v in p.items()}, x).float()
+    got = linear(p, x.to(cuda))
+    assert got.dtype == dtype and got.device.type == "cuda"
+    tol = 1e-5 * want.abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.abs()
+    assert torch.all((got.float().cpu() - want).abs() <= tol)
+
+
 def test_resource_audit_has_no_finding(cuda):
     """Every library's ptxas report and the launch plans of every spread
     library (each value type, int16 indices, B = 1 and 8) and of the
